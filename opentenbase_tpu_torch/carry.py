@@ -1,0 +1,76 @@
+"""Carry a table's stored state into a port cluster: the database's
+counterpart of carrying weights across.
+
+The rows go in unchanged — column data, validity and the per-row commit
+timestamps — so a port cluster answers over exactly the state another
+deployment holds (the parity tests read the arrays out of a reference
+cluster's stores and hand them over as numpy arrays).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from opentenbase_tpu_torch.storage.column import Column
+from opentenbase_tpu_torch.storage.table import (
+    INF_TS,
+    PENDING_TS,
+    RESERVED_TS,
+    ColumnBatch,
+)
+
+
+def load_table(cluster, table: str, per_node_columns: dict,
+               per_node_xmin: dict, per_node_xmax: dict) -> int:
+    """Append each datanode's rows to ``cluster.stores[node][table]``.
+
+    ``per_node_columns``: node -> column name -> ``(data, validity)``
+    numpy arrays (validity None = no NULLs), every column of the table;
+    ``per_node_xmin`` / ``per_node_xmax``: node -> int64 commit
+    timestamps per row (xmax INF_TS for a live row). The cluster's clock
+    moves past every carried commit timestamp, so a later read sees
+    what the source saw. Returns the rows loaded."""
+    meta = cluster.catalog.get(table)
+    total = 0
+    top = 0
+    for node, cols in per_node_columns.items():
+        if node not in meta.node_indices:
+            raise ValueError(f"node {node} holds no shard of {table!r}")
+        missing = set(meta.schema) - set(cols)
+        if missing:
+            raise ValueError(f"missing columns {sorted(missing)}")
+        xmin = np.asarray(per_node_xmin[node], dtype=np.int64)
+        xmax = np.asarray(per_node_xmax[node], dtype=np.int64)
+        n = len(xmin)
+        if len(xmax) != n:
+            raise ValueError("xmin and xmax differ in length")
+        batch = ColumnBatch(
+            {
+                name: Column(
+                    ty, np.asarray(cols[name][0]),
+                    None if cols[name][1] is None
+                    else np.asarray(cols[name][1], dtype=np.bool_),
+                )
+                for name, ty in meta.schema.items()
+            },
+            n,
+        )
+        for name, c in batch.columns.items():
+            if len(c) != n:
+                raise ValueError(f"column {name} has {len(c)} rows, not {n}")
+        store = cluster.stores[node][table]
+        start, _ = store.append_batch(batch, PENDING_TS)
+        # stamp each run of equal xmin, then each distinct finite xmax
+        bounds = np.flatnonzero(np.diff(xmin)) + 1
+        for s, e in zip(np.r_[0, bounds], np.r_[bounds, n]):
+            if e > s:
+                store.stamp_xmin(start + int(s), start + int(e), int(xmin[s]))
+        for ts in np.unique(xmax[xmax != INF_TS]):
+            store.stamp_xmax(start + np.flatnonzero(xmax == ts), int(ts))
+        stamps = np.concatenate([xmin, xmax])
+        committed = stamps[stamps < RESERVED_TS]
+        if committed.size:
+            top = max(top, int(committed.max()))
+        total += n
+    cluster.gts.advance_to(top)
+    return total
