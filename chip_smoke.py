@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (opentenbase_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 42] [--rows 60000000] [--repeats 5]
+    python3 chip_smoke.py [--seed 42] [--rows 60000000]
+                          [--ssb-rows 60000000] [--repeats 5]
 
 Phases, one line each; any failure raises and exits non-zero:
 
 1. card: the nvidia-smi name and power limit, and torch's device name;
-2. build: every kernel of the main path compiled from csrc/ (nvcc);
+2. build: every kernel compiled from csrc/ (one nvcc each, in parallel),
+   with the registers, spills and shared memory ptxas reports;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, exactly equal, over int32/int64/bool columns, G=1 and G=6,
+   card, exactly equal. scan_agg: int32/int64/bool columns, G=1 and G=6,
    compact and full MVCC planes with invisible rows, ragged shards and
-   one empty shard;
-4. main path: Cluster(num_datanodes=2) on cuda, CREATE TABLE lineitem, a
-   bulk append of ``--rows`` rows (60 M = TPC-H SF10, as bench.py
-   measures it) made from ``--seed``, then TPC-H Q6 and Q1 through
-   Session.query. The answers must equal a numpy computation over the
-   same arrays exactly, and every kernel of the path must have launched;
-5. timing: median end-to-end ms per query, the layers each timed on its
-   own, the device busy and idle share of single queries from a
-   torch.profiler trace, kernel ms from CUDA events, the plain
-   version's ms, and the bytes-over-bandwidth bound.
+   one empty shard. radix_probe: the reference test's data, int32 and
+   int64 keys, keys near +-2^62, dead and NULL probe rows, an empty
+   build, every pass of a multi-pass plan, duplicate build keys;
+4. main path, TPC-H: Cluster(num_datanodes=2) on cuda, CREATE TABLE
+   lineitem, a bulk append of ``--rows`` rows (60 M = TPC-H SF10, as
+   bench.py measures it) made from ``--seed``, then Q6 and Q1 through
+   Session.query through the scan-aggregate kernel;
+5. main path, SSB: a second cluster holding SSB lineorder (``--ssb-rows``,
+   60 M = SF10, round robin over 2 datanodes) and DATE (replicated),
+   then query flight 1 (Q1.1-Q1.3) through Session.query: a star join
+   through the fused DAG and the radix-probe kernel. Every answer must
+   equal a numpy computation over the same arrays exactly, and every
+   kernel of each path must have launched in that path's run (counts
+   set to 0 just before it and read just after);
+6. timing, per path: median end-to-end ms per query, the layers each
+   timed on its own, the device busy and idle share of single queries
+   from a torch.profiler trace, kernel ms from CUDA events at the main
+   path's own inputs (held against the plain version there too), the
+   plain version's ms, and the bytes-over-bandwidth bound.
 
 The second-to-last lines are the kernel table as JSON and the nvidia-smi
 line; the last line is the run's verdict as JSON. The script imports
@@ -80,9 +91,98 @@ def make_lineitem(n: int, seed: int = 42):
     }
 
 
+SSB_DDL = (
+    "create table lineorder (lo_orderdate int, lo_quantity int, "
+    "lo_discount int, lo_extendedprice bigint) distribute by roundrobin",
+    "create table date_dim (d_datekey int, d_year int, d_yearmonthnum int, "
+    "d_weeknuminyear int) distribute by replication",
+)
+SSB_Q = {
+    "Q1.1": (
+        "select sum(lo_extendedprice * lo_discount) as revenue "
+        "from lineorder, date_dim where lo_orderdate = d_datekey "
+        "and d_year = 1993 and lo_discount between 1 and 3 "
+        "and lo_quantity < 25"
+    ),
+    "Q1.2": (
+        "select sum(lo_extendedprice * lo_discount) as revenue "
+        "from lineorder, date_dim where lo_orderdate = d_datekey "
+        "and d_yearmonthnum = 199401 and lo_discount between 4 and 6 "
+        "and lo_quantity between 26 and 35"
+    ),
+    "Q1.3": (
+        "select sum(lo_extendedprice * lo_discount) as revenue "
+        "from lineorder, date_dim where lo_orderdate = d_datekey "
+        "and d_weeknuminyear = 6 and d_year = 1994 "
+        "and lo_discount between 5 and 7 and lo_quantity between 26 and 35"
+    ),
+}
+# SSB spec rev. 3: DATE has 2556 rows; lineorder's dates span the first
+# 2405 of them
+SSB_DATES = 2556
+SSB_ORDER_DATES = 2405
+
+
+def make_date_dim():
+    """SSB's DATE table (spec rev. 3, section 2): 2556 rows, one a day
+    from 1992-01-01 (as SSB's dbgen makes them, so the last is
+    1998-12-30), keyed yyyymmdd; the four columns flight 1 reads. The
+    week number counts 7-day runs from January 1 (1-53)."""
+    days = np.datetime64("1992-01-01") + np.arange(SSB_DATES)
+    year = days.astype("datetime64[Y]").astype(np.int64) + 1970
+    month = days.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    mday = (days - days.astype("datetime64[M]")).astype(np.int64) + 1
+    yday = (days - days.astype("datetime64[Y]")).astype(np.int64) + 1
+    return {
+        "d_datekey": (year * 10000 + month * 100 + mday).astype(np.int32),
+        "d_year": year.astype(np.int32),
+        "d_yearmonthnum": (year * 100 + month).astype(np.int32),
+        "d_weeknuminyear": ((yday - 1) // 7 + 1).astype(np.int32),
+    }
+
+
+def make_lineorder(n: int, date_dim, seed: int = 42):
+    """SSB lineorder's four flight-1 columns from ``seed``: an order date
+    uniform over the first 2405 dates, quantity 1-50, discount 0-10, and
+    the extended price as quantity times a retail price in
+    [90000, 209999]."""
+    rng = np.random.default_rng(seed)
+    qty = rng.integers(1, 51, n).astype(np.int32)
+    keys = date_dim["d_datekey"][:SSB_ORDER_DATES]
+    return {
+        "lo_orderdate": keys[rng.integers(0, SSB_ORDER_DATES, n)],
+        "lo_quantity": qty,
+        "lo_discount": rng.integers(0, 11, n).astype(np.int32),
+        "lo_extendedprice": qty.astype(np.int64)
+        * rng.integers(90_000, 210_000, n),
+    }
+
+
+def expected_ssb(lo, dd, q: str) -> list:
+    """Flight 1's answer in numpy over the same arrays: each order date's
+    DATE row by its (unique) key, the filters, the exact int64 sum."""
+    order = np.argsort(dd["d_datekey"])
+    pos = order[np.searchsorted(dd["d_datekey"], lo["lo_orderdate"],
+                                sorter=order)]
+    year, ym, week = (dd[c][pos] for c in (
+        "d_year", "d_yearmonthnum", "d_weeknuminyear"))
+    disc, qty = lo["lo_discount"], lo["lo_quantity"]
+    m = {
+        "Q1.1": (year == 1993) & (disc >= 1) & (disc <= 3) & (qty < 25),
+        "Q1.2": (ym == 199401) & (disc >= 4) & (disc <= 6)
+        & (qty >= 26) & (qty <= 35),
+        "Q1.3": (week == 6) & (year == 1994) & (disc >= 5) & (disc <= 7)
+        & (qty >= 26) & (qty <= 35),
+    }[q]
+    if not m.any():
+        return [(None,)]
+    return [(int(np.sum(lo["lo_extendedprice"][m] * disc[m])),)]
+
+
 def bulk_append(cluster, table: str, arrays) -> None:
     """Pre-sharded append straight into the stores at one commit
-    timestamp (bench.py's _bulk_append)."""
+    timestamp (bench.py's _bulk_append): a replicated table gets every
+    row on every replica."""
     from opentenbase_tpu_torch.storage.column import Column
     from opentenbase_tpu_torch.storage.table import ColumnBatch
 
@@ -91,7 +191,10 @@ def bulk_append(cluster, table: str, arrays) -> None:
     nn = len(meta.node_indices)
     commit_ts = cluster.gts.get_gts()
     for i, node in enumerate(meta.node_indices):
-        sl = slice(i * n // nn, (i + 1) * n // nn)
+        sl = (
+            slice(0, n) if meta.dist.is_replicated
+            else slice(i * n // nn, (i + 1) * n // nn)
+        )
         cols = {
             name: Column(meta.schema[name], arrays[name][sl])
             for name in meta.schema
@@ -360,13 +463,13 @@ def trace_query(session, sql: str, repeats: int) -> dict:
     return runs[len(runs) // 2]
 
 
-def layer_breakdown(cluster, sql: str, repeats: int) -> dict:
+def layer_breakdown(cluster, sql: str, repeats: int, dag: bool = False):
     """Median ms of one warm query's layers, each timed on its own:
-    parse + analyze + optimize + distribute on the host; the fused
-    fragment (device-cache hit, kernel launch, copy of the partials to
-    the host); the coordinator merge; and the device time of the
-    fragment from CUDA events around it (output zeroing, the kernel, the
-    copy back)."""
+    parse + analyze + optimize + distribute on the host; the device path
+    on the host clock — the fused fragment (K1's route) or, with ``dag``,
+    the fused DAG (device-cache hit, program, launches, the copies back
+    to the host); the coordinator merge; and the device time of the
+    device path from CUDA events around it."""
     import torch
 
     from opentenbase_tpu_torch.executor.local import LocalExecutor
@@ -377,7 +480,9 @@ def layer_breakdown(cluster, sql: str, repeats: int) -> dict:
 
     fx = cluster.fused_executor()
     cat = cluster.catalog
-    out = {"plan": [], "fragment": [], "fragment_device": [], "merge": []}
+    host, dev = ("dag", "dag_device") if dag else (
+        "fragment", "fragment_device")
+    out = {"plan": [], host: [], dev: [], "merge": []}
     for _ in range(repeats):
         t0 = time.perf_counter()
         dplan = distribute_statement(optimize_statement(
@@ -385,17 +490,20 @@ def layer_breakdown(cluster, sql: str, repeats: int) -> dict:
         t1 = time.perf_counter()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        snap = cluster.gts.snapshot_ts()
         a.record()
-        part = fx.fragment_output(dplan.fragments[0],
-                                  cluster.gts.snapshot_ts())
+        if dag:
+            idx, part = fx.dag_output(dplan, snap)
+        else:
+            idx, part = 0, fx.fragment_output(dplan.fragments[0], snap)
         b.record()
         t2 = time.perf_counter()
-        LocalExecutor(cat, {0: part}).run_plan(dplan.root)
+        LocalExecutor(cat, {idx: part}).run_plan(dplan.root)
         t3 = time.perf_counter()
         torch.cuda.synchronize()
         out["plan"].append((t1 - t0) * 1e3)
-        out["fragment"].append((t2 - t1) * 1e3)
-        out["fragment_device"].append(a.elapsed_time(b))
+        out[host].append((t2 - t1) * 1e3)
+        out[dev].append(a.elapsed_time(b))
         out["merge"].append((t3 - t2) * 1e3)
     return {k: statistics.median(v) for k, v in out.items()}
 
@@ -442,10 +550,304 @@ def time_kernels(main: dict, card: str, rate: float) -> list:
     return rows
 
 
+def ptxas_summary(log) -> str:
+    """One line of what ptxas reported per kernel: registers, stack,
+    spills, shared memory (or that the library was already built)."""
+    if log is None:
+        return "library already built (no ptxas report in this run)"
+    keep = []
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            keep.append(line.split("'")[1] if "'" in line else line)
+        elif "Used" in line or "spill" in line:
+            keep.append(line.replace("ptxas info    : ", ""))
+    return "; ".join(keep) or log.strip()
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: radix_probe against its plain version
+# ---------------------------------------------------------------------------
+
+
+def radix_cases(device, seed: int):
+    """(name, build keys, build real, probe keys, probe real, P, B)
+    cases covering the kernel's branches: the reference test's data
+    (tests/test_join_device.py:176), int32 keys, keys near +-2^62, dead
+    and NULL probe rows, an empty build, duplicate build keys. Multi-pass
+    plans are checked pass by pass in ``check_radix_vs_plain``."""
+    from opentenbase_tpu_torch.plan import batchplan
+
+    rng = np.random.default_rng(seed)
+
+    def plan(nb, npr):
+        p = batchplan.plan_radix_join(
+            nb, npr, batchplan.DEFAULT_EXCHANGE_BUDGET)
+        return (p.partitions, p.bucket) if p is not None else (1, 8)
+
+    out = []
+    nb, npr = 1500, 4000
+    bk = (rng.permutation(np.arange(5000))[:nb] * 9 - 10**10).astype(
+        np.int64)
+    breal = rng.random(nb) > 0.1
+    pk = np.concatenate([bk[rng.integers(0, nb, npr - 300)],
+                         rng.integers(-(10**14), 10**14, 300)])
+    preal = rng.random(npr) > 0.1
+    out.append(("reference test data, int64", bk, breal, pk, preal,
+                *plan(nb, npr)))
+    bk32 = (rng.permutation(np.arange(1 << 20))[:50_000] * 37 - 2**30)
+    pk32 = np.concatenate([bk32[rng.integers(0, 50_000, 150_000)],
+                           rng.integers(-(2**31), 2**31 - 1, 50_000)])
+    out.append(("int32 keys", bk32.astype(np.int32),
+                np.ones(50_000, bool), pk32.astype(np.int32),
+                np.ones(200_000, bool), *plan(50_000, 200_000)))
+    wide = rng.integers(-(2**62), 2**62, 20_000, dtype=np.int64)
+    wide[:4] = [2**62, -(2**62), 2**62 - 1, -(2**62) + 1]
+    pw = np.concatenate([wide[rng.integers(0, 20_000, 60_000)],
+                         rng.integers(-(2**62), 2**62, 20_000)])
+    out.append(("keys near +-2^62", wide, np.ones(20_000, bool), pw,
+                np.ones(80_000, bool), *plan(20_000, 80_000)))
+    dead = rng.random(80_000) > 0.5  # half the probe rows dead or NULL
+    out.append(("dead and NULL probe rows", wide, rng.random(20_000) > 0.2,
+                pw, dead, *plan(20_000, 80_000)))
+    out.append(("empty build", np.zeros(0, np.int64), np.zeros(0, bool),
+                pw, np.ones(80_000, bool), 1, 8))
+    dups = np.repeat(rng.integers(-50, 50, 600), 3).astype(np.int64)
+    pd_ = rng.integers(-60, 60, 7000).astype(np.int64)
+    out.append(("duplicate build keys", dups, np.ones(1800, bool), pd_,
+                np.ones(7000, bool), *plan(1800, 7000)))
+    return [(n, *[torch_from(x, device) for x in (b, br, p, pr)], P, B)
+            for n, b, br, p, pr, P, B in out]
+
+
+def torch_from(a, device):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _radix_equal(name, table, pk, preal, P, B, card, extra=""):
+    import torch
+
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+
+    km, kb = rp.radix_probe(*table, pk, preal, P, B)
+    pm, pb = rp.radix_probe_plain(*table, pk, preal, P, B)
+    torch.cuda.synchronize()
+    if not (torch.equal(km, pm) and torch.equal(kb, pb)):
+        raise AssertionError(f"radix_probe {name}: kernel != plain")
+    print(f"kernel vs plain: radix_probe {name} equal (P={P}, B={B}, "
+          f"{pk.shape[0]} {str(pk.dtype).split('.')[-1]} probe rows, "
+          f"{int(km.sum())} matched{extra}) [{card}]", flush=True)
+    return km
+
+
+def check_radix_vs_plain(device, seed: int, card: str) -> None:
+    """radix_probe against radix_probe_plain on the card, exactly equal
+    (matched everywhere, bidx everywhere: both write 0 on a miss)."""
+    import torch
+
+    from opentenbase_tpu_torch.executor import fused_dag
+    from opentenbase_tpu_torch.ops import join as join_ops
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.plan import batchplan
+
+    n0 = rp.radix_probe.launches
+    for name, bk, breal, pk, preal, P, B in radix_cases(device, seed):
+        *table, dup, ovf = join_ops.build_radix_table(bk, breal, P, B)
+        m = _radix_equal(name, table, pk, preal, P, B, card,
+                         f", dup flag {bool(dup)}, overflow {bool(ovf)}")
+        if name == "duplicate build keys" and not bool(dup):
+            raise AssertionError("radix_probe: the dup flag did not fire")
+        if name != "empty build" and not bool(m.any()):
+            raise AssertionError(f"radix_probe {name}: nothing matched")
+    # a multi-pass plan: every pass's table, then the DAG's lookup over
+    # all passes against the sort-merge lookup
+    rng = np.random.default_rng(seed + 1)
+    nb, npr = 200_000, 1_000_000
+    bk = torch_from(rng.permutation(np.arange(4 * nb))[:nb], device)
+    pk = torch_from(np.concatenate([
+        bk.cpu().numpy()[rng.integers(0, nb, npr - 100_000)],
+        rng.integers(4 * nb, 8 * nb, 100_000)]), device)
+    bmask = torch_from(rng.random(nb) > 0.1, device)
+    pmask = torch_from(rng.random(npr) > 0.1, device)
+    budget, plan = 1 << 16, None
+    while plan is None:  # the least budget that admits a plan
+        budget *= 2
+        plan = batchplan.plan_radix_join(nb, npr, budget)
+    if plan.passes < 2:
+        raise AssertionError(f"radix_probe: no multi-pass plan ({plan})")
+    chunk = -(-nb // plan.passes)
+    for p in range(plan.passes):
+        s0, e0 = p * chunk, min((p + 1) * chunk, nb)
+        *table, _d, _o = join_ops.build_radix_table(
+            bk[s0:e0], bmask[s0:e0], plan.partitions, plan.bucket)
+        _radix_equal(f"multi-pass plan, pass {p + 1} of {plan.passes}",
+                     table, pk, pmask, plan.partitions, plan.bucket, card)
+    got = fused_dag._lookup_radix((pk, None), pmask, (bk, None), bmask,
+                                  budget, fused_dag._lookup)
+    want = fused_dag._lookup((pk, None), pmask, (bk, None), bmask,
+                             check_dup=True)
+    m = want[0]
+    if bool(got[2]) or not torch.equal(got[0], m) or not torch.equal(
+            got[1][m], want[1][m]):
+        raise AssertionError("multi-pass _lookup_radix != sort-merge")
+    print(f"kernel vs plain: multi-pass _lookup_radix ({plan.passes} "
+          f"passes) equals the sort-merge lookup ({int(m.sum())} matched) "
+          f"[{card}]", flush=True)
+    rp.radix_probe.launches = n0  # comparison launches are not counted
+
+
+# ---------------------------------------------------------------------------
+# phase 5: SSB flight 1 through the fused DAG
+# ---------------------------------------------------------------------------
+
+
+def run_ssb_path(args, device, card: str) -> dict:
+    import torch
+
+    from opentenbase_tpu_torch import Cluster
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    t0 = time.perf_counter()
+    dd = make_date_dim()
+    lo = make_lineorder(args.ssb_rows, dd, args.seed)
+    cluster = Cluster(num_datanodes=2, device=device)
+    s = cluster.session()
+    for ddl in SSB_DDL:
+        s.execute(ddl)
+    bulk_append(cluster, "lineorder", lo)
+    bulk_append(cluster, "date_dim", dd)
+    print(f"load: SSB lineorder {args.ssb_rows} rows in 2 datanodes, DATE "
+          f"{len(dd['d_datekey'])} rows replicated, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    want = {q: expected_ssb(lo, dd, q) for q in SSB_Q}
+    runner = None
+    first_ms, launches, modes = {}, {}, {}
+    for q, sql in SSB_Q.items():
+        rp.radix_probe.launches = 0
+        sa.scan_agg.launches = 0
+        t1 = time.perf_counter()
+        got = s.query(sql)
+        torch.cuda.synchronize()
+        first_ms[q] = (time.perf_counter() - t1) * 1000
+        launches[q] = rp.radix_probe.launches
+        runner = cluster.fused_executor()._dag
+        modes[q] = runner.last_join_modes
+        if got != want[q]:
+            raise AssertionError(f"{q}: port {got} != numpy {want[q]}")
+        if launches[q] < 1:
+            raise AssertionError(f"{q}: radix_probe never launched")
+        if "radix" not in modes[q]:
+            raise AssertionError(f"{q}: join modes {modes[q]} lack radix")
+        print(f"main path: SSB {q} exact through the fused DAG (join modes "
+              f"{modes[q]}, radix_probe launches {launches[q]}, scan_agg "
+              f"launches {sa.scan_agg.launches}; first run incl. upload "
+              f"{first_ms[q]:.3f} ms) {got} [{card}]", flush=True)
+    e2e = {}
+    for q, sql in SSB_Q.items():
+        ts = []
+        for _ in range(args.repeats):
+            t1 = time.perf_counter()
+            got = s.query(sql)
+            ts.append((time.perf_counter() - t1) * 1000)
+            if got != want[q]:
+                raise AssertionError(f"{q}: answer changed between runs")
+        e2e[q] = statistics.median(ts)
+        print(f"end to end: SSB {q} median {e2e[q]:.3f} ms over "
+              f"{args.repeats} runs (join modes {runner.last_join_modes}), "
+              f"{args.ssb_rows / e2e[q] * 1e3:.4g} rows/s [{card}]",
+              flush=True)
+    breakdown = {q: layer_breakdown(cluster, sql, args.repeats, dag=True)
+                 for q, sql in SSB_Q.items()}
+    for q, b in breakdown.items():
+        print(f"layers: SSB {q} median ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in b.items()) + f" [{card}]", flush=True)
+    trace = {}
+    for q, sql in SSB_Q.items():
+        trace[q] = tr = trace_query(s, sql, args.repeats)
+        idle = ("not measured (no device events in the trace)"
+                if tr["idle_share"] is None else f"{tr['idle_share']:.4f}")
+        print(f"trace: SSB {q} one query under torch.profiler, median of "
+              f"{args.repeats}: host {tr['wall_ms']:.3f} ms, device busy "
+              f"{tr['busy_ms']:.3f} ms, idle share {idle}; device events "
+              f"{len(tr['events'])} kinds [{card}]", flush=True)
+    return {"cluster": cluster, "session": s, "e2e": e2e,
+            "launches": launches, "breakdown": breakdown, "trace": trace,
+            "first_ms": first_ms}
+
+
+def capture_probe_inputs(ssb: dict, sql: str):
+    """The arguments the fused DAG hands radix_probe for ``sql``: one more
+    warm run with the DAG's handle on the wrapper swapped for a recorder
+    that delegates to it (so the launch still counts nowhere that a
+    check reads)."""
+    import types
+
+    from opentenbase_tpu_torch.executor import fused_dag
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+
+    calls = []
+
+    def record(*a):
+        calls.append(a)
+        return rp.radix_probe(*a)
+
+    fused_dag.rp = types.SimpleNamespace(radix_probe=record)
+    try:
+        ssb["session"].query(sql)
+    finally:
+        fused_dag.rp = rp
+    if len(calls) != 1:
+        raise AssertionError(f"expected one probe, saw {len(calls)}")
+    return calls[0]
+
+
+def time_radix(ssb: dict, card: str, rate: float) -> list:
+    """radix_probe's kernel, plain-version and bound times at the main
+    path's own inputs (the SF10 shapes), held equal to the plain version
+    there too. Bound: the bytes the probe must move (ops/radix_probe
+    probe_bytes: each row's real flag read and its matched flag and bidx
+    written, the real rows' keys, the table once) over the HBM rate."""
+    import torch
+
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+
+    rows = []
+    n0 = rp.radix_probe.launches
+    for q, sql in SSB_Q.items():
+        args = capture_probe_inputs(ssb, sql)
+        tk, tv, ti, pk, preal, P, B = args
+        km, kb = rp.radix_probe(*args)
+        pm, pb = rp.radix_probe_plain(*args)
+        torch.cuda.synchronize()
+        err = max(int((km != pm).sum()), int((kb - pb).abs().max()))
+        if err:
+            raise AssertionError(f"radix_probe {q}: kernel != plain")
+        ms = _cuda_ms(lambda: rp.radix_probe(*args), 20)
+        plain_ms = _cuda_ms(lambda: rp.radix_probe_plain(*args), 3)
+        n = pk.shape[0]
+        nbytes = rp.probe_bytes(tk, pk, preal)
+        bound = nbytes / rate * 1e3
+        rows.append({
+            "query": q, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "bytes": nbytes, "max_abs_err": float(err),
+        })
+        print(f"kernel: radix_probe SSB {q} {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} bytes at "
+              f"{rate / 1e12:.2f} TB/s; P={P}, B={B}, {n} probe rows, "
+              f"{int(preal.sum())} real, {int(km.sum())} matched) [{card}]",
+              flush=True)
+    rp.radix_probe.launches = n0  # timing launches are not counted
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--rows", type=int, default=60_000_000)
+    ap.add_argument("--ssb-rows", type=int, default=60_000_000)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
 
@@ -459,6 +861,8 @@ def main(argv=None) -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from opentenbase_tpu_torch.ops import cuda_build
+    from opentenbase_tpu_torch.ops import radix_probe as rp
     from opentenbase_tpu_torch.ops import scan_agg as sa
 
     card = card_line()
@@ -470,14 +874,27 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    sa.build()
+    libs = cuda_build.build(*cuda_build.SOURCES)
     sa._load()
-    print(f"build: csrc/scan_agg.cu in {time.perf_counter() - t0:.3f} s",
+    rp._load()
+    print(f"build: {', '.join('csrc/' + k for k in libs)} in "
+          f"{time.perf_counter() - t0:.3f} s (one nvcc each, in parallel)",
           flush=True)
+    for src in libs:
+        report = ptxas_summary(cuda_build.ptxas_logs.get(src))
+        print(f"build: csrc/{src}: {report}", flush=True)
 
     check_kernel_vs_plain(device, args.seed, card)
+    check_radix_vs_plain(device, args.seed, card)
     main_run = run_main_path(args, device, card)
     rows = time_kernels(main_run, card, rate)
+    e2e_tpch, layers_tpch, trace_tpch, launches_tpch = (
+        main_run["e2e"], main_run["breakdown"], main_run["trace"],
+        main_run["launches"])
+    del main_run  # free lineitem's planes before SSB loads
+    torch.cuda.empty_cache()
+    ssb_run = run_ssb_path(args, device, card)
+    radix_rows = time_radix(ssb_run, card, rate)
 
     kernels = []
     for r in rows:
@@ -486,7 +903,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "opentenbase_tpu_torch/csrc/scan_agg.cu",
             "replaces": "opentenbase_tpu/ops/pallas_scan.py:317",
-            "launches": main_run["launches"][r["query"]],
+            "launches": launches_tpch[r["query"]],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -494,11 +911,31 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
         })
+    for r in radix_rows:
+        kernels.append({
+            "name": f"radix_probe ({r['query']} shape)",
+            "route": "cuda",
+            "source": "opentenbase_tpu_torch/csrc/radix_probe.cu",
+            "replaces": "opentenbase_tpu/ops/pallas_join.py:85",
+            "launches": ssb_run["launches"][r["query"]],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
+    # the JSON counts each trace's device event kinds; the trace lines
+    # of the TPC-H queries name them
+    trace = {q: {**{k: v for k, v in tr.items() if k != "events"},
+                 "event_kinds": len(tr["events"])}
+             for q, tr in {**trace_tpch, **ssb_run["trace"]}.items()}
     print(json.dumps({"kernels": kernels,
-                      "e2e_ms": main_run["e2e"],
-                      "layers_ms": main_run["breakdown"],
-                      "trace": main_run["trace"],
-                      "rows": args.rows, "card": card}))
+                      "e2e_ms": {**e2e_tpch, **ssb_run["e2e"]},
+                      "layers_ms": {**layers_tpch, **ssb_run["breakdown"]},
+                      "trace": trace,
+                      "rows": args.rows, "ssb_rows": args.ssb_rows,
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -35,8 +35,9 @@
 //   depend on the order blocks run in.
 //
 // Built by nvcc into a shared library with a plain C interface
-// (ops/scan_agg.py: build / _load); ScanAggParams is mirrored there by a
-// ctypes.Structure whose size is checked against scan_agg_params_size().
+// (ops/cuda_build.py builds it, ops/scan_agg.py _load binds it);
+// ScanAggParams is mirrored there by a ctypes.Structure whose size is
+// checked against scan_agg_params_size().
 
 #include <cstdint>
 #include <cuda_runtime.h>

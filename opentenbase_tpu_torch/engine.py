@@ -1,10 +1,11 @@
 """Cluster and Session: the SQL entry point of the port (subset of the
 reference's opentenbase_tpu/engine.py).
 
-Statements: ``create table ... distribute by roundrobin|shard(...)``,
-``insert ... values`` of literals, and ``select`` through analyze ->
-optimize -> distribute -> the fused device fragment -> the coordinator
-merge. Anything else raises NotPorted.
+Statements: ``create table ... distribute by
+roundrobin|shard(...)|replication``, ``insert ... values`` of literals,
+and ``select`` through analyze -> optimize -> distribute -> the device
+(the fused single fragment, or the fused DAG for joins) -> the
+coordinator merge. Anything else raises NotPorted.
 
 Commit timestamps come from ``cluster.gts``, a monotone in-process
 counter in place of the reference's GTS: a write commits at the next
@@ -187,6 +188,8 @@ class Session:
     @staticmethod
     def _dist_spec(stmt: A.CreateTable) -> DistributionSpec:
         s = (stmt.distribute_strategy or "").lower()
+        if s in ("replication", "replicated"):
+            return DistributionSpec(DistStrategy.REPLICATED)
         if s == "roundrobin":
             return DistributionSpec(DistStrategy.ROUNDROBIN)
         if s == "shard":
@@ -266,8 +269,10 @@ class Session:
                 )
         batch = ColumnBatch({k: cols[k] for k in meta.schema}, n)
         ts = self.cluster.gts.get_gts()
-        if meta.dist.is_replicated:
-            raise NotPorted("replicated tables")
+        if meta.dist.is_replicated:  # every replica holds every row
+            for node in meta.node_indices:
+                self.cluster.stores[node][meta.name].append_batch(batch, ts)
+            return Result("INSERT", rowcount=n)
         key_cols = {k: batch.columns[k] for k in meta.dist.key_columns}
         routes = meta.locator.route_insert(key_cols, n)
         for node in np.unique(routes):
@@ -284,16 +289,17 @@ class Session:
         dplan = distribute_statement(splan, catalog)
         if dplan.subplans:
             raise NotPorted("scalar subqueries")
-        if len(dplan.fragments) != 1:
-            raise NotPorted(
-                f"plan with {len(dplan.fragments)} fragments (joins and "
-                "FROM-less selects are not ported)"
-            )
         snapshot = self.cluster.gts.snapshot_ts()
-        out = self.cluster.fused_executor().fragment_output(
-            dplan.fragments[0], snapshot
-        )
-        batch = LocalExecutor(catalog, {0: out}).run_plan(dplan.root)
+        fx = self.cluster.fused_executor()
+        # the reference's order: a single fragment tries the kernel's
+        # route; what it does not take, and every multi-fragment (join)
+        # plan, goes to the fused DAG
+        out, final_idx = None, 0
+        if len(dplan.fragments) == 1:
+            out = fx.fragment_output(dplan.fragments[0], snapshot)
+        if out is None:
+            final_idx, out = fx.dag_output(dplan, snapshot)
+        batch = LocalExecutor(catalog, {final_idx: out}).run_plan(dplan.root)
         return Result(
             "SELECT", batch.to_rows(), batch.column_names(), batch.nrows
         )

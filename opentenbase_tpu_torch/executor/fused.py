@@ -7,14 +7,17 @@ leading tensor dimension, where the reference spread it over a device
 mesh. An eligible fragment (scan -> filter/project chain -> partial
 aggregate, gathered to the coordinator) runs as one launch of the
 scan-aggregate kernel (ops/scan_agg.py) and yields the per-shard partial
-rows the coordinator merges.
+rows the coordinator merges. Any other plan goes to ``dag_output``, the
+fused DAG (executor/fused_dag.py), which runs joins under a scalar
+aggregate over the same cached planes.
 
-Ported: the full upload of ``DeviceCache`` (compact [S, 1] MVCC planes
-when every shard is uniform), the host column stats the certifier reads,
-the fragment matcher, and the kernel route of ``fragment_output``. Not
-ported: delta-tail uploads, MVCC replay, zone windows, chunked scans and
-the XLA-fused program — a fragment the kernel does not take raises
-NotPorted.
+Ported: the full upload of ``DeviceCache`` for any table (all shards, or
+one replica of a replicated table; compact [S, 1] MVCC planes when every
+shard is uniform), the host column stats the certifier reads, the
+fragment matcher, the kernel route of ``fragment_output`` and
+``dag_output``. Not ported: delta-tail uploads, MVCC replay, zone
+windows, chunked scans and the XLA-fused program — a fragment of the
+kernel's shape that the kernel does not take raises NotPorted.
 """
 
 from __future__ import annotations
@@ -29,19 +32,11 @@ import torch
 from opentenbase_tpu_torch import types as t
 from opentenbase_tpu_torch.errors import NotPorted
 from opentenbase_tpu_torch.ops import scan_agg as sa
+from opentenbase_tpu_torch.ops.filter import bucket_size
 from opentenbase_tpu_torch.plan import logical as L
 from opentenbase_tpu_torch.plan.distribute import Fragment
 from opentenbase_tpu_torch.storage.column import Column
 from opentenbase_tpu_torch.storage.table import ColumnBatch
-
-
-def bucket_size(n: int, floor: int = 16) -> int:
-    """Static-shape bucket: next power of two >= n (the reference's
-    ops/filter.bucket_size, which sizes the planes)."""
-    p = floor
-    while p < n:
-        p <<= 1
-    return p
 
 
 # ---------------------------------------------------------------------------
@@ -83,9 +78,13 @@ class DeviceCache:
         return torch.from_numpy(arr).to(self.device)
 
     def get(
-        self, name: str, meta, node_stores: dict[int, dict], columns=None,
+        self, name: str, meta, node_stores: dict[int, dict], nodes,
+        columns=None,
     ) -> DeviceTable:
-        nodes = tuple(meta.node_indices)
+        """The stacked planes of ``name`` over the stores of ``nodes``
+        (every shard, or one replica of a replicated table), with at
+        least ``columns`` resident."""
+        nodes = tuple(nodes)
         want = tuple(columns) if columns is not None else tuple(meta.schema)
         stores = [node_stores[n][name] for n in nodes]
         versions = tuple(s.version for s in stores)
@@ -236,7 +235,7 @@ def _match_partial_fragment(root: L.LogicalPlan) -> Optional[_FusablePartial]:
 
 class FusedExecutor:
     """Runs eligible partial-aggregate fragments through the scan-aggregate
-    kernel on ``device``."""
+    kernel, and join plans through the fused DAG, on ``device``."""
 
     def __init__(self, catalog, node_stores, device: torch.device):
         self.catalog = catalog
@@ -244,29 +243,42 @@ class FusedExecutor:
         self.device = torch.device(device)
         self.cache = DeviceCache(self.device)
         self._programs: dict = {}
+        self._dag = None
+
+    def dag_output(self, dplan, snapshot_ts) -> tuple[int, ColumnBatch]:
+        """Run a whole plan — joins under a scalar aggregate — through the
+        fused DAG (executor/fused_dag.py): (final fragment index,
+        gathered batch). Raises NotPorted outside its subset."""
+        from opentenbase_tpu_torch.executor.fused_dag import DagRunner
+
+        if self._dag is None:
+            self._dag = DagRunner(self)
+        return self._dag.run(dplan, snapshot_ts)
 
     def fragment_output(
         self, frag: Fragment, snapshot_ts: Optional[int],
-    ) -> ColumnBatch:
+    ) -> Optional[ColumnBatch]:
         """The fragment's gathered output batch (what the motion would
-        deliver to the coordinator). Raises NotPorted for any fragment
-        outside the kernel's subset."""
+        deliver to the coordinator), or None when the fragment is not a
+        scan -> filter/project -> partial aggregate over every shard of
+        its table: the caller then hands the plan to ``dag_output``, as
+        the reference does. Raises NotPorted for a fragment of that shape
+        the kernel does not take (the reference runs it through its
+        XLA-fused program, which is not ported)."""
         if frag.motion != "gather":
-            raise NotPorted(f"fragment with motion {frag.motion!r}")
+            return None
         m = _match_partial_fragment(frag.root)
         if m is None:
-            raise NotPorted(
-                f"fragment shape {type(frag.root).__name__} (only scan -> "
-                "filter/project -> aggregate runs on the device)"
-            )
+            return None
         meta = self.catalog.get(m.scan.table)
         if tuple(meta.node_indices) != tuple(frag.nodes):
-            raise NotPorted("fragment over a subset of the table's nodes")
+            return None
         for c in m.scan.schema:
             if c.type.id == t.TypeId.TEXT:
                 raise NotPorted(f"text scan column {c.name!r}")
         dtab = self.cache.get(
-            m.scan.table, meta, self.node_stores, columns=m.scan.columns
+            m.scan.table, meta, self.node_stores, frag.nodes,
+            columns=m.scan.columns,
         )
         for c in m.scan.columns:
             if dtab.validity[c] is not None:

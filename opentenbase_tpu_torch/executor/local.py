@@ -101,7 +101,7 @@ class LocalExecutor:
     def _eval_aggregate(self, plan: L.Aggregate) -> HostBatch:
         child = self.eval(plan.child)
         for a in plan.aggs:
-            if a.distinct or a.func not in ("sum", "count"):
+            if a.distinct or a.func not in ("sum", "count", "min", "max"):
                 raise NotPorted(f"coordinator aggregate {a.func}")
             if (
                 a.func == "sum" and a.arg is not None
@@ -132,6 +132,19 @@ class LocalExecutor:
         cnt = np.bincount(gid[valid], minlength=ng).astype(np.int64)
         if a.func == "count":
             return (cnt, None)
+        if a.func in ("min", "max"):
+            d = np.asarray(d)
+            if d.dtype.kind == "f":
+                init = np.inf if a.func == "min" else -np.inf
+            elif d.dtype.kind == "b":
+                d, init = d.astype(np.int8), (2 if a.func == "min" else -1)
+            else:
+                info = np.iinfo(d.dtype)
+                init = info.max if a.func == "min" else info.min
+            out = np.full(ng, init, dtype=d.dtype)
+            op = np.minimum if a.func == "min" else np.maximum
+            op.at(out, gid[valid], d[valid])
+            return (out.astype(a.type.np_dtype), cnt > 0)
         # exact integer sums (scaled decimals and ints are int64 here)
         s = np.zeros(ng, dtype=np.int64)
         np.add.at(s, gid[valid], d[valid].astype(np.int64))

@@ -29,9 +29,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import subprocess
 import threading
 from dataclasses import dataclass
 from typing import Optional
@@ -40,6 +37,7 @@ import numpy as np
 import torch
 
 from opentenbase_tpu_torch import types as t
+from opentenbase_tpu_torch.ops import cuda_build
 from opentenbase_tpu_torch.plan import texpr as E
 
 LIMB = 4096.0  # the reference's limb radix: v = hi*LIMB + lo
@@ -477,7 +475,7 @@ def scan_agg_plain(cols, xmin, xmax, nrows, snap: int, spec: ScanAggSpec):
 SECTOR = 32  # bytes: the unit in which the card reads device memory
 
 
-def _sector_bytes(mask: torch.Tensor, elem: int) -> int:
+def sector_bytes(mask: torch.Tensor, elem: int) -> int:
     """Bytes of the 32-byte sectors of an [S, R] plane of ``elem``-byte
     entries that hold at least one row of ``mask``."""
     k = SECTOR // elem
@@ -512,13 +510,13 @@ def spec_bytes(cols, xmin, xmax, nrows, snap: int, spec: ScanAggSpec) -> int:
     total = 0
     for i, c in enumerate(cols):
         rows = live if i in pred else keyed if i in key else counted
-        total += _sector_bytes(rows, c.element_size())
+        total += sector_bytes(rows, c.element_size())
     S = xmin.shape[0]
     if xmin.shape[1] == 1:
         total += 2 * 8 * S
     else:
-        total += _sector_bytes(real, 8)
-        total += _sector_bytes(real & (xmin <= snap), 8)
+        total += sector_bytes(real, 8)
+        total += sector_bytes(real & (xmin <= snap), 8)
     total += 8 * S  # nrows
     total += 8 * S * spec.n_groups * (spec.n_values + 1)
     return total
@@ -528,13 +526,6 @@ def spec_bytes(cols, xmin, xmax, nrows, snap: int, spec: ScanAggSpec) -> int:
 # The kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "scan_agg.cu",
-)
-_BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build"
-)
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.bool: 2}
 THREADS = 256  # csrc/scan_agg.cu SA_THREADS
 BLOCKS_PER_SM = 8
@@ -573,44 +564,11 @@ _lib = None
 _lib_mu = threading.Lock()
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (
-        os.path.join(home, "bin", "nvcc") if home else None,
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    return "nvcc"
-
-
-def build() -> str:
-    """Compile csrc/scan_agg.cu for sm_90a into the package's build
-    directory (once per source content). Returns the library path."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    out = os.path.join(_BUILD_DIR, f"libscan_agg-{digest}.so")
-    if os.path.exists(out):
-        return out
-    tmp = f"{out}.{os.getpid()}.tmp"
-    subprocess.run(
-        [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", tmp, _SRC,
-        ],
-        check=True,
-    )
-    os.replace(tmp, out)
-    return out
-
-
 def _load():
     global _lib
     with _lib_mu:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = cuda_build.load("scan_agg.cu")
             lib.scan_agg_params_size.argtypes = []
             lib.scan_agg_params_size.restype = ctypes.c_int
             lib.scan_agg_launch.argtypes = [

@@ -1,4 +1,5 @@
-"""Deterministic hashing of distribution keys (numpy host path).
+"""Deterministic hashing of distribution keys (numpy host path and its
+torch twin for the device).
 
 The reference hashes distribution keys with per-type hash funcs
 (compute_hash, src/backend/pgxc/locator/locator.c). Here every key is first
@@ -50,6 +51,41 @@ def _hash32(data, xp):
         hi = (u64 >> xp.uint64(32)).astype(xp.uint32)
         u = lo ^ (hi * xp.uint32(_GOLDEN))
     return _fmix32(u, xp)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for int64 tensors holding uint32 values: split
+    ``c`` in 16-bit halves so no intermediate leaves int64 (torch has no
+    wrapping uint32 multiply)."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def hash32_torch(data):
+    """``hash32_np`` on a torch tensor (any device), bit for bit, for the
+    integer and bool dtypes: the same sign-extended 64-bit mix and
+    fmix32, computed in int64 lanes holding uint32 values. Returns int64
+    values in [0, 2^32)."""
+    import torch
+
+    if data.dtype.is_floating_point or data.dtype.is_complex:
+        raise TypeError(f"hash32_torch: no float keys ({data.dtype})")
+    k = data.to(torch.int64)
+    if data.dtype == torch.bool:
+        u = k
+    else:
+        lo = k & _M32
+        hi = (k >> 32) & _M32  # arithmetic shift, then the low 32 bits
+        u = lo ^ _mul32(hi, _GOLDEN)
+    u = u ^ (u >> 16)
+    u = _mul32(u, _C1)
+    u = u ^ (u >> 13)
+    u = _mul32(u, _C2)
+    return u ^ (u >> 16)
 
 
 def combine_hashes(hashes: list, xp=np):

@@ -49,8 +49,10 @@ def test_package_imports_with_jax_blocked():
         "sys.modules['jaxlib'] = None\n"
         "import opentenbase_tpu_torch\n"
         "from opentenbase_tpu_torch import carry, engine\n"
-        "from opentenbase_tpu_torch.ops import scan_agg\n"
-        "from opentenbase_tpu_torch.executor import fused, local\n"
+        "from opentenbase_tpu_torch.ops import (\n"
+        "    agg, cuda_build, expr, filter, join, radix_probe, scan_agg)\n"
+        "from opentenbase_tpu_torch.plan import batchplan\n"
+        "from opentenbase_tpu_torch.executor import fused, fused_dag, local\n"
         "bad = [m for m in sys.modules if m == 'opentenbase_tpu'\n"
         "       or m.startswith('opentenbase_tpu.')]\n"
         "assert not bad, bad\n"
@@ -88,3 +90,17 @@ def test_wrapper_refuses_other_devices():
     nrows = torch.empty((1,), dtype=torch.int64, device=meta)
     with pytest.raises(RuntimeError, match="no kernel"):
         sa.scan_agg([col], ts, ts, nrows, 0, spec)
+
+
+def test_radix_probe_wrapper_refuses_other_devices():
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+
+    meta = torch.device("meta")
+    P, B = 4, 8
+    tk = torch.empty(P * B + 1, dtype=torch.int64, device=meta)
+    tv = torch.empty(P * B + 1, dtype=torch.bool, device=meta)
+    ti = torch.empty(P * B + 1, dtype=torch.int32, device=meta)
+    pk = torch.empty(16, dtype=torch.int64, device=meta)
+    pr = torch.empty(16, dtype=torch.bool, device=meta)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        rp.radix_probe(tk, tv, ti, pk, pr, P, B)
