@@ -11,10 +11,15 @@ Phases, one line each; any failure raises and exits non-zero:
    with the registers, spills and shared memory ptxas reports;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, exactly equal. scan_agg: int32/int64/bool columns, G=1 and G=6,
-   compact and full MVCC planes with invisible rows, ragged shards and
-   one empty shard. radix_probe: the reference test's data, int32 and
-   int64 keys, keys near +-2^62, dead and NULL probe rows, an empty
-   build, every pass of a multi-pass plan, duplicate build keys;
+   compact and full MVCC planes with invisible rows (and a run hidden in
+   the middle of a tile), shards whose nrows is no tile multiple, shards
+   shorter than a tile and an empty one, a spec with no predicate, and
+   the widest spec compile_spec accepts (16 columns, 16 groups, 8
+   values, stack depth 16). radix_probe: the reference test's data,
+   int32 and int64 keys, keys near +-2^62, dead and NULL probe rows, an
+   empty build, duplicate build keys, n not a multiple of a thread's
+   rows, probes starting at an offset view, and every pass of a
+   multi-pass plan;
 4. main path, TPC-H: Cluster(num_datanodes=2) on cuda, CREATE TABLE
    lineitem, a bulk append of ``--rows`` rows (60 M = TPC-H SF10, as
    bench.py measures it) made from ``--seed``, then Q6 and Q1 through
@@ -30,7 +35,8 @@ Phases, one line each; any failure raises and exits non-zero:
    timed on its own, the device busy and idle share of single queries
    from a torch.profiler trace, kernel ms from CUDA events at the main
    path's own inputs (held against the plain version there too), the
-   plain version's ms, and the bytes-over-bandwidth bound.
+   plain version's ms, the bytes-over-bandwidth bound and the GB/s
+   moved.
 
 The second-to-last lines are the kernel table as JSON and the nvidia-smi
 line; the last line is the run's verdict as JSON. The script imports
@@ -277,7 +283,9 @@ def _cuda_ms(fn, iters: int) -> float:
 def kernel_cases(device, seed: int):
     """(name, cols, xmin, xmax, nrows, snap, spec) cases covering the
     kernel's branches: column widths, G=1/G=6, compact and full MVCC
-    planes with invisible rows, ragged and empty shards."""
+    planes with invisible rows (and a run hidden mid-tile), shards whose
+    nrows is no tile multiple, shorter than a tile or empty, a spec with
+    no predicate, and the widest spec compile_spec accepts."""
     import torch
 
     from opentenbase_tpu_torch import types as t
@@ -329,6 +337,11 @@ def kernel_cases(device, seed: int):
         rng.choice([5, 1000, 1500], (S, R)).astype(np.int64))
     xmax_f = torch.from_numpy(
         rng.choice([2**62, 2**62, 900, 1000, 1001], (S, R)).astype(np.int64))
+    # full planes hiding a run of rows in the middle of the first tiles
+    xmin_m = torch.full((S, R), 5, dtype=torch.int64)
+    xmin_m[:, 1000:1500] = 1500
+    xmax_m = torch.full((S, R), 2**62, dtype=torch.int64)
+    xmax_m[:, 3001:3077] = 1000
     nr = torch.from_numpy(nrows).to(device)
     out = []
     for pname, xmin, xmax in (("compact", xmin_c, xmax_c),
@@ -337,6 +350,51 @@ def kernel_cases(device, seed: int):
             sel = [cols[i] for i in spec.cols]
             out.append((f"{sname}/{pname}", sel, xmin.to(device),
                         xmax.to(device), nr, snap, spec))
+    sel = [cols[i] for i in grouped.cols]
+    out.append(("G6/rows hidden mid-tile", sel, xmin_m.to(device),
+                xmax_m.to(device), nr, snap, grouped))
+    # shards shorter than a tile (and one empty)
+    short = torch.tensor([100, 0, 1], dtype=torch.int64, device=device)
+    out.append(("G6/short shards", sel, xmin_c.to(device),
+                xmax_c.to(device), short, snap, grouped))
+    # no predicate: every visible row is counted
+    nopred = sa.compile_spec([], key, vals[:2], 6)
+    out.append(("G6/no predicate", [cols[i] for i in nopred.cols],
+                xmin_f.to(device), xmax_f.to(device), nr, snap, nopred))
+    # the widest spec compile_spec accepts: 16 columns (int64, int32,
+    # bool), a predicate of stack depth 16, 16 groups, 8 values (one of
+    # depth 16, so the value programs run one after another)
+    wide = [rng.integers(-1000, 1000, (S, R)).astype(np.int64)
+            for _ in range(10)]
+    wide += [rng.integers(0, 4, (S, R)).astype(np.int32) for _ in range(2)]
+    wide += [rng.integers(-7, 7, (S, R)).astype(np.int32) for _ in range(2)]
+    wide += [rng.integers(0, 2, (S, R)).astype(np.bool_) for _ in range(2)]
+    wcols = [torch.from_numpy(c).to(device) for c in wide]
+    tys = [t.INT8] * 10 + [t.INT4] * 4 + [t.BOOL] * 2
+
+    def chain(idx):  # c[i0] + (c[i1] + (...)): stack depth len(idx)
+        e = C(idx[-1], tys[idx[-1]])
+        for i in reversed(idx[:-1]):
+            e = E.BinE("+", C(i, tys[i]), e, t.INT8)
+        return e
+
+    wpred = E.BinE(">", chain(list(range(16))), K(-2000), t.BOOL)
+    wkey = sa.key_expr_from_decoders(
+        [(10, 0, 4, 1), (11, 0, 4, 4)], [C(10, t.INT4), C(11, t.INT4)])
+    wvals = [C(i, tys[i]) for i in (0, 12, 14)] + [
+        E.BinE("*", C(1), C(13, t.INT4), t.INT8),
+        E.UnaryE("-", C(2), t.INT8),
+        E.BinE("-", C(3), K(5), t.INT8),
+        E.BinE("*", C(4), C(5), t.INT8),
+        chain([6, 7, 8, 9, 0, 1, 2, 3, 4, 5, 12, 13, 14, 15, 10, 11]),
+    ]
+    widest = sa.compile_spec([wpred], wkey, wvals, 16)
+    assert widest.pred_depth == 16 and widest.n_values == 8
+    for pname, xmin, xmax in (("compact", xmin_c, xmax_c),
+                              ("full", xmin_f, xmax_f)):
+        out.append((f"widest G16xE8 depth 16/{pname}",
+                    [wcols[i] for i in widest.cols], xmin.to(device),
+                    xmax.to(device), nr, snap, widest))
     return out
 
 
@@ -345,6 +403,7 @@ def check_kernel_vs_plain(device, seed: int, card: str) -> None:
 
     from opentenbase_tpu_torch.ops import scan_agg as sa
 
+    n0 = sa.scan_agg.launches
     for name, cols, xmin, xmax, nr, snap, spec in kernel_cases(device, seed):
         ks, kc = sa.scan_agg(cols, xmin, xmax, nr, snap, spec)
         ps, pc = sa.scan_agg_plain(cols, xmin, xmax, nr, snap, spec)
@@ -353,8 +412,13 @@ def check_kernel_vs_plain(device, seed: int, card: str) -> None:
             raise AssertionError(f"scan_agg {name}: kernel != plain")
         if int(kc.sum()) == 0:
             raise AssertionError(f"scan_agg {name}: no row passed")
-        print(f"kernel vs plain: scan_agg {name} equal "
-              f"(rows passed {int(kc.sum())}) [{card}]", flush=True)
+        plan = sa.launch_plan(spec, [c.element_size() for c in cols],
+                              xmin.shape[1] != 1)
+        print(f"kernel vs plain: scan_agg {name} equal (rows passed "
+              f"{int(kc.sum())}; depth {plan.depth}, tile {plan.tile}, "
+              f"{plan.stages} stages, {plan.smem_bytes} B shared) [{card}]",
+              flush=True)
+    sa.scan_agg.launches = n0  # comparison launches are not counted
 
 
 # ---------------------------------------------------------------------------
@@ -543,10 +607,14 @@ def time_kernels(main: dict, card: str, rate: float) -> list:
             "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
             "max_abs_err": float(err),
         })
-        print(f"kernel: scan_agg {qname} {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {bound:.4f} ms ({nbytes} bytes at "
-              f"{rate / 1e12:.2f} TB/s; rows passed {int(kc.sum())}) "
-              f"[{card}]", flush=True)
+        plan = sa.launch_plan(spec, [c.element_size() for c in cols],
+                              dtab.xmin.shape[1] != 1)
+        print(f"kernel: scan_agg {qname} {ms:.4f} ms, "
+              f"{nbytes / ms / 1e6:.1f} GB/s, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({nbytes} bytes at "
+              f"{rate / 1e12:.2f} TB/s; rows passed {int(kc.sum())}; "
+              f"tile {plan.tile}, {plan.stages} stages, {plan.smem_bytes} "
+              f"B shared) [{card}]", flush=True)
     return rows
 
 
@@ -616,8 +684,17 @@ def radix_cases(device, seed: int):
     pd_ = rng.integers(-60, 60, 7000).astype(np.int64)
     out.append(("duplicate build keys", dups, np.ones(1800, bool), pd_,
                 np.ones(7000, bool), *plan(1800, 7000)))
-    return [(n, *[torch_from(x, device) for x in (b, br, p, pr)], P, B)
-            for n, b, br, p, pr, P, B in out]
+    # n not a multiple of the 16 rows a thread takes
+    out.append(("ragged n, int32", bk32.astype(np.int32),
+                np.ones(50_000, bool), pk32[:80_003].astype(np.int32),
+                rng.random(80_003) > 0.3, *plan(50_000, 80_003)))
+    out = [(n, *[torch_from(x, device) for x in (b, br, p, pr)], P, B)
+           for n, b, br, p, pr, P, B in out]
+    # probes that start at an offset view (no 16-byte alignment)
+    for name, bk_, br_, pk_, pr_, P, B in out[:2]:
+        out.append((f"{name}, offset view", bk_, br_, pk_[3:-4],
+                    pr_[3:-4], P, B))
+    return out
 
 
 def torch_from(a, device):
@@ -834,11 +911,12 @@ def time_radix(ssb: dict, card: str, rate: float) -> list:
             "query": q, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes", "bytes": nbytes, "max_abs_err": float(err),
         })
-        print(f"kernel: radix_probe SSB {q} {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} bytes at "
-              f"{rate / 1e12:.2f} TB/s; P={P}, B={B}, {n} probe rows, "
-              f"{int(preal.sum())} real, {int(km.sum())} matched) [{card}]",
-              flush=True)
+        print(f"kernel: radix_probe SSB {q} {ms:.4f} ms, "
+              f"{nbytes / ms / 1e6:.1f} GB/s, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms "
+              f"({nbytes} bytes at {rate / 1e12:.2f} TB/s; P={P}, B={B}, "
+              f"{n} probe rows, {int(preal.sum())} real, "
+              f"{int(km.sum())} matched) [{card}]", flush=True)
     rp.radix_probe.launches = n0  # timing launches are not counted
     return rows
 
@@ -909,6 +987,7 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
+            "gbps": r["bytes"] / r["ms"] / 1e6,
             "library_ms": None,
         })
     for r in radix_rows:
@@ -923,6 +1002,7 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
+            "gbps": r["bytes"] / r["ms"] / 1e6,
             "library_ms": None,
         })
     # the JSON counts each trace's device event kinds; the trace lines

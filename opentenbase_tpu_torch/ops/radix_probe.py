@@ -25,8 +25,6 @@ from opentenbase_tpu_torch.ops import cuda_build
 from opentenbase_tpu_torch.ops.join import probe_radix_first
 from opentenbase_tpu_torch.ops.scan_agg import sector_bytes
 
-BLOCKS_PER_SM = 16
-
 
 def radix_probe_plain(tkeys, tvalid, tbidx, probe_key, probe_real,
                       partitions: int, bucket: int):
@@ -58,15 +56,19 @@ def _load():
             lib.radix_probe_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ]
             lib.radix_probe_launch.restype = ctypes.c_int
-            lib.radix_probe_threads.argtypes = []
-            lib.radix_probe_threads.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def vector_ok(*rows: torch.Tensor) -> bool:
+    """Whether the kernel may move each row array in 16-byte accesses:
+    every one starts on a 16-byte boundary. A view that does not (a probe
+    starting at an offset) takes per-row accesses."""
+    return all(x.data_ptr() % 16 == 0 for x in rows)
 
 
 def _check_args(tkeys, tvalid, tbidx, probe_key, probe_real, P, B):
@@ -120,16 +122,14 @@ def radix_probe(tkeys, tvalid, tbidx, probe_key, probe_real,
     if n == 0:
         return matched, bidx
     lib = _load()
-    threads = lib.radix_probe_threads()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-n // threads), sms * BLOCKS_PER_SM))
+    vec = vector_ok(probe_key, probe_real, matched, bidx)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.radix_probe_launch(
             tkeys.data_ptr(), tvalid.data_ptr(), tbidx.data_ptr(),
             probe_key.data_ptr(), int(probe_key.dtype == torch.int64),
-            probe_real.data_ptr(), n, P, B, matched.data_ptr(),
-            bidx.data_ptr(), blocks, stream,
+            probe_real.data_ptr(), n, P, B, int(vec), matched.data_ptr(),
+            bidx.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(

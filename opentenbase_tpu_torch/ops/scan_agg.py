@@ -2,7 +2,7 @@
 replaces the reference's Pallas kernel (opentenbase_tpu/ops/pallas_scan.py,
 ``build_partials`` + ``combine_partials``).
 
-Three parts:
+Four parts:
 
 - the certifier, copied from the reference (``bound``,
   ``certify_predicate``, ``decompose_value``, ``plan_group_keys``,
@@ -13,6 +13,11 @@ Three parts:
   comparisons, ``and or not``; IN-lists lower to ORs of ``=``). One
   program for the predicate, one for the dense group key, one per SUM
   argument;
+- the kernel's host side: ``kernel_code`` lowers a spec to the one
+  program the kernel runs over a tile (filters, folded constants, a
+  stack slot per word), ``launch_plan`` picks the kernel instance, the
+  tile and the number of staged tiles, ``decode_program`` turns the
+  words into the records of the kernel's parameter block;
 - ``scan_agg``, the wrapper of the CUDA kernel in ``csrc/scan_agg.cu``,
   with its plain PyTorch version ``scan_agg_plain`` beside it. The
   wrapper runs the plain version for tensors on the CPU only; for CUDA
@@ -260,7 +265,14 @@ class ScanAggSpec:
     ``pred``/``key`` are (start, length) into it or None (always true /
     group 0), ``values`` one (start, length) per SUM argument. ``cols``
     lists the scan-column indices the programs load, in slot order (an
-    OP_COL argument is a slot)."""
+    OP_COL argument is a slot).
+
+    ``slots`` gives, per entry of ``code``, the stack slot its result
+    lands in (the stack height after it, less one: a push writes the
+    slot above the top, a unary op the top, a binary op the slot below
+    the top), so the kernel needs no stack pointer; ``pred_depth``,
+    ``key_depth`` and ``value_depths`` are each program's deepest
+    stack."""
 
     code: tuple
     consts: tuple
@@ -269,24 +281,42 @@ class ScanAggSpec:
     key: Optional[tuple]
     values: tuple
     n_groups: int = 1
+    slots: tuple = ()
+    pred_depth: int = 0
+    key_depth: int = 0
+    value_depths: tuple = ()
 
     @property
     def n_values(self) -> int:
         return len(self.values)
 
 
+_STACK_EFFECT = {OP_COL: 1, OP_CONST: 1, OP_NEG: 0, OP_NOT: 0}  # else -1
+
+
 class _ProgramBuilder:
     def __init__(self):
         self.code: list[tuple[int, int]] = []
+        self.slots: list[int] = []
         self.consts: list[int] = []
         self.cols: list[int] = []
+        self._sp = 0
+        self._deepest = 0
 
-    def program(self, e: E.TExpr) -> tuple[int, int]:
+    def program(self, e: E.TExpr) -> tuple[tuple[int, int], int]:
+        """Append e's program; returns ((start, length), deepest stack)."""
         start = len(self.code)
-        depth = self._emit(e)
-        if depth > MAX_STACK:
+        self._sp = self._deepest = 0
+        self._emit(e)
+        if self._deepest > MAX_STACK:
             raise PallasUnsupported("expression too deep for the kernel")
-        return start, len(self.code) - start
+        return (start, len(self.code) - start), self._deepest
+
+    def _op(self, op: int, arg: int = 0) -> None:
+        self._sp += _STACK_EFFECT.get(op, -1)
+        self._deepest = max(self._deepest, self._sp)
+        self.code.append((op, arg))
+        self.slots.append(self._sp - 1)
 
     def _const(self, v) -> int:
         fv = float(v)
@@ -297,44 +327,35 @@ class _ProgramBuilder:
             self.consts.append(iv)
         return self.consts.index(iv)
 
-    def _emit(self, e: E.TExpr) -> int:
-        """Append e's code; returns the stack depth it needs."""
+    def _emit(self, e: E.TExpr) -> None:
         if isinstance(e, E.Col):
             if e.index not in self.cols:
                 self.cols.append(e.index)
-            self.code.append((OP_COL, self.cols.index(e.index)))
-            return 1
-        if isinstance(e, E.Const):
-            self.code.append((OP_CONST, self._const(e.value)))
-            return 1
-        if isinstance(e, E.CastE):
+            self._op(OP_COL, self.cols.index(e.index))
+        elif isinstance(e, E.Const):
+            self._op(OP_CONST, self._const(e.value))
+        elif isinstance(e, E.CastE):
             # integer-to-integer casts of the certified subset keep the
             # physical value (the reference's compile_f32 does the same)
-            return self._emit(e.operand)
-        if isinstance(e, E.UnaryE) and e.op in ("-", "not"):
-            d = self._emit(e.operand)
-            self.code.append((OP_NEG if e.op == "-" else OP_NOT, 0))
-            return d
-        if isinstance(e, E.InListE):
-            depth = 0
+            self._emit(e.operand)
+        elif isinstance(e, E.UnaryE) and e.op in ("-", "not"):
+            self._emit(e.operand)
+            self._op(OP_NEG if e.op == "-" else OP_NOT)
+        elif isinstance(e, E.InListE):
             for i, item in enumerate(e.items):
-                # from the second item on, the OR so far sits below
-                below = 1 if i else 0
-                d = self._emit(e.operand)
-                self.code.append((OP_CONST, self._const(item.value)))
-                self.code.append((OP_EQ, 0))
-                depth = max(depth, below + d, below + 2)
+                self._emit(e.operand)
+                self._op(OP_CONST, self._const(item.value))
+                self._op(OP_EQ)
                 if i:
-                    self.code.append((OP_OR, 0))
+                    self._op(OP_OR)
             if e.negated:
-                self.code.append((OP_NOT, 0))
-            return depth
-        if isinstance(e, E.BinE) and e.op in _BINOPS:
-            dl = self._emit(e.left)
-            dr = self._emit(e.right)
-            self.code.append((_BINOPS[e.op], 0))
-            return max(dl, dr + 1)
-        raise PallasUnsupported(type(e).__name__)
+                self._op(OP_NOT)
+        elif isinstance(e, E.BinE) and e.op in _BINOPS:
+            self._emit(e.left)
+            self._emit(e.right)
+            self._op(_BINOPS[e.op])
+        else:
+            raise PallasUnsupported(type(e).__name__)
 
 
 def compile_spec(
@@ -345,14 +366,16 @@ def compile_spec(
     Raises PallasUnsupported when the programs exceed the kernel's
     parameter block."""
     b = _ProgramBuilder()
-    pred = None
+    pred, pred_depth = None, 0
     if preds:
         p = preds[0]
         for q in preds[1:]:
             p = E.BinE("and", p, q, t.BOOL)
-        pred = b.program(p)
-    key = b.program(key_expr) if key_expr is not None else None
-    vals = tuple(b.program(v) for v in values)
+        pred, pred_depth = b.program(p)
+    key, key_depth = (
+        b.program(key_expr) if key_expr is not None else (None, 0)
+    )
+    vals = [b.program(v) for v in values]
     if (
         len(b.code) > MAX_CODE or len(b.consts) > MAX_CONSTS
         or len(b.cols) > MAX_COLS or len(vals) > MAX_VALUES
@@ -360,8 +383,9 @@ def compile_spec(
     ):
         raise PallasUnsupported("query exceeds the kernel's limits")
     return ScanAggSpec(
-        tuple(b.code), tuple(b.consts), tuple(b.cols), pred, key, vals,
-        n_groups,
+        tuple(b.code), tuple(b.consts), tuple(b.cols), pred, key,
+        tuple(v for v, _d in vals), n_groups, tuple(b.slots), pred_depth,
+        key_depth, tuple(d for _v, d in vals),
     )
 
 
@@ -370,7 +394,9 @@ def compile_spec(
 # ---------------------------------------------------------------------------
 
 
-def _eval_program(spec: ScanAggSpec, prog, cols) -> torch.Tensor:
+def _eval_program(spec: ScanAggSpec, prog, cols, heights=None):
+    """Run one program over the widened columns; with ``heights`` (a
+    list), append the stack height after each instruction to it."""
     start, n = prog
     stack: list = []
     consts = spec.consts
@@ -413,6 +439,8 @@ def _eval_program(spec: ScanAggSpec, prog, cols) -> torch.Tensor:
             elif isinstance(v, bool):
                 v = int(v)
             stack.append(v)
+        if heights is not None:
+            heights.append(len(stack))
     return stack[0]
 
 
@@ -494,6 +522,15 @@ def _program_slots(spec: ScanAggSpec, prog) -> set:
     return {arg for op, arg in spec.code[start:start + n] if op == OP_COL}
 
 
+def column_classes(spec: ScanAggSpec) -> tuple[list, list]:
+    """(staged, gathered) column slots: the slots the predicate or key
+    program loads are staged tile by tile for every row; the rest (read
+    by value programs only) are gathered where a row is counted."""
+    staged = _program_slots(spec, spec.pred) | _program_slots(spec, spec.key)
+    gathered = [i for i in range(len(spec.cols)) if i not in staged]
+    return sorted(staged), gathered
+
+
 def spec_bytes(cols, xmin, xmax, nrows, snap: int, spec: ScanAggSpec) -> int:
     """Bytes the scan must move at least on these inputs, counted in the
     32-byte sectors the card reads: each column the sectors holding the
@@ -523,12 +560,271 @@ def spec_bytes(cols, xmin, xmax, nrows, snap: int, spec: ScanAggSpec) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The kernel: build, bind, launch
+# The kernel: lowering, launch plan, build, bind, launch
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.bool: 2}
-THREADS = 256  # csrc/scan_agg.cu SA_THREADS
-BLOCKS_PER_SM = 8
+# kernel-only opcodes (csrc/scan_agg.cu), each over the thread's rows:
+# (OP_PASS, OP_KEY and OP_ACC read slot 0)
+OP_PASS = 16   # rows whose slot 0 is 0 stop passing
+OP_KEY = 17    # slot 0 is the group; rows outside [0, G) stop passing
+OP_COUNT = 18  # count the passing rows; a warp with none stops here
+OP_ACC = 19    # add slot 0 to value lane ``arg`` of the row's group
+OP_ANY = 20    # a warp with no passing row stops here
+OP_ACCN = 21   # count the passing rows and add slots 0..E-1 to lanes 0..E-1
+OP_GCOL = 22   # OP_COL of a gathered column: read where a row passes
+OP_K = 32      # OP_K + binop: slot = slot binop consts[arg]
+OP_FILT = 64   # OP_FILT + cmp: rows failing column[aux] cmp consts[arg]
+#                stop passing (a conjunct of the predicate)
+MAX_KCODE = MAX_CODE + MAX_VALUES + 3  # csrc/scan_agg.cu SA_MAX_KCODE
+# (stack depth, rows per thread) of the kernel's instances: the stack
+# lives in depth x rows 64-bit registers
+VARIANTS = ((4, 8), (8, 4), (16, 2))
+THREADS = 256  # csrc/scan_agg.cu SA_THREADS: a block
+SMEM_BLOCK_MAX = 232448  # 227 KB: the most shared memory a block can use
+# two blocks a multiprocessor: each takes half of its 228 KB, less the
+# 1 KB the runtime reserves per block
+SMEM_HALF_SM = 233472 // 2 - 1024
+SMEM_HEAD = 128  # the stages' mbarriers and thread 0's walk, before them
+NARROW = 4  # csrc/scan_agg.cu SA_NARROW: a filter compares in 32 bits
+ACC_PRIVATE_MAX = 48 * 1024  # per-thread accumulator lanes up to this
+
+_CMPS = (OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE)
+# c op x == x op' c: the comparison with its operands swapped
+_SWAP = {OP_EQ: OP_EQ, OP_NE: OP_NE, OP_LT: OP_GT, OP_LE: OP_GE,
+         OP_GT: OP_LT, OP_GE: OP_LE, OP_ADD: OP_ADD, OP_MUL: OP_MUL,
+         OP_AND: OP_AND, OP_OR: OP_OR}
+# x op c == x when c is this constant: the op is left out
+_IDENTITY = {OP_ADD: 0, OP_SUB: 0, OP_MUL: 1}
+
+
+def _variant(depth: int) -> tuple[int, int]:
+    for d, k in VARIANTS:
+        if depth <= d:
+            return d, k
+    raise PallasUnsupported("expression too deep for the kernel")
+
+
+def _word(op: int, arg: int = 0, slot: int = 0, aux: int = 0) -> int:
+    return op | arg << 8 | slot << 16 | aux << 24
+
+
+def _tree(spec: ScanAggSpec, prog) -> tuple:
+    """A program's postfix code as a tree: ("col", slot), ("const",
+    index), (unary op, child) or (binary op, left, right)."""
+    start, n = prog
+    st: list = []
+    for op, arg in spec.code[start:start + n]:
+        if op == OP_COL:
+            st.append(("col", arg))
+        elif op == OP_CONST:
+            st.append(("const", arg))
+        elif op in (OP_NEG, OP_NOT):
+            st.append((op, st.pop()))
+        else:
+            b = st.pop()
+            st.append((op, st.pop(), b))
+    return st[0]
+
+
+class _Emitter:
+    """Tree -> kernel words with the slot of every result: the operand
+    of a binary op with a constant folds into an OP_K word (x + 0, x - 0
+    and x * 1 vanish), other operands take the slot above; a gathered
+    column is loaded by OP_GCOL."""
+
+    def __init__(self, consts, gathered):
+        self.consts = consts
+        self.gathered = gathered
+        self.words: list[int] = []
+        self.depth = 0
+
+    def emit(self, node, s: int) -> None:
+        self.depth = max(self.depth, s + 1)
+        kind = node[0]
+        if kind == "col":
+            op = OP_GCOL if node[1] in self.gathered else OP_COL
+            self.words.append(_word(op, node[1], s))
+        elif kind == "const":
+            self.words.append(_word(OP_CONST, node[1], s))
+        elif len(node) == 2:
+            self.emit(node[1], s)
+            self.words.append(_word(kind, 0, s))
+        else:
+            op, a, b = node
+            if a[0] == "const" and b[0] != "const" and op in _SWAP:
+                op, a, b = _SWAP[op], b, a
+            if b[0] == "const":
+                self.emit(a, s)
+                if self.consts[b[1]] != _IDENTITY.get(op):
+                    self.words.append(_word(OP_K + op, b[1], s))
+            else:
+                self.emit(a, s)
+                self.emit(b, s + 1)
+                self.words.append(_word(op, 0, s))
+
+
+def _conjuncts(node) -> list:
+    if node[0] == OP_AND:
+        return _conjuncts(node[1]) + _conjuncts(node[2])
+    return [node]
+
+
+def kernel_code(spec: ScanAggSpec) -> tuple[list, int, int]:
+    """The kernel's one program over a tile, as words ``op | arg << 8 |
+    slot << 16 | aux << 24``: the predicate's conjuncts (a column
+    compared with a constant is one OP_FILT; any other conjunct is
+    evaluated and applied by OP_PASS), the key then OP_KEY, and the
+    value programs with their accumulation. Returns (words, stack depth,
+    rows a thread).
+
+    When the instance's depth allows, value program e keeps its slots
+    above slot e ("stacked"): OP_ANY, the programs, then one OP_ACCN
+    that counts the rows and adds every value, so every gathered load of
+    the tile is issued before the first one is used and a row's lanes
+    are found once. Otherwise OP_COUNT, then each program followed by
+    its own OP_ACC from slot 0."""
+    gathered = set(column_classes(spec)[1])
+    em = _Emitter(spec.consts, gathered)
+    if spec.pred is not None:
+        for c in _conjuncts(_tree(spec, spec.pred)):
+            op = c[0]
+            if op in _CMPS and c[1][0] == "const" and c[2][0] == "col":
+                op, c = _SWAP[op], (op, c[2], c[1])
+            if op in _CMPS and c[1][0] == "col" and c[2][0] == "const":
+                em.words.append(_word(OP_FILT + op, c[2][1], 0, c[1][1]))
+            else:
+                em.emit(c, 0)
+                em.words.append(_word(OP_PASS))
+    if spec.key is not None:
+        em.emit(_tree(spec, spec.key), 0)
+        em.words.append(_word(OP_KEY))
+    head, flat = em.words, em.depth
+    trees = [_tree(spec, v) for v in spec.values]
+    per = []
+    for tr in trees:
+        e = _Emitter(spec.consts, gathered)
+        e.emit(tr, 0)
+        per.append(e)
+    flat = max([flat, *(e.depth for e in per)])
+    depth, rows = _variant(flat)
+    stacked = max((i + e.depth for i, e in enumerate(per)), default=0)
+    words = list(head)
+    if stacked <= depth:
+        words.append(_word(OP_ANY))
+        for i, tr in enumerate(trees):
+            e = _Emitter(spec.consts, gathered)
+            e.emit(tr, i)
+            words += e.words
+        words.append(_word(OP_ACCN, len(trees)))
+    else:
+        words.append(_word(OP_COUNT))
+        for i, e in enumerate(per):
+            words += e.words + [_word(OP_ACC, i, 0)]
+    return words, depth, rows
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one spec runs: ``depth``/``rows`` pick the instance, a tile
+    is ``THREADS * rows`` rows, ``stages`` tiles are staged ahead in
+    shared memory, ``col_smem`` is each column slot's byte offset in a
+    stage (-1: gathered from device memory), ``xmin_smem``/``xmax_smem``
+    those of full MVCC planes (-1: compact), ``acc_private`` selects
+    per-thread accumulator lanes (else per-warp lanes with shared-memory
+    atomics). The kernel's launch fills the card with as many blocks as
+    fit at once."""
+
+    depth: int
+    rows: int
+    stages: int
+    stage_bytes: int
+    col_smem: tuple
+    xmin_smem: int
+    xmax_smem: int
+    acc_private: bool
+    smem_bytes: int
+
+    @property
+    def tile(self) -> int:
+        return THREADS * self.rows
+
+
+def _round(n: int, q: int) -> int:
+    return -(-n // q) * q
+
+
+def launch_plan(spec: ScanAggSpec, widths, mvcc_full: bool) -> LaunchPlan:
+    """Pick the instance and the number of stages for ``spec`` whose
+    column slots are ``widths`` bytes wide: the shallowest instance deep
+    enough (its tile is the largest), then the most stages, that let two
+    blocks share a multiprocessor, else one block with all of its 227 KB;
+    a deeper instance, with fewer rows a thread, where the tile does not
+    fit."""
+    _words, depth, _rows = kernel_code(spec)
+    staged, _gathered = column_classes(spec)
+    lanes = spec.n_groups * (spec.n_values + 1)
+    private = lanes * THREADS * 8 <= ACC_PRIVATE_MAX
+    acc = lanes * (THREADS if private else THREADS // 32) * 8
+    for d, rows in VARIANTS:
+        if d < depth:
+            continue
+        T = THREADS * rows
+        offs, off = {}, 0
+        for c in staged:
+            offs[c] = off
+            off += _round(T * widths[c], 128)
+        xmin_off = xmax_off = -1
+        if mvcc_full:
+            xmin_off, xmax_off = off, off + T * 8
+            off += 2 * T * 8
+        for budget, stages in ((SMEM_HALF_SM, 3), (SMEM_HALF_SM, 2),
+                               (SMEM_BLOCK_MAX, 3), (SMEM_BLOCK_MAX, 2)):
+            smem = SMEM_HEAD + stages * off + acc
+            if smem <= budget:
+                return LaunchPlan(
+                    d, rows, stages, off,
+                    tuple(offs.get(i, -1) for i in range(len(widths))),
+                    xmin_off, xmax_off, private, smem,
+                )
+    raise PallasUnsupported("no tile fits the kernel's shared memory")
+
+
+def decode_program(words, consts, col_smem, col_dtype, col_addr) -> list:
+    """The kernel's words as the records it runs (``struct Ins``):
+    (op, slot, stage offset, type or lane, value). A column's stage
+    offset, type and, when gathered, plane address come from the launch;
+    the value is the word's constant; a filter of a 4- or 1-byte column
+    by a constant within int32 compares in 32 bits."""
+    out = []
+    for w in words:
+        op, arg, slot, aux = w & 0xff, w >> 8 & 0xff, w >> 16 & 0xff, w >> 24
+        off = dtype = v = 0
+        if op in (OP_COL, OP_GCOL) or op >= OP_FILT:
+            c = aux if op >= OP_FILT else arg
+            off, dtype = col_smem[c], col_dtype[c]
+            if op == OP_GCOL:
+                v = col_addr[c]
+        if op == OP_CONST or op >= OP_K:
+            v = consts[arg]
+        if op >= OP_FILT and dtype != 1 and -2**31 <= v < 2**31:
+            dtype |= NARROW
+        if op in (OP_ACC, OP_ACCN):
+            dtype = arg
+        out.append((op, slot, off, dtype, v))
+    return out
+
+
+class _Ins(ctypes.Structure):
+    """Mirror of ``struct Ins`` in csrc/scan_agg.cu."""
+
+    _fields_ = [
+        ("op", ctypes.c_int32),
+        ("slot", ctypes.c_int32),
+        ("off", ctypes.c_int32),
+        ("dtype", ctypes.c_int32),
+        ("v", ctypes.c_int64),
+    ]
 
 
 class _Params(ctypes.Structure):
@@ -542,21 +838,22 @@ class _Params(ctypes.Structure):
         ("nrows", ctypes.c_void_p),
         ("sums", ctypes.c_void_p),
         ("counts", ctypes.c_void_p),
-        ("consts", ctypes.c_int64 * MAX_CONSTS),
         ("rmax", ctypes.c_int64),
-        ("mvcc_shard_stride", ctypes.c_int64),
-        ("mvcc_row_stride", ctypes.c_int64),
+        ("row_cap", ctypes.c_int64),
         ("snap", ctypes.c_int64),
+        ("tiles_per_shard", ctypes.c_int32),
+        ("n_shards", ctypes.c_int32),
         ("col_dtype", ctypes.c_int32 * MAX_COLS),
-        ("code", ctypes.c_int32 * MAX_CODE),
-        ("pred_start", ctypes.c_int32),
-        ("pred_len", ctypes.c_int32),
-        ("key_start", ctypes.c_int32),
-        ("key_len", ctypes.c_int32),
-        ("val_start", ctypes.c_int32 * MAX_VALUES),
-        ("val_len", ctypes.c_int32 * MAX_VALUES),
+        ("col_smem", ctypes.c_int32 * MAX_COLS),
+        ("prog", _Ins * MAX_KCODE),
+        ("code_len", ctypes.c_int32),
         ("n_groups", ctypes.c_int32),
         ("n_values", ctypes.c_int32),
+        ("xmin_smem", ctypes.c_int32),
+        ("xmax_smem", ctypes.c_int32),
+        ("stage_bytes", ctypes.c_int32),
+        ("n_stages", ctypes.c_int32),
+        ("acc_private", ctypes.c_int32),
     ]
 
 
@@ -572,8 +869,8 @@ def _load():
             lib.scan_agg_params_size.argtypes = []
             lib.scan_agg_params_size.restype = ctypes.c_int
             lib.scan_agg_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p,
             ]
             lib.scan_agg_launch.restype = ctypes.c_int
             got = lib.scan_agg_params_size()
@@ -606,13 +903,27 @@ def _check_args(cols, xmin, xmax, nrows, spec):
             raise ValueError("column planes differ in shape")
 
 
+def _padded(x: torch.Tensor, R: int) -> torch.Tensor:
+    """``x`` [S, R0] zero-padded to [S, R] (rows past every nrows)."""
+    if x.shape[1] == R:
+        return x.contiguous()
+    y = torch.zeros((x.shape[0], R), dtype=x.dtype, device=x.device)
+    y[:, :x.shape[1]] = x
+    return y
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its base on the 16-byte boundary bulk copies need."""
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def scan_agg(cols, xmin, xmax, nrows, snap: int, spec: ScanAggSpec,
              max_nrows: Optional[int] = None):
     """Per-shard exact ``sums`` int64 [S, G, E] and ``counts`` int64
     [S, G] of the rows r < nrows[s] visible at ``snap`` that pass the
     predicate, grouped by the key program (see ``scan_agg_plain`` for
-    the argument shapes). ``max_nrows`` (host int) sizes the grid; it
-    defaults to the planes' width.
+    the argument shapes). ``max_nrows`` (host int, at least every
+    nrows[s]) sizes the grid; it defaults to the planes' width.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``scan_agg.launches``) or raise."""
@@ -625,46 +936,68 @@ def scan_agg(cols, xmin, xmax, nrows, snap: int, spec: ScanAggSpec,
     for x in (*cols, xmax, nrows):
         if x.device != dev:
             raise ValueError("scan_agg: tensors on different devices")
-    cols = [c.contiguous() for c in cols]
-    xmin, xmax, nrows = xmin.contiguous(), xmax.contiguous(), nrows.contiguous()
     S = xmin.shape[0]
-    rmax = cols[0].shape[1] if cols else xmin.shape[1]
-    if xmin.shape[1] not in (1, rmax):
+    R = cols[0].shape[1] if cols else xmin.shape[1]
+    full = xmin.shape[1] != 1
+    if full and xmin.shape[1] != R:
         raise ValueError("MVCC planes must be [S, 1] or [S, Rmax]")
     G, Ev = spec.n_groups, spec.n_values
     sums = torch.zeros((S, G, Ev), dtype=torch.int64, device=dev)
     counts = torch.zeros((S, G), dtype=torch.int64, device=dev)
     if S == 0:
         return sums, counts
+    widths = [c.element_size() for c in cols]
+    plan = launch_plan(spec, widths, full)
+    # every plane row starts on a 16-byte boundary: R a multiple of 16
+    rmax = _round(R, 16)
+    cols = [_padded(c, rmax) for c in cols]
+    if full:
+        xmin, xmax = _aligned(_padded(xmin, rmax)), _aligned(
+            _padded(xmax, rmax))
+    else:
+        xmin, xmax = xmin.contiguous(), xmax.contiguous()
+    staged = column_classes(spec)[0]
+    cols = [_aligned(c) if i in staged else c for i, c in enumerate(cols)]
+    nrows = nrows.contiguous()
+    if cols or full:
+        row_cap = span = R
+        rows = R if max_nrows is None else min(int(max_nrows), R)
+    else:  # nothing loaded, compact planes: the rows are nrows alone
+        row_cap, span = 2**62, max(int(nrows.max()), 1)
+        rows = span
+    words = kernel_code(spec)[0]
     lib = _load()
     p = _Params()
+    for i in range(MAX_COLS):
+        p.col_smem[i] = -1
     for i, c in enumerate(cols):
         p.cols[i] = c.data_ptr()
         p.col_dtype[i] = _DTYPE_CODE[c.dtype]
+        p.col_smem[i] = plan.col_smem[i]
     p.xmin, p.xmax, p.nrows = xmin.data_ptr(), xmax.data_ptr(), nrows.data_ptr()
     p.sums, p.counts = sums.data_ptr(), counts.data_ptr()
-    for i, v in enumerate(spec.consts):
-        p.consts[i] = v
-    p.rmax = rmax
-    compact = xmin.shape[1] == 1
-    p.mvcc_shard_stride = 1 if compact else rmax
-    p.mvcc_row_stride = 0 if compact else 1
-    p.snap = int(snap)
-    for i, (op, arg) in enumerate(spec.code):
-        p.code[i] = op | (arg << 8)
-    p.pred_start, p.pred_len = spec.pred if spec.pred else (0, 0)
-    p.key_start, p.key_len = spec.key if spec.key else (0, 0)
-    for i, (s0, n) in enumerate(spec.values):
-        p.val_start[i], p.val_len[i] = s0, n
+    p.rmax, p.row_cap, p.snap = rmax, row_cap, int(snap)
+    T = plan.tile
+    tiles = -(-span // T)
+    if S * tiles >= 2**31:
+        raise ValueError("scan_agg: 2^31 tiles or more")
+    p.tiles_per_shard, p.n_shards = tiles, S
+    prog = decode_program(words, spec.consts, plan.col_smem,
+                          [_DTYPE_CODE[c.dtype] for c in cols],
+                          [c.data_ptr() for c in cols])
+    for i, rec in enumerate(prog):
+        p.prog[i] = _Ins(*rec)
+    p.code_len = len(prog)
     p.n_groups, p.n_values = G, Ev
-    rows = rmax if max_nrows is None else max(int(max_nrows), 1)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(
-        -(-rows // THREADS), max(1, sms * BLOCKS_PER_SM // S)
-    ))
+    p.xmin_smem, p.xmax_smem = plan.xmin_smem, plan.xmax_smem
+    p.stage_bytes, p.n_stages = plan.stage_bytes, plan.stages
+    p.acc_private = int(plan.acc_private)
+    max_grid = max(1, S * -(-rows // T))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.scan_agg_launch(ctypes.addressof(p), blocks, S, stream)
+        rc = lib.scan_agg_launch(ctypes.addressof(p), plan.depth,
+                                 plan.rows, max_grid, plan.smem_bytes,
+                                 stream)
     if rc != 0:
         raise RuntimeError(f"scan_agg kernel launch failed: CUDA error {rc}")
     scan_agg.launches += 1

@@ -236,6 +236,49 @@ def test_wrapper_checks_its_arguments():
 
 
 # ---------------------------------------------------------------------------
+# the kernel's host side: 16-byte access, ragged and offset probes
+# ---------------------------------------------------------------------------
+
+
+def test_vector_access_needs_every_array_aligned():
+    """16-byte accesses only where every row array starts on a 16-byte
+    boundary: a probe that starts at an offset view takes per-row
+    accesses."""
+    pk = torch.zeros(1000, dtype=torch.int32)
+    real = torch.zeros(1000, dtype=torch.bool)
+    assert rp.vector_ok(pk, real)
+    assert not rp.vector_ok(pk[3:], real[3:])
+    assert not rp.vector_ok(pk, real[5:])
+    assert rp.vector_ok(pk[4:], real[16:])
+
+
+EDGES = {
+    "ragged n": (0, 80_003),
+    "offset view": (3, 4000),
+    "offset view, ragged n": (5, 70_001),
+    "n below one warp's rows": (0, 300),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDGES))
+def test_wrapper_on_ragged_and_offset_probes_equals_contract(name):
+    """The probe shapes the kernel handles apart from its 16-byte path
+    (n not a multiple of 512 rows, views that start at an offset) give
+    ``probe_radix_first``'s answer, bidx 0 on a miss."""
+    start, n = EDGES[name]
+    bk, breal, pk, preal, P, B = _probe_case(13, np.int32)
+    reps = -(-(start + n) // len(pk))
+    pk = _t(np.tile(pk, reps))[start:start + n]
+    preal = _t(np.tile(preal, reps))[start:start + n]
+    table = join_ops.build_radix_table(_t(bk), _t(breal), P, B)[:3]
+    m, bi = rp.radix_probe(*table, pk, preal, P, B)
+    want_m, want_b = join_ops.probe_radix_first(*table, pk, preal, P, B)
+    assert m.shape == (n,) and m.any()
+    assert torch.equal(m, want_m)
+    assert torch.equal(bi, torch.where(want_m, want_b, 0))
+
+
+# ---------------------------------------------------------------------------
 # the DAG's radix lookup, single- and multi-pass
 # ---------------------------------------------------------------------------
 
@@ -322,3 +365,22 @@ def test_kernel_equals_plain_on_the_card():
         assert rp.radix_probe.launches == n0 + 1
         assert km.any()
         assert torch.equal(km, pm) and torch.equal(kb, pb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(EDGES))
+def test_kernel_on_ragged_and_offset_probes_on_the_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    start, n = EDGES[name]
+    bk, breal, pk, preal, P, B = _probe_case(13, np.int32)
+    reps = -(-(start + n) // len(pk))
+    pk = _t(np.tile(pk, reps)).to(dev)[start:start + n]
+    preal = _t(np.tile(preal, reps)).to(dev)[start:start + n]
+    table = join_ops.build_radix_table(_t(bk).to(dev), _t(breal).to(dev),
+                                       P, B)[:3]
+    km, kb = rp.radix_probe(*table, pk, preal, P, B)
+    pm, pb = rp.radix_probe_plain(*table, pk, preal, P, B)
+    torch.cuda.synchronize()
+    assert torch.equal(km, pm) and torch.equal(kb, pb)
