@@ -25,12 +25,17 @@ Phases, one line each; any failure raises and exits non-zero:
    bench.py measures it) made from ``--seed``, then Q6 and Q1 through
    Session.query through the scan-aggregate kernel;
 5. main path, SSB: a second cluster holding SSB lineorder (``--ssb-rows``,
-   60 M = SF10, round robin over 2 datanodes) and DATE (replicated),
-   then query flight 1 (Q1.1-Q1.3) through Session.query: a star join
-   through the fused DAG and the radix-probe kernel. Every answer must
-   equal a numpy computation over the same arrays exactly, and every
-   kernel of each path must have launched in that path's run (counts
-   set to 0 just before it and read just after);
+   60 M = SF10, round robin over 2 datanodes) and DATE, PART, SUPPLIER
+   and CUSTOMER at the same scale factor (replicated; TEXT attributes as
+   dictionary codes), loaded once, then query flight 1 (Q1.1-Q1.3)
+   through Session.query: a star join through the fused DAG's scalar
+   mode and the radix-probe kernel; then flights 2-4 (Q2.1-Q4.3): star
+   joins of three or four dimensions, filtered and grouped on TEXT,
+   through the DAG's grouped mode (DATE by the radix probe, the other
+   dimensions by the dense fold). Every answer must equal a numpy
+   computation over the same arrays exactly, and every kernel of each
+   path must have launched in that path's run (counts set to 0 just
+   before each query and read just after);
 6. timing, per path: median end-to-end ms per query, the layers each
    timed on its own, the device busy and idle share of single queries
    from a torch.profiler trace, kernel ms from CUDA events at the main
@@ -123,6 +128,221 @@ SSB_Q = {
         "and lo_discount between 5 and 7 and lo_quantity between 26 and 35"
     ),
 }
+# Flights 1-4 in one cluster: every column some flight reads (spec rev. 3,
+# section 2; the others are left out, as no scan would upload them).
+SSB_FULL_DDL = (
+    "create table lineorder (lo_orderdate int, lo_quantity int, "
+    "lo_discount int, lo_extendedprice bigint, lo_custkey int, "
+    "lo_partkey int, lo_suppkey int, lo_revenue bigint, "
+    "lo_supplycost int) distribute by roundrobin",
+    "create table date_dim (d_datekey int, d_year int, d_yearmonthnum int, "
+    "d_weeknuminyear int, d_yearmonth text) distribute by replication",
+    "create table part (p_partkey int, p_mfgr text, p_category text, "
+    "p_brand1 text) distribute by replication",
+    "create table supplier (s_suppkey int, s_city text, s_nation text, "
+    "s_region text) distribute by replication",
+    "create table customer (c_custkey int, c_city text, c_nation text, "
+    "c_region text) distribute by replication",
+)
+# Flights 2-4 as published (spec rev. 3, section 3), DATE named date_dim.
+_F2 = (
+    "select sum(lo_revenue), d_year, p_brand1 "
+    "from lineorder, date_dim, part, supplier "
+    "where lo_orderdate = d_datekey and lo_partkey = p_partkey "
+    "and lo_suppkey = s_suppkey and {} "
+    "group by d_year, p_brand1 order by d_year, p_brand1"
+)
+_F3 = (
+    "select {g}, d_year, sum(lo_revenue) as revenue "
+    "from customer, lineorder, supplier, date_dim "
+    "where lo_custkey = c_custkey and lo_suppkey = s_suppkey "
+    "and lo_orderdate = d_datekey and {w} "
+    "group by {g}, d_year order by d_year asc, revenue desc"
+)
+_CITIES = ("(c_city = 'UNITED KI1' or c_city = 'UNITED KI5') "
+           "and (s_city = 'UNITED KI1' or s_city = 'UNITED KI5')")
+_F4 = (
+    "select {sel}, sum(lo_revenue - lo_supplycost) as profit "
+    "from date_dim, customer, supplier, part, lineorder "
+    "where lo_custkey = c_custkey and lo_suppkey = s_suppkey "
+    "and lo_partkey = p_partkey and lo_orderdate = d_datekey and {w} "
+    "group by {g} order by {g}"
+)
+_MFGR12 = "(p_mfgr = 'MFGR#1' or p_mfgr = 'MFGR#2')"
+
+
+def _f3(cols, where):
+    return _F3.format(w=where, g=", ".join(cols))
+
+
+SSB_GROUPED_Q = {
+    "Q2.1": _F2.format("p_category = 'MFGR#12' and s_region = 'AMERICA'"),
+    "Q2.2": _F2.format("p_brand1 between 'MFGR#2221' and 'MFGR#2228' "
+                       "and s_region = 'ASIA'"),
+    "Q2.3": _F2.format("p_brand1 = 'MFGR#2239' and s_region = 'EUROPE'"),
+    "Q3.1": _f3(("c_nation", "s_nation"),
+                "c_region = 'ASIA' and s_region = 'ASIA' "
+                "and d_year >= 1992 and d_year <= 1997"),
+    "Q3.2": _f3(("c_city", "s_city"),
+                "c_nation = 'UNITED STATES' and s_nation = 'UNITED STATES' "
+                "and d_year >= 1992 and d_year <= 1997"),
+    "Q3.3": _f3(("c_city", "s_city"),
+                _CITIES + " and d_year >= 1992 and d_year <= 1997"),
+    "Q3.4": _f3(("c_city", "s_city"),
+                _CITIES + " and d_yearmonth = 'Dec1997'"),
+    "Q4.1": _F4.format(sel="d_year, c_nation", g="d_year, c_nation",
+                       w="c_region = 'AMERICA' and s_region = 'AMERICA' "
+                       "and " + _MFGR12),
+    "Q4.2": _F4.format(sel="d_year, s_nation, p_category",
+                       g="d_year, s_nation, p_category",
+                       w="c_region = 'AMERICA' and s_region = 'AMERICA' "
+                       "and (d_year = 1997 or d_year = 1998) and "
+                       + _MFGR12),
+    "Q4.3": _F4.format(sel="d_year, s_city, p_brand1",
+                       g="d_year, s_city, p_brand1",
+                       w="c_region = 'AMERICA' "
+                       "and s_nation = 'UNITED STATES' "
+                       "and (d_year = 1997 or d_year = 1998) "
+                       "and p_category = 'MFGR#14'"),
+}
+
+
+def _isin(*vals):
+    return lambda a: np.isin(a, vals)
+
+
+def _eq(v):
+    return lambda a: a == v
+
+
+def _between(lo, hi):
+    return lambda a: (a >= lo) & (a <= hi)
+
+
+# per query: (filters (table, column, test), output columns in select
+# order ((table, column) or "sum"), the summed value, ORDER BY as
+# (output position, descending))
+_CITY2 = _isin("UNITED KI1", "UNITED KI5")
+_Y9297 = ("date_dim", "d_year", _between(1992, 1997))
+SSB_GROUPED_SPEC = {
+    "Q2.1": ([("part", "p_category", _eq("MFGR#12")),
+              ("supplier", "s_region", _eq("AMERICA"))],
+             ["sum", ("date_dim", "d_year"), ("part", "p_brand1")],
+             "revenue", [(1, False), (2, False)]),
+    "Q2.2": ([("part", "p_brand1", _between("MFGR#2221", "MFGR#2228")),
+              ("supplier", "s_region", _eq("ASIA"))],
+             ["sum", ("date_dim", "d_year"), ("part", "p_brand1")],
+             "revenue", [(1, False), (2, False)]),
+    "Q2.3": ([("part", "p_brand1", _eq("MFGR#2239")),
+              ("supplier", "s_region", _eq("EUROPE"))],
+             ["sum", ("date_dim", "d_year"), ("part", "p_brand1")],
+             "revenue", [(1, False), (2, False)]),
+    "Q3.1": ([("customer", "c_region", _eq("ASIA")),
+              ("supplier", "s_region", _eq("ASIA")), _Y9297],
+             [("customer", "c_nation"), ("supplier", "s_nation"),
+              ("date_dim", "d_year"), "sum"],
+             "revenue", [(2, False), (3, True)]),
+    "Q3.2": ([("customer", "c_nation", _eq("UNITED STATES")),
+              ("supplier", "s_nation", _eq("UNITED STATES")), _Y9297],
+             [("customer", "c_city"), ("supplier", "s_city"),
+              ("date_dim", "d_year"), "sum"],
+             "revenue", [(2, False), (3, True)]),
+    "Q3.3": ([("customer", "c_city", _CITY2),
+              ("supplier", "s_city", _CITY2), _Y9297],
+             [("customer", "c_city"), ("supplier", "s_city"),
+              ("date_dim", "d_year"), "sum"],
+             "revenue", [(2, False), (3, True)]),
+    "Q3.4": ([("customer", "c_city", _CITY2),
+              ("supplier", "s_city", _CITY2),
+              ("date_dim", "d_yearmonth", _eq("Dec1997"))],
+             [("customer", "c_city"), ("supplier", "s_city"),
+              ("date_dim", "d_year"), "sum"],
+             "revenue", [(2, False), (3, True)]),
+    "Q4.1": ([("customer", "c_region", _eq("AMERICA")),
+              ("supplier", "s_region", _eq("AMERICA")),
+              ("part", "p_mfgr", _isin("MFGR#1", "MFGR#2"))],
+             [("date_dim", "d_year"), ("customer", "c_nation"), "sum"],
+             "profit", [(0, False), (1, False)]),
+    "Q4.2": ([("customer", "c_region", _eq("AMERICA")),
+              ("supplier", "s_region", _eq("AMERICA")),
+              ("date_dim", "d_year", _isin(1997, 1998)),
+              ("part", "p_mfgr", _isin("MFGR#1", "MFGR#2"))],
+             [("date_dim", "d_year"), ("supplier", "s_nation"),
+              ("part", "p_category"), "sum"],
+             "profit", [(0, False), (1, False), (2, False)]),
+    "Q4.3": ([("customer", "c_region", _eq("AMERICA")),
+              ("supplier", "s_nation", _eq("UNITED STATES")),
+              ("date_dim", "d_year", _isin(1997, 1998)),
+              ("part", "p_category", _eq("MFGR#14"))],
+             [("date_dim", "d_year"), ("supplier", "s_city"),
+              ("part", "p_brand1"), "sum"],
+             "profit", [(0, False), (1, False), (2, False)]),
+}
+# each dimension's join: (lineorder's foreign key, the dimension's key)
+SSB_JOIN_KEYS = {"date_dim": ("lo_orderdate", "d_datekey"),
+                 "part": ("lo_partkey", "p_partkey"),
+                 "supplier": ("lo_suppkey", "s_suppkey"),
+                 "customer": ("lo_custkey", "c_custkey")}
+
+
+def ssb_positions(tables) -> dict:
+    """Each lineorder row's row in every dimension, by key: DATE's keys
+    are unique but gapped (a search of the sorted keys), the others
+    1..N (the key less one)."""
+    lo = tables["lineorder"]
+    out = {}
+    for dim, (fk, pk) in SSB_JOIN_KEYS.items():
+        keys = tables[dim][pk]
+        if np.array_equal(keys, np.arange(1, len(keys) + 1)):
+            out[dim] = lo[fk].astype(np.int64) - 1
+        else:
+            order = np.argsort(keys)
+            out[dim] = order[np.searchsorted(keys, lo[fk], sorter=order)]
+    return out
+
+
+def expected_ssb_grouped(tables, q: str, pos=None) -> list:
+    """Flights 2-4 in numpy over the same arrays: each dimension's filter
+    as a mask over its rows gathered through the key join, the grouping
+    by np.unique of the passing rows' keys, exact int64 sums, and the
+    ORDER BY in Python's order (strings by code point)."""
+    pos = pos if pos is not None else ssb_positions(tables)
+    lo = tables["lineorder"]
+    filters, outs, value, order = SSB_GROUPED_SPEC[q]
+    m = np.ones(len(lo["lo_orderdate"]), dtype=bool)
+    for dim, col, test in filters:
+        m &= test(tables[dim][col])[pos[dim]]
+    idx = np.nonzero(m)[0]
+    val = lo["lo_revenue"][idx].astype(np.int64)
+    if value == "profit":
+        val = val - lo["lo_supplycost"][idx]
+    keys = [tables[o[0]][o[1]][pos[o[0]][idx]] for o in outs if o != "sum"]
+    if not len(idx):
+        return []
+    inv = np.zeros(len(idx), dtype=np.int64)
+    for k in keys:
+        _u, ki = np.unique(k, return_inverse=True)
+        inv = inv * (ki.max() + 1) + ki.reshape(-1)
+    groups, gi = np.unique(inv, return_inverse=True)
+    sums = np.zeros(len(groups), dtype=np.int64)
+    np.add.at(sums, gi.reshape(-1), val)
+    first = np.zeros(len(groups), dtype=np.int64)
+    first[gi.reshape(-1)[::-1]] = np.arange(len(idx))[::-1]
+    rows = []
+    for g in range(len(groups)):
+        it = iter(keys)
+        rows.append(tuple(
+            int(sums[g]) if o == "sum" else _py(next(it)[first[g]])
+            for o in outs))
+    for p, desc in reversed(order):  # stable: the last key first
+        rows.sort(key=lambda r: r[p], reverse=desc)
+    return rows
+
+
+def _py(x):
+    return x.item() if isinstance(x, np.generic) else x
+
+
 # SSB spec rev. 3: DATE has 2556 rows; lineorder's dates span the first
 # 2405 of them
 SSB_DATES = 2556
@@ -132,8 +352,9 @@ SSB_ORDER_DATES = 2405
 def make_date_dim():
     """SSB's DATE table (spec rev. 3, section 2): 2556 rows, one a day
     from 1992-01-01 (as SSB's dbgen makes them, so the last is
-    1998-12-30), keyed yyyymmdd; the four columns flight 1 reads. The
-    week number counts 7-day runs from January 1 (1-53)."""
+    1998-12-30), keyed yyyymmdd; the five columns flights 1-4 read. The
+    week number counts 7-day runs from January 1 (1-53); d_yearmonth is
+    the month's abbreviation and the year ('Dec1997')."""
     days = np.datetime64("1992-01-01") + np.arange(SSB_DATES)
     year = days.astype("datetime64[Y]").astype(np.int64) + 1970
     month = days.astype("datetime64[M]").astype(np.int64) % 12 + 1
@@ -144,23 +365,138 @@ def make_date_dim():
         "d_year": year.astype(np.int32),
         "d_yearmonthnum": (year * 100 + month).astype(np.int32),
         "d_weeknuminyear": ((yday - 1) // 7 + 1).astype(np.int32),
+        "d_yearmonth": _tight(np.char.add(
+            np.array(MONTHS)[month - 1], year.astype(str))),
     }
 
 
-def make_lineorder(n: int, date_dim, seed: int = 42):
-    """SSB lineorder's four flight-1 columns from ``seed``: an order date
-    uniform over the first 2405 dates, quantity 1-50, discount 0-10, and
-    the extended price as quantity times a retail price in
-    [90000, 209999]."""
+MONTHS = ("Jan", "Feb", "Mar", "Apr", "May", "Jun", "Jul", "Aug", "Sep",
+          "Oct", "Nov", "Dec")
+
+
+def make_lineorder(n: int, date_dim, seed: int = 42, dims=None):
+    """SSB lineorder's columns from ``seed``: flight 1's four (an order
+    date uniform over the first 2405 dates, quantity 1-50, discount
+    0-10, the extended price as quantity times a retail price in
+    [90000, 209999]), then the five flights 2-4 read: customer, part and
+    supplier keys uniform over each dimension's keys (``dims``: their
+    row counts, ``ssb_dim_rows`` of n's scale factor by default), the
+    revenue extendedprice * (100 - discount) / 100 and the supply cost
+    6/10 of the retail price (dbgen's rules). Flight 1's columns are the
+    same for a seed whatever follows them."""
     rng = np.random.default_rng(seed)
     qty = rng.integers(1, 51, n).astype(np.int32)
     keys = date_dim["d_datekey"][:SSB_ORDER_DATES]
+    orderdate = keys[rng.integers(0, SSB_ORDER_DATES, n)]
+    disc = rng.integers(0, 11, n).astype(np.int32)
+    retail = rng.integers(90_000, 210_000, n)
+    price = qty.astype(np.int64) * retail
+    dims = dims or ssb_dim_rows(n / SSB_LINEORDER_SF1)
     return {
-        "lo_orderdate": keys[rng.integers(0, SSB_ORDER_DATES, n)],
+        "lo_orderdate": orderdate,
         "lo_quantity": qty,
-        "lo_discount": rng.integers(0, 11, n).astype(np.int32),
-        "lo_extendedprice": qty.astype(np.int64)
-        * rng.integers(90_000, 210_000, n),
+        "lo_discount": disc,
+        "lo_extendedprice": price,
+        "lo_custkey": rng.integers(1, dims["customer"] + 1, n).astype(
+            np.int32),
+        "lo_partkey": rng.integers(1, dims["part"] + 1, n).astype(np.int32),
+        "lo_suppkey": rng.integers(1, dims["supplier"] + 1, n).astype(
+            np.int32),
+        "lo_revenue": price * (100 - disc) // 100,
+        "lo_supplycost": (retail * 6 // 10).astype(np.int32),
+    }
+
+
+# SSB spec rev. 3, section 2: rows at scale factor SF (lineorder 6 M x SF)
+SSB_LINEORDER_SF1 = 6_000_000
+# TPC-H's 25 nations and their regions (SSB's supplier and customer draw
+# one each)
+SSB_NATIONS = (
+    ("ALGERIA", "AFRICA"), ("ARGENTINA", "AMERICA"), ("BRAZIL", "AMERICA"),
+    ("CANADA", "AMERICA"), ("EGYPT", "MIDDLE EAST"), ("ETHIOPIA", "AFRICA"),
+    ("FRANCE", "EUROPE"), ("GERMANY", "EUROPE"), ("INDIA", "ASIA"),
+    ("INDONESIA", "ASIA"), ("IRAN", "MIDDLE EAST"), ("IRAQ", "MIDDLE EAST"),
+    ("JAPAN", "ASIA"), ("JORDAN", "MIDDLE EAST"), ("KENYA", "AFRICA"),
+    ("MOROCCO", "AFRICA"), ("MOZAMBIQUE", "AFRICA"), ("PERU", "AMERICA"),
+    ("CHINA", "ASIA"), ("ROMANIA", "EUROPE"),
+    ("SAUDI ARABIA", "MIDDLE EAST"), ("VIETNAM", "ASIA"),
+    ("RUSSIA", "EUROPE"), ("UNITED KINGDOM", "EUROPE"),
+    ("UNITED STATES", "AMERICA"),
+)
+
+
+def ssb_dim_rows(sf: float) -> dict:
+    """Dimension rows at scale factor ``sf`` (spec rev. 3, section 2):
+    part 200 000 x floor(1 + log2 SF), supplier 2 000 x SF, customer
+    30 000 x SF; below SF 1 each in proportion to lineorder."""
+    part = (200_000 * int(1 + np.log2(sf)) if sf >= 1
+            else max(1, round(200_000 * sf)))
+    return {"part": part, "supplier": max(1, round(2_000 * sf)),
+            "customer": max(1, round(30_000 * sf))}
+
+
+def make_part(n: int, seed: int = 42):
+    """SSB PART's columns the flights read: key 1..n, p_mfgr MFGR#1-5,
+    p_category the mfgr and a digit 1-5, p_brand1 the category and a
+    number 1-40 (so 'MFGR#2221' is category MFGR#22, brand 21), as
+    strings in numpy arrays."""
+    rng = np.random.default_rng(seed)
+    mfgr = rng.integers(1, 6, n)
+    cat = rng.integers(1, 6, n)
+    brand = rng.integers(1, 41, n)
+    mf = _tight(np.char.add("MFGR#", mfgr.astype(str)))
+    ca = _tight(np.char.add(mf, cat.astype(str)))
+    return {
+        "p_partkey": np.arange(1, n + 1, dtype=np.int32),
+        "p_mfgr": mf,
+        "p_category": ca,
+        "p_brand1": _tight(np.char.add(ca, brand.astype(str))),
+    }
+
+
+def _tight(a):
+    """A numpy string array at the width of its longest value."""
+    return a.astype(f"U{max(1, int(np.char.str_len(a).max(initial=1)))}")
+
+
+def _geo(n: int, rng, prefix: str):
+    """City, nation and region of n suppliers or customers: a nation
+    uniform over the 25, its region, and a city that is the nation's
+    name cut or padded to 9 characters and a digit 0-9 (dbgen's
+    '%-9.9s%d', so 'UNITED KI1')."""
+    nat = rng.integers(0, len(SSB_NATIONS), n)
+    names = np.array([a for a, _ in SSB_NATIONS])
+    regions = np.array([b for _, b in SSB_NATIONS])
+    stem = np.array([f"{a[:9]:<9}" for a, _ in SSB_NATIONS])
+    city = _tight(np.char.add(stem[nat], rng.integers(0, 10, n).astype(str)))
+    return {f"{prefix}_city": city, f"{prefix}_nation": names[nat],
+            f"{prefix}_region": regions[nat]}
+
+
+def make_supplier(n: int, seed: int = 42):
+    rng = np.random.default_rng(seed)
+    return {"s_suppkey": np.arange(1, n + 1, dtype=np.int32),
+            **_geo(n, rng, "s")}
+
+
+def make_customer(n: int, seed: int = 42):
+    rng = np.random.default_rng(seed)
+    return {"c_custkey": np.arange(1, n + 1, dtype=np.int32),
+            **_geo(n, rng, "c")}
+
+
+def make_ssb(n: int, seed: int = 42) -> dict:
+    """All five SSB tables flights 1-4 read, for a lineorder of n rows
+    (the dimensions at n's scale factor), each from its own stream of
+    ``seed``."""
+    dims = ssb_dim_rows(n / SSB_LINEORDER_SF1)
+    dd = make_date_dim()
+    return {
+        "lineorder": make_lineorder(n, dd, seed, dims),
+        "date_dim": dd,
+        "part": make_part(dims["part"], seed + 1),
+        "supplier": make_supplier(dims["supplier"], seed + 2),
+        "customer": make_customer(dims["customer"], seed + 3),
     }
 
 
@@ -193,6 +529,8 @@ def bulk_append(cluster, table: str, arrays) -> None:
     from opentenbase_tpu_torch.storage.table import ColumnBatch
 
     meta = cluster.catalog.get(table)
+    arrays = {name: encode_text(meta, name, arrays[name])
+              for name in meta.schema}
     n = len(next(iter(arrays.values())))
     nn = len(meta.node_indices)
     commit_ts = cluster.gts.get_gts()
@@ -202,11 +540,28 @@ def bulk_append(cluster, table: str, arrays) -> None:
             else slice(i * n // nn, (i + 1) * n // nn)
         )
         cols = {
-            name: Column(meta.schema[name], arrays[name][sl])
+            name: Column(meta.schema[name], arrays[name][sl],
+                         None, meta.dictionaries.get(name))
             for name in meta.schema
         }
         batch = ColumnBatch(cols, sl.stop - sl.start)
         cluster.stores[node][table].append_batch(batch, commit_ts)
+
+
+def encode_text(meta, name: str, arr):
+    """A TEXT column's strings as codes into the table's dictionary,
+    minted in order of first appearance, as row-by-row inserts would
+    mint them (so code order is not string order); other columns pass
+    through."""
+    dic = meta.dictionaries.get(name)
+    if dic is None:
+        return arr
+    vocab, first, inv = np.unique(arr, return_index=True,
+                                  return_inverse=True)
+    order = np.argsort(first)
+    codes = np.empty(len(vocab), dtype=np.int32)
+    codes[order] = dic.encode(vocab[order].tolist())
+    return codes[inv.reshape(-1)]
 
 
 def _day(s: str) -> int:
@@ -517,11 +872,17 @@ def trace_query(session, sql: str, repeats: int) -> dict:
             if b > end:
                 busy_us += b - max(a, end)
                 end = b
+        by_kind: dict = {}
+        for e in dev:  # device ms by kind, the name cut at its template
+            k = e.name.split("<")[0].split("(")[0][:60]
+            by_kind[k] = by_kind.get(k, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
         wall = (t1 - t0) * 1e3
         runs.append({
             "wall_ms": wall, "busy_ms": busy_us / 1e3,
             "idle_share": 1 - busy_us / 1e3 / wall if dev else None,
             "events": sorted({e.name for e in dev}),
+            "top": sorted(by_kind.items(), key=lambda kv: -kv[1])[:5],
         })
     runs.sort(key=lambda r: r["wall_ms"])
     return runs[len(runs) // 2]
@@ -788,17 +1149,19 @@ def run_ssb_path(args, device, card: str) -> dict:
     from opentenbase_tpu_torch.ops import scan_agg as sa
 
     t0 = time.perf_counter()
-    dd = make_date_dim()
-    lo = make_lineorder(args.ssb_rows, dd, args.seed)
+    tables = make_ssb(args.ssb_rows, args.seed)
+    lo, dd = tables["lineorder"], tables["date_dim"]
     cluster = Cluster(num_datanodes=2, device=device)
     s = cluster.session()
-    for ddl in SSB_DDL:
+    for ddl in SSB_FULL_DDL:
         s.execute(ddl)
-    bulk_append(cluster, "lineorder", lo)
-    bulk_append(cluster, "date_dim", dd)
-    print(f"load: SSB lineorder {args.ssb_rows} rows in 2 datanodes, DATE "
-          f"{len(dd['d_datekey'])} rows replicated, "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for name, arrays in tables.items():
+        bulk_append(cluster, name, arrays)
+    print(f"load: SSB lineorder {args.ssb_rows} rows in 2 datanodes; "
+          + ", ".join(f"{k} {len(next(iter(v.values())))}"
+                      for k, v in tables.items() if k != "lineorder")
+          + f" rows replicated; {time.perf_counter() - t0:.3f} s",
+          flush=True)
     want = {q: expected_ssb(lo, dd, q) for q in SSB_Q}
     runner = None
     first_ms, launches, modes = {}, {}, {}
@@ -852,7 +1215,99 @@ def run_ssb_path(args, device, card: str) -> dict:
               f"{len(tr['events'])} kinds [{card}]", flush=True)
     return {"cluster": cluster, "session": s, "e2e": e2e,
             "launches": launches, "breakdown": breakdown, "trace": trace,
-            "first_ms": first_ms}
+            "first_ms": first_ms, "tables": tables}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: SSB flights 2-4 through the DAG's grouped mode
+# ---------------------------------------------------------------------------
+
+
+def run_ssb_grouped(ssb: dict, args, card: str) -> dict:
+    """Flights 2-4 (Q2.1-Q4.3) in flight 1's cluster: each a star join of
+    lineorder with three or four dimensions, filtered and grouped on
+    TEXT attributes, through the fused DAG's grouped mode (DATE by the
+    radix probe, the dense-keyed dimensions by the fold). Each answer
+    must equal numpy exactly, run in the grouped mode, and launch the
+    radix probe (its count set to 0 just before the query and read just
+    after)."""
+    import torch
+
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    cluster, s = ssb["cluster"], ssb["session"]
+    runner = cluster.fused_executor()._dag
+    t0 = time.perf_counter()
+    pos = ssb_positions(ssb["tables"])
+    want = {q: expected_ssb_grouped(ssb["tables"], q, pos)
+            for q in SSB_GROUPED_Q}
+    print(f"numpy: flights 2-4 answered in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    first_ms, launches, modes = {}, {}, {}
+    for q, sql in SSB_GROUPED_Q.items():
+        rp.radix_probe.launches = 0
+        sa.scan_agg.launches = 0
+        t1 = time.perf_counter()
+        got = s.query(sql)
+        torch.cuda.synchronize()
+        first_ms[q] = (time.perf_counter() - t1) * 1000
+        launches[q] = rp.radix_probe.launches
+        modes[q] = (runner.last_mode, runner.last_join_modes)
+        if got != want[q]:
+            raise AssertionError(
+                f"{q}: port {got[:4]}... ({len(got)} rows) != numpy "
+                f"{want[q][:4]}... ({len(want[q])} rows)")
+        if modes[q] != ("grouped", ("fold", "radix")):
+            raise AssertionError(f"{q}: mode and join modes {modes[q]}, "
+                                 "want grouped with fold and radix")
+        if launches[q] < 1:
+            raise AssertionError(f"{q}: radix_probe never launched")
+        print(f"main path: SSB {q} exact through the fused DAG (mode "
+              f"{modes[q][0]}, join modes {modes[q][1]}, radix_probe "
+              f"launches {launches[q]}, scan_agg launches "
+              f"{sa.scan_agg.launches}; {len(got)} groups; first run incl. "
+              f"upload {first_ms[q]:.3f} ms) {got[:2]}... [{card}]",
+              flush=True)
+    e2e = {}
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for q, sql in SSB_GROUPED_Q.items():
+        ts = []
+        for _ in range(args.repeats):
+            t1 = time.perf_counter()
+            got = s.query(sql)
+            ts.append((time.perf_counter() - t1) * 1000)
+            if got != want[q]:
+                raise AssertionError(f"{q}: answer changed between runs")
+        e2e[q] = statistics.median(ts)
+        print(f"end to end: SSB {q} median {e2e[q]:.3f} ms over "
+              f"{args.repeats} runs (mode {runner.last_mode}, join modes "
+              f"{runner.last_join_modes}), "
+              f"{args.ssb_rows / e2e[q] * 1e3:.4g} rows/s [{card}]",
+              flush=True)
+    print(f"memory: flights 2-4 resident {resident / 1e9:.3f} GB "
+          f"(the SSB tables' planes), peak over the warm runs "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]",
+          flush=True)
+    breakdown = {q: layer_breakdown(cluster, sql, args.repeats, dag=True)
+                 for q, sql in SSB_GROUPED_Q.items()}
+    for q, b in breakdown.items():
+        print(f"layers: SSB {q} median ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in b.items()) + f" [{card}]", flush=True)
+    trace = {}
+    for q, sql in SSB_GROUPED_Q.items():
+        trace[q] = tr = trace_query(s, sql, args.repeats)
+        idle = ("not measured (no device events in the trace)"
+                if tr["idle_share"] is None else f"{tr['idle_share']:.4f}")
+        top = "; ".join(f"{k} {v:.3f} ms" for k, v in tr["top"])
+        print(f"trace: SSB {q} one query under torch.profiler, median of "
+              f"{args.repeats}: host {tr['wall_ms']:.3f} ms, device busy "
+              f"{tr['busy_ms']:.3f} ms, idle share {idle}; device events "
+              f"{len(tr['events'])} kinds, the most device time: {top} "
+              f"[{card}]", flush=True)
+    return {"e2e": e2e, "launches": launches, "breakdown": breakdown,
+            "trace": trace, "first_ms": first_ms}
 
 
 def capture_probe_inputs(ssb: dict, sql: str):
@@ -881,7 +1336,7 @@ def capture_probe_inputs(ssb: dict, sql: str):
     return calls[0]
 
 
-def time_radix(ssb: dict, card: str, rate: float) -> list:
+def time_radix(ssb: dict, card: str, rate: float, queries) -> list:
     """radix_probe's kernel, plain-version and bound times at the main
     path's own inputs (the SF10 shapes), held equal to the plain version
     there too. Bound: the bytes the probe must move (ops/radix_probe
@@ -893,7 +1348,7 @@ def time_radix(ssb: dict, card: str, rate: float) -> list:
 
     rows = []
     n0 = rp.radix_probe.launches
-    for q, sql in SSB_Q.items():
+    for q, sql in queries.items():
         args = capture_probe_inputs(ssb, sql)
         tk, tv, ti, pk, preal, P, B = args
         km, kb = rp.radix_probe(*args)
@@ -972,7 +1427,10 @@ def main(argv=None) -> int:
     del main_run  # free lineitem's planes before SSB loads
     torch.cuda.empty_cache()
     ssb_run = run_ssb_path(args, device, card)
-    radix_rows = time_radix(ssb_run, card, rate)
+    grouped_run = run_ssb_grouped(ssb_run, args, card)
+    radix_rows = time_radix(ssb_run, card, rate,
+                            {**SSB_Q, **SSB_GROUPED_Q})
+    ssb_launches = {**ssb_run["launches"], **grouped_run["launches"]}
 
     kernels = []
     for r in rows:
@@ -996,7 +1454,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "opentenbase_tpu_torch/csrc/radix_probe.cu",
             "replaces": "opentenbase_tpu/ops/pallas_join.py:85",
-            "launches": ssb_run["launches"][r["query"]],
+            "launches": ssb_launches[r["query"]],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -1007,12 +1465,16 @@ def main(argv=None) -> int:
         })
     # the JSON counts each trace's device event kinds; the trace lines
     # of the TPC-H queries name them
-    trace = {q: {**{k: v for k, v in tr.items() if k != "events"},
+    trace = {q: {**{k: v for k, v in tr.items()
+                    if k not in ("events", "top")},
                  "event_kinds": len(tr["events"])}
-             for q, tr in {**trace_tpch, **ssb_run["trace"]}.items()}
+             for q, tr in {**trace_tpch, **ssb_run["trace"],
+                           **grouped_run["trace"]}.items()}
     print(json.dumps({"kernels": kernels,
-                      "e2e_ms": {**e2e_tpch, **ssb_run["e2e"]},
-                      "layers_ms": {**layers_tpch, **ssb_run["breakdown"]},
+                      "e2e_ms": {**e2e_tpch, **ssb_run["e2e"],
+                                 **grouped_run["e2e"]},
+                      "layers_ms": {**layers_tpch, **ssb_run["breakdown"],
+                                    **grouped_run["breakdown"]},
                       "trace": trace,
                       "rows": args.rows, "ssb_rows": args.ssb_rows,
                       "card": card}))

@@ -21,16 +21,29 @@ from opentenbase_tpu_torch.storage.table import (
 
 
 def load_table(cluster, table: str, per_node_columns: dict,
-               per_node_xmin: dict, per_node_xmax: dict) -> int:
+               per_node_xmin: dict, per_node_xmax: dict,
+               dictionaries: dict | None = None) -> int:
     """Append each datanode's rows to ``cluster.stores[node][table]``.
 
     ``per_node_columns``: node -> column name -> ``(data, validity)``
     numpy arrays (validity None = no NULLs), every column of the table;
-    ``per_node_xmin`` / ``per_node_xmax``: node -> int64 commit
-    timestamps per row (xmax INF_TS for a live row). The cluster's clock
-    moves past every carried commit timestamp, so a later read sees
-    what the source saw. Returns the rows loaded."""
+    a TEXT column's data are codes into the source's dictionary, whose
+    values (in code order) ``dictionaries[column]`` holds: the codes are
+    re-encoded into the table's own dictionary. ``per_node_xmin`` /
+    ``per_node_xmax``: node -> int64 commit timestamps per row (xmax
+    INF_TS for a live row). The cluster's clock moves past every carried
+    commit timestamp, so a later read sees what the source saw. Returns
+    the rows loaded."""
     meta = cluster.catalog.get(table)
+    # source code -> this table's code, per TEXT column
+    xlate = {}
+    for name, ty in meta.schema.items():
+        if ty.is_text:
+            if dictionaries is None or name not in dictionaries:
+                raise ValueError(f"TEXT column {name} needs its dictionary")
+            vals = list(dictionaries[name])
+            xlate[name] = (meta.dictionaries[name].encode(vals) if vals
+                           else np.zeros(1, dtype=np.int32))
     total = 0
     top = 0
     for node, cols in per_node_columns.items():
@@ -47,7 +60,7 @@ def load_table(cluster, table: str, per_node_columns: dict,
         batch = ColumnBatch(
             {
                 name: Column(
-                    ty, np.asarray(cols[name][0]),
+                    ty, _data(cols[name], xlate.get(name)),
                     None if cols[name][1] is None
                     else np.asarray(cols[name][1], dtype=np.bool_),
                 )
@@ -74,3 +87,15 @@ def load_table(cluster, table: str, per_node_columns: dict,
         total += n
     cluster.gts.advance_to(top)
     return total
+
+
+def _data(col, xl):
+    """A column's data, TEXT codes re-encoded through ``xl`` (a NULL
+    slot keeps code 0)."""
+    data = np.asarray(col[0])
+    if xl is None:
+        return data
+    out = xl[np.clip(data, 0, len(xl) - 1)].astype(np.int32)
+    if col[1] is not None:
+        out[~np.asarray(col[1], dtype=np.bool_)] = 0
+    return out

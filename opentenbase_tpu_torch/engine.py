@@ -215,6 +215,7 @@ class Session:
         t.TypeId.DECIMAL: (int, float),
         t.TypeId.DATE: (str,),
         t.TypeId.TIMESTAMP: (str,),
+        t.TypeId.TEXT: (str,),
     }
 
     def _x_insert(self, stmt: A.Insert) -> Result:
@@ -260,7 +261,8 @@ class Session:
                 ):
                     raise NotPorted("INSERT values other than plain literals")
                 vals.append(v.value)
-            cols[name] = column_from_python(vals, ty)
+            cols[name] = column_from_python(
+                vals, ty, meta.dictionaries.get(name))
         n = len(stmt.values)
         for name, ty in meta.schema.items():  # absent columns are NULL
             if name not in cols:

@@ -2,14 +2,15 @@
 opentenbase_tpu/executor/fused.py).
 
 All shards of a table live stacked on the device as [S, Rmax] planes per
-column plus the xmin/xmax commit-timestamp planes; the shard axis is the
+column (a TEXT column as its int32 dictionary codes) plus the xmin/xmax
+commit-timestamp planes; the shard axis is the
 leading tensor dimension, where the reference spread it over a device
 mesh. An eligible fragment (scan -> filter/project chain -> partial
 aggregate, gathered to the coordinator) runs as one launch of the
 scan-aggregate kernel (ops/scan_agg.py) and yields the per-shard partial
 rows the coordinator merges. Any other plan goes to ``dag_output``, the
 fused DAG (executor/fused_dag.py), which runs joins under a scalar
-aggregate over the same cached planes.
+or grouped aggregate over the same cached planes.
 
 Ported: the full upload of ``DeviceCache`` for any table (all shards, or
 one replica of a replicated table; compact [S, 1] MVCC planes when every
@@ -29,7 +30,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from opentenbase_tpu_torch import types as t
 from opentenbase_tpu_torch.errors import NotPorted
 from opentenbase_tpu_torch.ops import scan_agg as sa
 from opentenbase_tpu_torch.ops.filter import bucket_size
@@ -246,7 +246,7 @@ class FusedExecutor:
         self._dag = None
 
     def dag_output(self, dplan, snapshot_ts) -> tuple[int, ColumnBatch]:
-        """Run a whole plan — joins under a scalar aggregate — through the
+        """Run a whole plan — joins under an aggregate — through the
         fused DAG (executor/fused_dag.py): (final fragment index,
         gathered batch). Raises NotPorted outside its subset."""
         from opentenbase_tpu_torch.executor.fused_dag import DagRunner
@@ -273,9 +273,6 @@ class FusedExecutor:
         meta = self.catalog.get(m.scan.table)
         if tuple(meta.node_indices) != tuple(frag.nodes):
             return None
-        for c in m.scan.schema:
-            if c.type.id == t.TypeId.TEXT:
-                raise NotPorted(f"text scan column {c.name!r}")
         dtab = self.cache.get(
             m.scan.table, meta, self.node_stores, frag.nodes,
             columns=m.scan.columns,

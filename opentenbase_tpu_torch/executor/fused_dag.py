@@ -1,5 +1,5 @@
-"""Fused DAG executor on one GPU: join plans under a scalar aggregate
-(subset of the reference's opentenbase_tpu/executor/fused_dag.py).
+"""Fused DAG executor on one GPU: join plans under a scalar or grouped
+aggregate (subset of the reference's opentenbase_tpu/executor/fused_dag.py).
 
 The reference compiles every fragment of a distributed plan into a
 ``shard_map`` program over its device mesh and wires redistribute
@@ -23,10 +23,19 @@ degrading one step at run time through a per-join flag:
   (``_lookup``). Flag: duplicate build keys — the runner flips the build
   side, and a second flag means duplicates on both sides.
 
-Ported: the scalar-aggregate final mode with its flag-retry loop, inner
-joins, and the join-mode notes (``last_join_modes``). Grouped, top-k,
-row-returning, gsort, gagg, gseg and windowed modes, semi/anti joins and
-the multi-device exchanges raise NotPorted.
+The grouped mode compacts the rows that pass, sorts them by their group
+keys, packed into one int64 key while the keys' combined range fits (a
+run-time flag retries with one sort per key part), and reduces each
+group into a group capacity that starts optimistic and regrows once
+when a run finds more groups; the capacity that fit is remembered per
+plan, data version and literal values. TEXT keys group on their
+dictionary codes and decode on the host.
+
+Ported: the scalar and grouped final modes with their flag-retry loops,
+inner joins, and the join-mode notes (``last_join_modes``). The top-k
+modes (an ``ORDER BY ... LIMIT k`` the reference ranks on the device:
+gseg, gsort, gagg, wgagg, grouped_topk), the row-returning modes,
+semi/anti joins and the multi-device exchanges raise NotPorted.
 """
 
 from __future__ import annotations
@@ -40,9 +49,9 @@ from opentenbase_tpu_torch import types as t
 from opentenbase_tpu_torch.errors import NotPorted
 from opentenbase_tpu_torch.ops import join as join_ops
 from opentenbase_tpu_torch.ops import radix_probe as rp
-from opentenbase_tpu_torch.ops.agg import scalar_reduce
-from opentenbase_tpu_torch.ops.expr import ExprCompiler, resolve_param
-from opentenbase_tpu_torch.ops.filter import mask_count
+from opentenbase_tpu_torch.ops import agg as agg_ops
+from opentenbase_tpu_torch.ops.expr import ExprCompiler, resolve_param_host
+from opentenbase_tpu_torch.ops.filter import bucket_size, mask_count
 from opentenbase_tpu_torch.plan import batchplan
 from opentenbase_tpu_torch.plan import logical as L
 from opentenbase_tpu_torch.plan import texpr as E
@@ -60,6 +69,10 @@ _JOINABLE_KEY_TYPES = (
 )
 
 _PROGRAM_CACHE_MAX = 64
+
+# First group capacity of a grouped run; a run that finds more groups
+# reruns once at the bucketed count, and the count that fit is kept.
+OPTIMISTIC_GROUP_CAP = 1 << 16
 
 
 class DagUnsupported(NotPorted):
@@ -159,6 +172,151 @@ def _expr_cols(e, out=None):
     for c in e.children():
         _expr_cols(c, out)
     return out
+
+
+def _pack_group_keys(keys, mask):
+    """Pack integer group keys into ONE int64 sort key from their
+    run-time ranges: packed = sum((k_i - min_i) * stride_i), NULLs in a
+    bucket past each key's range. Returns (packed, ok): ``ok`` is False
+    when the combined range reaches 2^62 (guarded in float64, since the
+    int64 range itself can wrap), and the caller then retries with one
+    sort per key part."""
+    dev = mask.device
+    stride = torch.ones((), dtype=torch.int64, device=dev)
+    prod = torch.ones((), dtype=torch.float64, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    packed = torch.zeros(mask.shape[0], dtype=torch.int64, device=dev)
+    big = 2**62
+    for d, v in keys:
+        live = mask if v is None else (mask & v)
+        d64 = d.to(torch.int64)
+        mn = _reduce_or(torch.where(live, d64, big), torch.amin, big)
+        mx = _reduce_or(torch.where(live, d64, -big), torch.amax, -big)
+        mn = torch.minimum(mn, mx)  # no live rows: a range of 1
+        rngf = (mx.to(torch.float64) - mn.to(torch.float64)) + 1.0
+        ok = ok & (rngf < 2.0**62)
+        rng = torch.clamp(mx - mn + 1, min=1)
+        if v is None:
+            x, r, rf = d64 - mn, rng, rngf
+        else:
+            x = torch.where(v, d64 - mn, rng)  # the NULL bucket
+            r, rf = rng + 1, rngf + 1.0
+        packed = packed + x * stride  # dead rows may wrap: masked anyway
+        stride = stride * r
+        prod = prod * torch.clamp(rf, min=1.0)
+    return packed, ok & (prod < 2.0**62)
+
+
+def _reduce_or(x, fn, empty):
+    """``fn(x)``, or ``empty`` for a tensor with no rows (torch's amin
+    and amax refuse an empty input)."""
+    if x.numel():
+        return fn(x)
+    return torch.full((), empty, dtype=x.dtype, device=x.device)
+
+
+def _group_visible(keys, vals, mask, gcap: int, specs: tuple,
+                   use_packed: bool):
+    """The grouped aggregate of the rows ``mask`` marks: (out_keys,
+    out_vals, group_valid, ngroups, pack_ok or None).
+
+    The visible rows are compacted first (one ``nonzero``, which waits
+    for the device), so the sort and the segment reductions cost what
+    the rows that pass cost, not the whole flattened plane; invisible
+    rows never reach the overflow bin. Groups, their order, ``ngroups``
+    and every reduction equal the reference's sort of the whole plane
+    with the invisible rows last. With ``use_packed`` the keys pack into
+    one int64 and one stable sort groups them; ``pack_ok`` False means
+    the packed range overflowed and the result is void."""
+    rows = torch.nonzero(mask).reshape(-1)
+
+    def take(pair):
+        d, v = pair
+        return (d[rows], None if v is None else v[rows])
+
+    keys = [take(k) for k in keys]
+    vals = [None if v is None else take(v) for v in vals]
+    pack_ok = None
+    if use_packed:
+        every = torch.ones(rows.shape[0], dtype=torch.bool,
+                           device=mask.device)
+        packed, pack_ok = _pack_group_keys(keys, every)
+        perm, seg, ngroups = agg_ops.group_ids([(packed, None)], None)
+    else:
+        perm, seg, ngroups = agg_ops.group_ids(keys, None)
+    out_keys, out_vals, gvalid = agg_ops.group_reduce(
+        keys, vals, perm, seg, gcap, specs)
+    return out_keys, out_vals, gvalid, ngroups, pack_ok
+
+
+def _detect_topk(dplan, final):
+    """The reference's top-k pushdown test: the coordinator plan is
+    ``Limit(Sort(Project*...(Aggregate?)(RemoteSource(final))))`` with
+    bare-column sort keys and k = limit + offset <= 1024. Returns (k,
+    ((position, descending, nulls_first), ...), merged) with positions
+    into the final fragment's output schema, or None. The port runs no
+    top-k mode: its caller raises NotPorted where the reference would
+    rank on the device."""
+    node = dplan.root
+    if not isinstance(node, L.Limit) or node.limit is None:
+        return None
+    k = node.limit + (node.offset or 0)
+    if k <= 0 or k > 1024:
+        return None
+    node = node.child
+    if not isinstance(node, L.Sort) or not node.keys:
+        return None
+    positions, descs, nfs = [], [], []
+    for sk in node.keys:
+        if not isinstance(sk.expr, E.Col):
+            return None
+        positions.append(sk.expr.index)
+        descs.append(sk.descending)
+        nfs.append(sk.nulls_first)
+    node = node.child
+    merged = False
+    while True:
+        if isinstance(node, L.Project):
+            newpos = []
+            for p in positions:
+                ex = node.exprs[p]
+                if not isinstance(ex, E.Col):
+                    return None
+                newpos.append(ex.index)
+            positions = newpos
+            node = node.child
+        elif isinstance(node, L.Aggregate):
+            if merged:
+                return None
+            merged = True
+            nk = len(node.group_exprs)
+            newpos = []
+            for p in positions:
+                if p < nk:
+                    ex = node.group_exprs[p]
+                    if not isinstance(ex, E.Col):
+                        return None
+                    newpos.append(ex.index)
+                else:
+                    a = node.aggs[p - nk]
+                    if a.arg is None or not isinstance(a.arg, E.Col):
+                        return None
+                    if a.distinct:
+                        return None
+                    newpos.append(a.arg.index)
+            positions = newpos
+            node = node.child
+        elif isinstance(node, RemoteSource):
+            if node.fragment != final.index:
+                return None
+            break
+        else:
+            return None
+    return k, tuple(zip(positions, descs, nfs)), merged
+
+
+def _dids(schema) -> list:
+    return [c.dict_id for c in schema]
 
 
 def _chain_leaf(node, folded_ids: dict):
@@ -430,7 +588,7 @@ class _Builder:
     def build(self, node: L.LogicalPlan) -> Callable:
         if isinstance(node, L.Filter):
             child = self.build(node.child)
-            pred = self.comp.compile(node.predicate)
+            pred = self.comp.compile(node.predicate, _dids(node.child.schema))
 
             def run(blocks, params, snap):
                 env, mask, n, flags = child(blocks, params, snap)
@@ -442,7 +600,14 @@ class _Builder:
 
         if isinstance(node, L.Project):
             child = self.build(node.child)
-            fns = [self.comp.compile(ex) for ex in node.exprs]
+            dids = _dids(node.child.schema)
+            fns = [
+                self.comp.compile(
+                    ex, dids,
+                    (oc.dict_id or None) if ex.type.is_text else None,
+                )
+                for ex, oc in zip(node.exprs, node.schema)
+            ]
 
             def run(blocks, params, snap):
                 env, mask, n, flags = child(blocks, params, snap)
@@ -469,11 +634,12 @@ class _Builder:
                 raise DagUnsupported(f"join key type {k.type.id}")
         left = self.build(node.left)
         right = self.build(node.right)
-        lkfn = self.comp.compile(node.left_keys[0])
-        rkfn = self.comp.compile(node.right_keys[0])
+        lkfn = self.comp.compile(node.left_keys[0], _dids(node.left.schema))
+        rkfn = self.comp.compile(node.right_keys[0],
+                                 _dids(node.right.schema))
         resfn = (
             None if node.residual is None
-            else self.comp.compile(node.residual)
+            else self.comp.compile(node.residual, _dids(node.schema))
         )
         ji = self.njoin
         self.njoin += 1
@@ -546,7 +712,7 @@ class _Builder:
         return run
 
 
-def _agg_specs(comp, agg):
+def _agg_specs(comp, agg, dids):
     """(specs, compiled args) for an Aggregate's functions."""
     specs: list[str] = []
     afns: list = []
@@ -556,9 +722,11 @@ def _agg_specs(comp, agg):
             afns.append(None)
         else:
             if a.func in ("min", "max") and a.arg.type.is_text:
+                # code order is not collation order: the reference's
+                # host executor answers these
                 raise DagUnsupported(f"{a.func}() over TEXT")
             specs.append(a.func)
-            afns.append(comp.compile(a.arg))
+            afns.append(comp.compile(a.arg, dids))
     return specs, afns
 
 
@@ -579,6 +747,10 @@ class DagRunner:
         # skey -> {join idx}: radix table failed at run time (bucket
         # overflow or duplicate build keys): sort-merge answers instead
         self._radix_off: dict = {}
+        # skey -> False once the packed group key overflowed: per-part
+        # sorting from then on
+        self._packing: dict = {}
+        self._caps: dict = {}  # gcapkey -> group capacity that fit
         self.last_mode = None  # final-fragment mode of the last run
         self.last_folded = frozenset()  # joins dense-folded in last run
         # join formulations the last run compiled ('fold'/'radix'/'merge')
@@ -613,7 +785,8 @@ class DagRunner:
             final_root = _inline_sources(
                 final_root, {f.index: f.root for f in frags[:-1]}
             )
-        batch = self._run_final(final_root, snap, versions)
+        batch = self._run_final(final_root, snap, versions,
+                                _detect_topk(dplan, final))
         self.last_join_modes = tuple(sorted(self._mode_notes))
         return final.index, batch
 
@@ -708,8 +881,28 @@ class DagRunner:
                 return orientation
         return self._flip(orientation, flip)
 
-    def _run_final(self, final_root, snap, versions) -> ColumnBatch:
+    def _cap_store(self, key, value) -> None:
+        """Remember a group capacity, bounded: keys of superseded data
+        versions would otherwise accumulate."""
+        self._caps[key] = value
+        while len(self._caps) > 512:
+            self._caps.pop(next(iter(self._caps)))
+
+    def _run_final(self, final_root, snap, versions, tk) -> ColumnBatch:
         root = final_root
+        # a plan whose grouping subsumes the shard key ships a
+        # bare-column projection over the (complete) aggregate and skips
+        # the coordinator merge: absorb it, re-apply it at collect time
+        out_proj = None
+        if (
+            isinstance(root, L.Project)
+            and isinstance(root.child, L.Aggregate)
+            and root.child.group_exprs
+            and all(isinstance(e, E.Col) for e in root.exprs)
+            and len({c.name for c in root.schema}) == len(root.schema)
+        ):
+            out_proj = (tuple(e.index for e in root.exprs), root.schema)
+            root = root.child
         if not isinstance(root, L.Aggregate):
             raise NotPorted("fused DAG rows mode (the final fragment "
                             "ships rows, not partial aggregates)")
@@ -718,10 +911,23 @@ class DagRunner:
         for a in root.aggs:
             if a.func not in ("sum", "count", "min", "max"):
                 raise DagUnsupported(a.func)
-        if root.group_exprs:
-            raise NotPorted("fused DAG grouped modes (grouped, gsort, "
-                            "gagg, gseg, wgagg)")
         agg, root = root, root.child
+        if tk is not None:
+            # the reference's packable-key test (its packable types are
+            # the joinable ones): ranking needs integer sort keys, and
+            # TEXT ranks by collation, not code
+            schema = out_proj[1] if out_proj is not None else agg.schema
+            if any(
+                schema[p].type.id not in _JOINABLE_KEY_TYPES
+                or schema[p].type.is_text
+                for p, _d, _nf in tk[1]
+            ):
+                tk = None
+        if tk is not None:
+            raise NotPorted(
+                "fused DAG top-k modes (gseg, gsort, gagg, wgagg, "
+                "grouped_topk): the reference ranks this ORDER BY ... "
+                "LIMIT on the device")
         # the executed tree (inlined) keys the programs and the retry
         # state; the key holds literal values, as the reference's does
         # for every plan with a join
@@ -729,36 +935,88 @@ class DagRunner:
         orientation = self._orientation_for(skey, root)
         arrays = _collect_arrays(self.fx, root)
         sig = _shapes_sig(arrays)
+        n_dup = _count_inner_joins(root)
+        grouped = bool(agg.group_exprs)
+        # the packed single-sort key until its range overflows; the
+        # outcome is remembered, so a repeat never reruns a doomed pack
+        packing = self._packing.get(skey, True)
+        gcap = OPTIMISTIC_GROUP_CAP
+        gcapkey = None
         while True:
             fo = self._offs(skey)
             # versions: the mode gates read row counts at compile time
-            fkey = ("final", skey, orientation, sig, fo, versions)
+            fkey = ("final", skey, orientation, sig, fo, versions,
+                    gcap if grouped else None, packing)
             entry = self._programs.get(fkey)
             if entry is None:
-                entry = self._compile_final(agg, root, orientation, fo)
+                entry = self._compile_final(agg, root, orientation, fo,
+                                            gcap, packing)
                 self._programs[fkey] = entry
                 while len(self._programs) > _PROGRAM_CACHE_MAX:
                     self._programs.pop(next(iter(self._programs)))
             prog, comp, mode, jinfo, modes = entry
             self._mode_notes |= modes
-            params = tuple(
-                resolve_param(s, self.fx.device) for s in comp.params
-            )
-            out_vals, flags = prog(arrays, params, snap)
+            host_params = [
+                resolve_param_host(s, self.fx.catalog.dictionary)
+                for s in comp.params
+            ]
+            if grouped and gcapkey is None:
+                # the capacity that fit is data-dependent: keyed by data
+                # versions and the literal values
+                gcapkey = ("gcap", skey, orientation, sig, versions,
+                           _params_sig(host_params))
+                known = self._caps.get(gcapkey)
+                if known is not None and known != gcap:
+                    gcap = known
+                    continue  # compile or look up at that capacity
+            params = tuple(torch.from_numpy(p).to(self.fx.device)
+                           for p in host_params)
+            outs, flags = prog(arrays, params, snap)
             self.last_mode = mode
             self.last_folded = jinfo[0]
             flip = _first_true(flags)
             if flip is not None:
+                if flip >= n_dup:
+                    # the packed key's range overflowed int64: retry with
+                    # one sort per key part (the answer never depended
+                    # on the packing)
+                    packing = False
+                    self._packing[skey] = False
+                    while len(self._packing) > 512:
+                        self._packing.pop(next(iter(self._packing)))
+                    continue
                 orientation = self._on_flag(skey, orientation, flip, jinfo)
+                gcapkey = None  # keyed per orientation
                 continue
             self._orientations[skey] = orientation
-            return self._collect_scalar(agg, out_vals)
+            if not grouped:
+                return self._collect_scalar(agg, outs)
+            out_keys, out_vals, gvalid, ngroups = outs
+            actual = int(ngroups)
+            if actual >= gcap:
+                gcap = bucket_size(actual + 1)
+                continue
+            self._cap_store(gcapkey, gcap)
+            return self._apply_proj(
+                self._collect_grouped(agg, out_keys, out_vals, gvalid),
+                out_proj,
+            )
 
-    def _compile_final(self, agg, root, orientation, fo):
+    def _compile_final(self, agg, root, orientation, fo, gcap, packing):
         comp = ExprCompiler(self.fx.device)
         b = _Builder(self.fx, comp, orientation, root, runner=self, offs=fo)
         ev = b.build(root)
-        specs, afns = _agg_specs(comp, agg)
+        dids = _dids(root.schema)
+        gfns = [comp.compile(g, dids) for g in agg.group_exprs]
+        specs, afns = _agg_specs(comp, agg, dids)
+        specs = tuple(specs)
+        grouped = bool(agg.group_exprs)
+        # the packed single sort takes integer-family and TEXT (code)
+        # keys; a run-time range flag retries with per-part sorting
+        use_packed = packing and all(
+            g.type.id in _JOINABLE_KEY_TYPES or g.type.is_text
+            for g in agg.group_exprs
+        )
 
         def program(arrays, params, snap):
             env, mask, n, flags = ev(arrays, params, snap)
@@ -766,9 +1024,45 @@ class DagRunner:
                 None if fn is None else _bcast(fn(env, params), n)
                 for fn in afns
             ]
-            return scalar_reduce(vals, mask, tuple(specs)), flags
+            if not grouped:
+                return agg_ops.scalar_reduce(vals, mask, specs), flags
+            keys = [_bcast(fn(env, params), n) for fn in gfns]
+            out_keys, out_vals, gvalid, ngroups, pack_ok = _group_visible(
+                keys, vals, mask, gcap, specs, use_packed)
+            if pack_ok is not None:
+                flags = flags + [~pack_ok]
+            return (out_keys, out_vals, gvalid, ngroups), flags
 
-        return program, comp, "scalar", b.jinfo(), frozenset(b.modes)
+        mode = "grouped" if grouped else "scalar"
+        return program, comp, mode, b.jinfo(), frozenset(b.modes)
+
+    def _apply_proj(self, batch, out_proj) -> ColumnBatch:
+        """Re-apply an absorbed bare-column projection: reorder and
+        rename the aggregate-schema batch to the fragment's schema."""
+        if out_proj is None:
+            return batch
+        perm, schema = out_proj
+        src = list(batch.columns.values())
+        cols = {oc.name: src[perm[i]] for i, oc in enumerate(schema)}
+        return ColumnBatch(cols, batch.nrows)
+
+    def _dic(self, oc):
+        return self.fx.catalog.dictionary(oc.dict_id) if oc.dict_id else None
+
+    def _collect_grouped(self, agg, out_keys, out_vals, gvalid) -> ColumnBatch:
+        """The existing groups' rows, copied to the host; TEXT keys keep
+        their codes and decode through their dictionary."""
+        keep = torch.nonzero(gvalid).reshape(-1)
+        nkeys = len(agg.group_exprs)
+        cols: dict[str, Column] = {}
+        for i, oc in enumerate(agg.schema):
+            d, v = out_keys[i] if i < nkeys else out_vals[i - nkeys]
+            dd = d[keep].cpu().numpy()
+            vv = None if v is None else v[keep].cpu().numpy()
+            if dd.dtype != oc.type.np_dtype:
+                dd = dd.astype(oc.type.np_dtype)
+            cols[oc.name] = Column(oc.type, dd, vv, self._dic(oc))
+        return ColumnBatch(cols, int(keep.shape[0]))
 
     def _collect_scalar(self, agg, out_vals) -> ColumnBatch:
         cols: dict[str, Column] = {}
@@ -812,6 +1106,13 @@ def _count_inner_joins(plan) -> int:
         elif isinstance(node, (L.Filter, L.Project, L.Aggregate)):
             stack.append(node.child)
     return n
+
+
+def _params_sig(host_params) -> tuple:
+    """Hashable digest of the resolved literal params: a remembered
+    group capacity must not alias across literal values."""
+    return tuple((a.shape, str(a.dtype), hash(a.tobytes()))
+                 for a in host_params)
 
 
 def _first_true(flags) -> Optional[int]:

@@ -3,9 +3,12 @@ opentenbase_tpu/executor/local.py).
 
 After the fused fragment ran on the device, the coordinator merges the
 gathered per-shard partial rows: ``RemoteSource -> Aggregate (merge) ->
-Project -> Sort -> Limit``. The inputs are a few rows per shard, so this
-runs in numpy on the host. Operators and expressions outside this subset
-raise NotPorted.
+Project -> Sort -> Limit``. The inputs are a few rows per shard (or per
+group), so this runs in numpy on the host. TEXT values stay dictionary
+codes: they group on codes, and ORDER BY, min and max work on each
+code's rank in the sorted dictionary (codes follow insertion order, not
+collation). Operators and expressions outside this subset raise
+NotPorted.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import numpy as np
 from opentenbase_tpu_torch import types as t
 from opentenbase_tpu_torch.catalog.catalog import Catalog
 from opentenbase_tpu_torch.errors import NotPorted
+from opentenbase_tpu_torch.ops import LITERAL_DICT
+from opentenbase_tpu_torch.ops.filter import bucket_size
 from opentenbase_tpu_torch.plan import logical as L
 from opentenbase_tpu_torch.plan import texpr as E
 from opentenbase_tpu_torch.storage.column import Column
@@ -49,6 +54,23 @@ class LocalExecutor:
     def run_plan(self, root: L.LogicalPlan) -> ColumnBatch:
         """Evaluate one plan tree to a host batch."""
         return self.to_host(self.eval(root))
+
+    def _dict_ranks(self, dict_id, with_order: bool = False):
+        """code -> collation rank over dictionary ``dict_id`` (padded to a
+        power of two); ``with_order`` also returns the inverse, rank ->
+        code, from the same sort."""
+        if not dict_id:
+            raise ExecError("TEXT without a dictionary")
+        vals = self.catalog.dictionary(dict_id).values
+        order = np.argsort(np.asarray(vals, dtype=object)).astype(np.int32)
+        padded = bucket_size(max(len(vals), 1))
+        ranks = np.zeros(padded, dtype=np.int32)
+        ranks[order] = np.arange(len(vals), dtype=np.int32)
+        if not with_order:
+            return ranks
+        inv = np.zeros(padded, dtype=np.int32)
+        inv[: len(order)] = order
+        return ranks, inv
 
     def to_host(self, b: HostBatch) -> ColumnBatch:
         cols: dict[str, Column] = {}
@@ -94,8 +116,27 @@ class LocalExecutor:
 
     def _eval_project(self, plan: L.Project) -> HostBatch:
         child = self.eval(plan.child)
-        cols = [self._col(e, child) for e in plan.exprs]
+        cols = []
+        for e, oc in zip(plan.exprs, plan.schema):
+            d, v = self._col(e, child)
+            src = child.schema[e.index].dict_id or LITERAL_DICT
+            if e.type.is_text and oc.dict_id and src != oc.dict_id:
+                # the output names another dictionary (min/max of a
+                # column types as computed text, in the literal pool):
+                # carry each code over by its string
+                table = self._translate(src, oc.dict_id)
+                d = table[np.clip(d, 0, len(table) - 1)]
+            cols.append((d, v))
         return HostBatch(plan.schema, cols, child.n)
+
+    def _translate(self, src: str, dst: str) -> np.ndarray:
+        """code in dictionary ``src`` -> code of the same string in
+        ``dst`` (minted there where missing)."""
+        vals = list(self.catalog.dictionary(src).values)
+        table = np.zeros(max(len(vals), 1), dtype=np.int32)
+        if vals:
+            table[: len(vals)] = self.catalog.dictionary(dst).encode(vals)
+        return table
 
     # -- aggregate: the merge of per-shard partials --------------------------
     def _eval_aggregate(self, plan: L.Aggregate) -> HostBatch:
@@ -134,6 +175,12 @@ class LocalExecutor:
             return (cnt, None)
         if a.func in ("min", "max"):
             d = np.asarray(d)
+            inv = None
+            if a.arg.type.is_text:
+                # reduce in rank space, then map the winner back to its code
+                ranks, inv = self._dict_ranks(
+                    child.schema[a.arg.index].dict_id, with_order=True)
+                d = ranks[np.clip(d, 0, len(ranks) - 1)]
             if d.dtype.kind == "f":
                 init = np.inf if a.func == "min" else -np.inf
             elif d.dtype.kind == "b":
@@ -144,6 +191,8 @@ class LocalExecutor:
             out = np.full(ng, init, dtype=d.dtype)
             op = np.minimum if a.func == "min" else np.maximum
             op.at(out, gid[valid], d[valid])
+            if inv is not None:
+                out = inv[np.clip(out, 0, len(inv) - 1)]
             return (out.astype(a.type.np_dtype), cnt > 0)
         # exact integer sums (scaled decimals and ints are int64 here)
         s = np.zeros(ng, dtype=np.int64)
@@ -162,6 +211,9 @@ class LocalExecutor:
             nulls_first = (
                 k.nulls_first if k.nulls_first is not None else k.descending
             )
+            if k.expr.type.is_text:
+                ranks = self._dict_ranks(child.schema[k.expr.index].dict_id)
+                d = ranks[np.clip(d, 0, len(ranks) - 1)]
             rank = np.unique(d, return_inverse=True)[1].reshape(-1)
             lex.append(-rank if k.descending else rank)
             lex.append(valid if nulls_first else ~valid)

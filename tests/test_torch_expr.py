@@ -1,9 +1,13 @@
 """The port's expression compiler and scalar reduce against the
 reference's, on the same seeded columns with NULLs: three-valued
 AND/OR/NOT, the six comparisons against lifted literals, decimal
-arithmetic, integer casts; sum/count/min/max over masked rows. The same
-expression tree is built twice, once from each package's texpr module,
-and the results compare exactly (integer and boolean work)."""
+arithmetic, integer casts, IN lists; TEXT on dictionary codes (equality,
+inequality, ordered comparison and BETWEEN against a constant, a
+literal the dictionary lacks, IN and OR of equalities, equality of two
+columns of one dictionary, a value-producing literal); sum/count/min/max
+over masked rows. The same expression tree is built twice, once from
+each package's texpr module, and the results compare exactly (integer
+and boolean work)."""
 
 import numpy as np
 import pytest
@@ -14,11 +18,13 @@ from opentenbase_tpu import types as rt
 from opentenbase_tpu.ops import agg as ref_agg
 from opentenbase_tpu.ops import expr as ref_expr
 from opentenbase_tpu.plan import texpr as RE
+from opentenbase_tpu.storage.column import Dictionary as RefDictionary
 from opentenbase_tpu_torch import NotPorted
 from opentenbase_tpu_torch import types as pt
 from opentenbase_tpu_torch.ops import agg as port_agg
 from opentenbase_tpu_torch.ops import expr as port_expr
 from opentenbase_tpu_torch.plan import texpr as PE
+from opentenbase_tpu_torch.storage.column import Dictionary
 
 N = 4000
 
@@ -126,6 +132,105 @@ def test_expr_matches_reference(name):
     # data only matters where the value is valid
     assert np.array_equal(got_d[want_v], want_d[want_v])
     assert got_d.dtype == want_d.dtype
+
+
+# a dictionary whose insertion order is not string order; 'MFGR#222' and
+# 'MFGR#223' fall outside BETWEEN 'MFGR#2221' AND 'MFGR#2228' by string
+# order though their brand numbers are inside
+WORDS = ["MFGR#2228", "MFGR#121", "MFGR#2221", "b", "a", "MFGR#2229",
+         "MFGR#22", "MFGR#222", "MFGR#223", "MFGR#2224", "aa", ""]
+
+
+def _text_exprs(E, T):
+    """name -> expression over two TEXT columns of dictionary 'x.c' (a
+    third column, int4, for IN lists)."""
+    B = T.BOOL
+    c, c2 = E.Col(0, T.TEXT), E.Col(1, T.TEXT)
+
+    def K(v):
+        return E.Const(v, T.TEXT)
+
+    def cmp(op, a, b):
+        return E.BinE(op, a, b, B)
+
+    out = {
+        "eq": cmp("=", c, K("MFGR#2221")),
+        "ne": cmp("<>", c, K("a")),
+        "absent_eq": cmp("=", c, K("zzz")),
+        "absent_ne": cmp("<>", c, K("zzz")),
+        "between": E.BinE("and", cmp(">=", c, K("MFGR#2221")),
+                          cmp("<=", c, K("MFGR#2228")), B),
+        "const_left": cmp(">", K("b"), c),
+        "or_of_eq": E.BinE("or", cmp("=", c, K("a")), cmp("=", c, K("b")),
+                           B),
+        "in": E.InListE(c, (K("a"), K("MFGR#22"), K("nope")), False),
+        "not_in_with_null": E.InListE(c, (K("a"), K(None)), True),
+        "col_eq_col": cmp("=", c, c2),
+        "col_ne_col": cmp("<>", c, c2),
+        "eq_null": cmp("=", c, K(None)),
+        "int_in": E.InListE(E.Col(2, T.INT4),
+                            (E.Const(3, T.INT4), E.Const(-7, T.INT4)), False),
+    }
+    for op in ("<", "<=", ">", ">="):
+        out[f"ord{op}"] = cmp(op, c, K("MFGR#222"))
+    return out
+
+
+TEXT_NAMES = sorted(_text_exprs(PE, pt))
+
+
+def _text_columns(seed=8):
+    rng = np.random.default_rng(seed)
+    cols = [rng.integers(0, len(WORDS), N).astype(np.int32),
+            rng.integers(0, len(WORDS), N).astype(np.int32),
+            rng.integers(-9, 9, N).astype(np.int32)]
+    valids = [rng.random(N) > 0.1 for _ in cols]
+    return cols, valids
+
+
+@pytest.mark.parametrize("name", TEXT_NAMES)
+def test_text_expr_matches_reference(name):
+    cols, valids = _text_columns()
+    dids = ["x.c", "x.c", None]
+    rcomp = ref_expr.ExprCompiler(lift_consts=True)
+    rfn = rcomp.compile(_text_exprs(RE, rt)[name], dids)
+    rparams = tuple(ref_expr.resolve_param(s, {"x.c": RefDictionary(WORDS)},
+                                           None) for s in rcomp.params)
+    wd, wv = rfn([(jnp.asarray(d), jnp.asarray(v))
+                  for d, v in zip(cols, valids)], rparams)
+    pcomp = port_expr.ExprCompiler("cpu")
+    pfn = pcomp.compile(_text_exprs(PE, pt)[name], dids)
+    pparams = tuple(port_expr.resolve_param(s, "cpu", {"x.c": Dictionary(
+        WORDS)}.__getitem__) for s in pcomp.params)
+    gd, gv = pfn([(torch.from_numpy(d.copy()), torch.from_numpy(v.copy()))
+                  for d, v in zip(cols, valids)], pparams)
+    wv = np.ones(N, bool) if wv is None else np.broadcast_to(
+        np.asarray(wv), (N,))
+    gv = np.ones(N, bool) if gv is None else gv.expand(N).numpy()
+    wd = np.broadcast_to(np.asarray(wd), (N,))
+    gd = gd.expand(N).numpy()
+    assert np.array_equal(gv, wv)
+    assert np.array_equal(gd[wv], wd[wv])
+    if name.startswith("absent_eq"):
+        assert not gd[wv].any()
+    if name == "between":  # string order, not the brand number
+        hit = {WORDS[i] for i in cols[0][wv & gd]}
+        assert hit == {"MFGR#2221", "MFGR#2224", "MFGR#2228"}
+
+
+def test_text_literal_encodes_into_target_dictionary():
+    """A value-producing TEXT literal takes its code in the dictionary
+    the output names, minted there when missing, in both packages."""
+    rd, pd = RefDictionary(WORDS), Dictionary(WORDS)
+    rcomp = ref_expr.ExprCompiler(lift_consts=True)
+    rfn = rcomp.compile(RE.Const("new", rt.TEXT), [], "x.c")
+    pcomp = port_expr.ExprCompiler("cpu")
+    pfn = pcomp.compile(PE.Const("new", pt.TEXT), [], "x.c")
+    (rs,), (ps,) = rcomp.params, pcomp.params
+    want = rfn([], (ref_expr.resolve_param(rs, {"x.c": rd}, None),))[0]
+    got = pfn([], (port_expr.resolve_param(ps, "cpu", {"x.c": pd}.get),))[0]
+    assert int(got) == int(want) == len(WORDS)
+    assert pd.values == rd.values
 
 
 def test_outside_the_subset_raises_not_ported():
