@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (opentenbase_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 42] [--rows 60000000]
-                          [--ssb-rows 60000000] [--repeats 5]
+                          [--ssb-rows 60000000] [--q3-sf 10]
+                          [--hits-rows 60000000] [--repeats 5]
 
 Phases, one line each; any failure raises and exits non-zero:
 
@@ -36,6 +37,14 @@ Phases, one line each; any failure raises and exits non-zero:
    computation over the same arrays exactly, and every kernel of each
    path must have launched in that path's run (counts set to 0 just
    before each query and read just after);
+5c. main path, device top-k: TPC-H Q3 through the fused DAG's ranking
+   modes, once with bench.py's dense order keys (orders and customer
+   added to phase 4's cluster: gagg over two folds) and once as the spec
+   writes it over dbgen-shaped data at ``--q3-sf`` (sparse order keys,
+   TEXT segments, its own cluster: gsort), then ClickBench's top-10
+   UserIDs over ``--hits-rows`` rows (full-range ids: the grouped mode,
+   every group shipped, as the reference). Each exact against numpy in
+   the mode the CPU tests fixed, with K1's and K2's launches counted;
 6. timing, per path: median end-to-end ms per query, the layers each
    timed on its own, the device busy and idle share of single queries
    from a torch.profiler trace, kernel ms from CUDA events at the main
@@ -51,6 +60,7 @@ neither jax nor the reference package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -100,6 +110,183 @@ def make_lineitem(n: int, seed: int = 42):
         "l_returnflag": rng.integers(0, 3, n).astype(np.int32),
         "l_linestatus": rng.integers(0, 2, n).astype(np.int32),
     }
+
+
+def make_q3_dims(n: int, seed: int = 43):
+    """The orders and customer generator of bench.py (make_q3_dims),
+    copied: n/4 orders with dense keys 1..n/4 and n/40 customers, the
+    segment an int code (0 plays BUILDING)."""
+    rng = np.random.default_rng(seed)
+    n_orders = max(n // 4, 1)
+    n_cust = max(n // 40, 1)
+    orders = {
+        "o_orderkey": np.arange(1, n_orders + 1, dtype=np.int64),
+        "o_custkey": rng.integers(1, n_cust + 1, n_orders).astype(np.int64),
+        "o_orderdate": (8036 + rng.integers(0, 2405, n_orders)).astype(
+            np.int32),
+        "o_shippriority": rng.integers(0, 3, n_orders).astype(np.int32),
+    }
+    customer = {
+        "c_custkey": np.arange(1, n_cust + 1, dtype=np.int64),
+        "c_mktsegment": rng.integers(0, 5, n_cust).astype(np.int32),
+    }
+    return orders, customer
+
+
+# bench.py's orders and customer beside phase 4's lineitem, and its Q3
+Q3_DENSE_DDL = (
+    "create table orders (o_orderkey bigint, o_custkey bigint, "
+    "o_orderdate date, o_shippriority int) distribute by roundrobin",
+    "create table customer (c_custkey bigint, c_mktsegment int) "
+    "distribute by roundrobin",
+)
+Q3_DENSE = (
+    "select l_orderkey, sum(l_extendedprice * (1 - l_discount)), "
+    "o_orderdate, o_shippriority "
+    "from customer, orders, lineitem "
+    "where c_mktsegment = 0 and c_custkey = o_custkey "
+    "and l_orderkey = o_orderkey and o_orderdate < date '1995-03-15' "
+    "and l_shipdate > date '1995-03-15' "
+    "group by l_orderkey, o_orderdate, o_shippriority "
+    "order by 2 desc, o_orderdate limit 10"
+)
+# TPC-H rev. 3 Q3 (section 2.4.3) with its validation substitutions,
+# over the columns it reads, every table round robin (bench.py's layout)
+Q3_SPEC_DDL = (
+    "create table customer (c_custkey bigint, c_mktsegment text) "
+    "distribute by roundrobin",
+    "create table orders (o_orderkey bigint, o_custkey bigint, "
+    "o_orderdate date, o_shippriority int) distribute by roundrobin",
+    "create table lineitem (l_orderkey bigint, "
+    "l_extendedprice numeric(12,2), l_discount numeric(4,2), "
+    "l_shipdate date) distribute by roundrobin",
+)
+Q3_SPEC = (
+    "select l_orderkey, sum(l_extendedprice*(1-l_discount)) as revenue, "
+    "o_orderdate, o_shippriority "
+    "from customer, orders, lineitem "
+    "where c_mktsegment = 'BUILDING' "
+    "and c_custkey = o_custkey and l_orderkey = o_orderkey "
+    "and o_orderdate < date '1995-03-15' "
+    "and l_shipdate > date '1995-03-15' "
+    "group by l_orderkey, o_orderdate, o_shippriority "
+    "order by revenue desc, o_orderdate limit 10"
+)
+SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD")
+
+
+def make_q3_spec(sf: float, seed: int = 42) -> dict:
+    """The columns TPC-H Q3 reads, as dbgen makes them (spec rev. 3,
+    section 4.2.3), at scale factor ``sf``: customer 150 000 x SF rows,
+    keys 1..N, the segment uniform over the five; orders 1 500 000 x SF
+    rows with SPARSE keys (the first 8 of every 32), a customer uniform
+    over the keys not divisible by 3, a date uniform over 1992-01-01 ..
+    1998-08-02 and priority 0; 1-7 lines an order, quantity 1-50, the
+    extended price the quantity times the part's retail price (90000 +
+    (partkey / 10) mod 20001 + 100 (partkey mod 1000), in cents, over
+    200 000 x SF parts), discount 0.00-0.10 and a ship date 1-121 days
+    after the order."""
+    rng = np.random.default_rng(seed)
+    n_c = max(int(150_000 * sf), 3)
+    n_o = max(int(1_500_000 * sf), 1)
+    n_p = max(int(200_000 * sf), 1)
+    i = np.arange(n_o, dtype=np.int64)
+    okey = i // 8 * 32 + i % 8 + 1
+    free = n_c - n_c // 3  # customer keys not divisible by 3
+    j = rng.integers(0, free, n_o)
+    odate = rng.integers(_day("1992-01-01"), _day("1998-08-02") + 1,
+                         n_o).astype(np.int32)
+    lines = rng.integers(1, 8, n_o)
+    oi = np.repeat(i, lines)
+    n_l = len(oi)
+    pk = rng.integers(1, n_p + 1, n_l)
+    retail = 90_000 + (pk // 10) % 20_001 + 100 * (pk % 1000)
+    return {
+        "customer": {
+            "c_custkey": np.arange(1, n_c + 1, dtype=np.int64),
+            "c_mktsegment": np.array(SEGMENTS)[rng.integers(0, 5, n_c)],
+        },
+        "orders": {
+            "o_orderkey": okey,
+            "o_custkey": (j + j // 2 + 1).astype(np.int64),
+            "o_orderdate": odate,
+            "o_shippriority": np.zeros(n_o, dtype=np.int32),
+        },
+        "lineitem": {
+            "l_orderkey": okey[oi],
+            "l_extendedprice": (rng.integers(1, 51, n_l) * retail).astype(
+                np.int64),
+            "l_discount": rng.integers(0, 11, n_l).astype(np.int64),
+            "l_shipdate": (odate[oi] + rng.integers(1, 122, n_l)).astype(
+                np.int32),
+        },
+    }
+
+
+def _key_pos(keys, probe):
+    """Each probe value's row in ``keys`` (unique positive integers), -1
+    where it has none: a lookup table over the key range (a search of
+    the sorted keys would pay a cache miss a step for unsorted probes)."""
+    table = np.full(int(keys.max()) + 2, -1, dtype=np.int64)
+    table[keys] = np.arange(len(keys))
+    return table[np.clip(probe, 0, len(table) - 1)]
+
+
+def expected_q3(lineitem, orders, customer, building) -> list:
+    """Q3 in numpy over the same arrays: each line's order and each
+    order's customer by key, the filters, exact revenues (scale 4) per
+    order, and the first ten by revenue descending, then order date,
+    then order key."""
+    cut = _day("1995-03-15")
+    cpos = _key_pos(customer["c_custkey"], orders["o_custkey"])
+    o_ok = (cpos >= 0) & (customer["c_mktsegment"][cpos] == building) & (
+        orders["o_orderdate"] < cut)
+    ok_ = orders["o_orderkey"]
+    opos = _key_pos(ok_, lineitem["l_orderkey"])
+    m = (opos >= 0) & o_ok[opos] & (lineitem["l_shipdate"] > cut)
+    rev = lineitem["l_extendedprice"][m] * (100 - lineitem["l_discount"][m])
+    # float64 sums are exact here: every order's sum is far below 2^53
+    sums = np.rint(np.bincount(opos[m], weights=rev, minlength=len(ok_))
+                   ).astype(np.int64)
+    has = np.bincount(opos[m], minlength=len(ok_)) > 0
+    g = np.nonzero(has)[0]
+    top = g[np.lexsort((ok_[g], orders["o_orderdate"][g], -sums[g]))[:10]]
+    return [(int(ok_[o]), int(sums[o]) / 10**4,
+             str(np.datetime64(int(orders["o_orderdate"][o]), "D")),
+             int(orders["o_shippriority"][o])) for o in top]
+
+
+CLICKBENCH_DDL = "create table hits (UserID bigint) distribute by roundrobin"
+# ClickBench queries.sql, the top-10 users by hits
+CLICKBENCH_Q = ("SELECT UserID, COUNT(*) FROM hits GROUP BY UserID "
+                "ORDER BY COUNT(*) DESC LIMIT 10")
+# hits_100m: 99 997 497 rows, 17 630 976 distinct UserIDs
+HITS_DISTINCT_SHARE = 17_630_976 / 99_997_497
+
+
+def make_hits(n: int, users: int, seed: int = 42) -> dict:
+    """hits' UserID column: ``users`` distinct ids drawn over the signed
+    64-bit range, each in at least one row, the other rows' users drawn
+    with Zipf weights (s = 1.1) over a random ranking of the ids, so
+    the largest counts are far apart; rows shuffled."""
+    rng = np.random.default_rng(seed)
+    ids = np.unique(rng.integers(-(2**63), 2**63 - 1, users + users // 100
+                                 + 16, dtype=np.int64))
+    ids = rng.permutation(ids)[:users]
+    cdf = np.cumsum(np.arange(1, users + 1, dtype=np.float64) ** -1.1)
+    extra = np.searchsorted(cdf / cdf[-1], rng.random(n - users),
+                            side="right")
+    rows = np.concatenate([np.arange(users), np.minimum(extra, users - 1)])
+    rng.shuffle(rows)
+    return {"userid": ids[rows]}
+
+
+def expected_clickbench(hits) -> list:
+    """The top ten (UserID, count) pairs in numpy: counts by np.unique,
+    ties in count by UserID."""
+    u, c = np.unique(hits["userid"], return_counts=True)
+    top = np.lexsort((u, -c))[:10]
+    return [(int(u[i]), int(c[i])) for i in top]
 
 
 SSB_DDL = (
@@ -785,6 +972,7 @@ def run_main_path(args, device, card: str) -> dict:
     import torch
 
     from opentenbase_tpu_torch import Cluster
+    from opentenbase_tpu_torch.ops import radix_probe as rp
     from opentenbase_tpu_torch.ops import scan_agg as sa
 
     t0 = time.perf_counter()
@@ -797,13 +985,15 @@ def run_main_path(args, device, card: str) -> dict:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     want = {"Q6": expected_q6(arrays), "Q1": expected_q1(arrays)}
 
-    first_ms, launches = {}, {}
+    first_ms, launches, k2 = {}, {}, {}
     for q, sql in (("Q6", Q6), ("Q1", Q1)):
         sa.scan_agg.launches = 0
+        rp.radix_probe.launches = 0
         t1 = time.perf_counter()
         got = s.query(sql)
         first_ms[q] = (time.perf_counter() - t1) * 1000
         launches[q] = sa.scan_agg.launches
+        k2[q] = rp.radix_probe.launches
         if got != want[q]:
             raise AssertionError(f"{q}: port {got} != numpy {want[q]}")
         if launches[q] != 1:
@@ -842,7 +1032,8 @@ def run_main_path(args, device, card: str) -> dict:
               f"{tr['busy_ms']:.3f} ms, idle share {idle}; device events "
               f"{tr['events']} [{card}]", flush=True)
     return {"cluster": cluster, "e2e": e2e, "launches": launches,
-            "breakdown": breakdown, "trace": trace}
+            "breakdown": breakdown, "trace": trace, "arrays": arrays,
+            "k2_launches": k2}
 
 
 def trace_query(session, sql: str, repeats: int) -> dict:
@@ -1164,7 +1355,7 @@ def run_ssb_path(args, device, card: str) -> dict:
           flush=True)
     want = {q: expected_ssb(lo, dd, q) for q in SSB_Q}
     runner = None
-    first_ms, launches, modes = {}, {}, {}
+    first_ms, launches, modes, k1 = {}, {}, {}, {}
     for q, sql in SSB_Q.items():
         rp.radix_probe.launches = 0
         sa.scan_agg.launches = 0
@@ -1173,6 +1364,7 @@ def run_ssb_path(args, device, card: str) -> dict:
         torch.cuda.synchronize()
         first_ms[q] = (time.perf_counter() - t1) * 1000
         launches[q] = rp.radix_probe.launches
+        k1[q] = sa.scan_agg.launches
         runner = cluster.fused_executor()._dag
         modes[q] = runner.last_join_modes
         if got != want[q]:
@@ -1215,7 +1407,7 @@ def run_ssb_path(args, device, card: str) -> dict:
               f"{len(tr['events'])} kinds [{card}]", flush=True)
     return {"cluster": cluster, "session": s, "e2e": e2e,
             "launches": launches, "breakdown": breakdown, "trace": trace,
-            "first_ms": first_ms, "tables": tables}
+            "first_ms": first_ms, "tables": tables, "k1_launches": k1}
 
 
 # ---------------------------------------------------------------------------
@@ -1244,7 +1436,7 @@ def run_ssb_grouped(ssb: dict, args, card: str) -> dict:
             for q in SSB_GROUPED_Q}
     print(f"numpy: flights 2-4 answered in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    first_ms, launches, modes = {}, {}, {}
+    first_ms, launches, modes, k1 = {}, {}, {}, {}
     for q, sql in SSB_GROUPED_Q.items():
         rp.radix_probe.launches = 0
         sa.scan_agg.launches = 0
@@ -1253,6 +1445,7 @@ def run_ssb_grouped(ssb: dict, args, card: str) -> dict:
         torch.cuda.synchronize()
         first_ms[q] = (time.perf_counter() - t1) * 1000
         launches[q] = rp.radix_probe.launches
+        k1[q] = sa.scan_agg.launches
         modes[q] = (runner.last_mode, runner.last_join_modes)
         if got != want[q]:
             raise AssertionError(
@@ -1307,7 +1500,154 @@ def run_ssb_grouped(ssb: dict, args, card: str) -> dict:
               f"{len(tr['events'])} kinds, the most device time: {top} "
               f"[{card}]", flush=True)
     return {"e2e": e2e, "launches": launches, "breakdown": breakdown,
-            "trace": trace, "first_ms": first_ms}
+            "trace": trace, "first_ms": first_ms, "k1_launches": k1}
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: TPC-H Q3 and ClickBench through the DAG's device top-k modes
+# ---------------------------------------------------------------------------
+
+
+def run_topk_query(name: str, cluster, sql: str, want: list, mode: str,
+                   join_modes: tuple, folded: int, repeats: int,
+                   card: str) -> dict:
+    """One top-k query of phase 5c, as phases 5 and 5b run theirs: the
+    first run exact against numpy in the mode and join modes the CPU
+    tests fixed (tests/test_torch_dag_topk.py), K1's and K2's launches
+    counted from 0 around it; then the warm median, the memory, the
+    layers and one traced run."""
+    import torch
+
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    s = cluster.session()
+    rp.radix_probe.launches = 0
+    sa.scan_agg.launches = 0
+    t1 = time.perf_counter()
+    got = s.query(sql)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1000
+    launches = {"scan_agg": sa.scan_agg.launches,
+                "radix_probe": rp.radix_probe.launches}
+    runner = cluster.fused_executor()._dag
+    seen = (runner.last_mode, runner.last_join_modes,
+            len(runner.last_folded))
+    if got != want:
+        raise AssertionError(f"{name}: port {got} != numpy {want}")
+    if seen != (mode, join_modes, folded) or not s._fused_via_dag:
+        raise AssertionError(f"{name}: mode, join modes, folded joins "
+                             f"{seen}, want {(mode, join_modes, folded)}")
+    print(f"main path: {name} exact through the fused DAG (mode {seen[0]}, "
+          f"join modes {seen[1]}, {seen[2]} joins folded; scan_agg launches "
+          f"{launches['scan_agg']}, radix_probe launches "
+          f"{launches['radix_probe']}; {len(got)} groups; first run incl. "
+          f"upload {first_ms:.3f} ms) {got[:2]}... [{card}]", flush=True)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ts = []
+    for _ in range(repeats):
+        t1 = time.perf_counter()
+        got = s.query(sql)
+        ts.append((time.perf_counter() - t1) * 1000)
+        if got != want:
+            raise AssertionError(f"{name}: answer changed between runs")
+    e2e = statistics.median(ts)
+    print(f"end to end: {name} median {e2e:.3f} ms over {repeats} runs "
+          f"(mode {runner.last_mode}) [{card}]", flush=True)
+    print(f"memory: {name} resident {resident / 1e9:.3f} GB (the cluster's "
+          f"planes), peak over the warm runs "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]",
+          flush=True)
+    layers = layer_breakdown(cluster, sql, repeats, dag=True)
+    print(f"layers: {name} median ms " + ", ".join(
+        f"{k} {v:.3f}" for k, v in layers.items()) + f" [{card}]", flush=True)
+    tr = trace_query(s, sql, repeats)
+    idle = ("not measured (no device events in the trace)"
+            if tr["idle_share"] is None else f"{tr['idle_share']:.4f}")
+    top = "; ".join(f"{k} {v:.3f} ms" for k, v in tr["top"])
+    print(f"trace: {name} one query under torch.profiler, median of "
+          f"{repeats}: host {tr['wall_ms']:.3f} ms, device busy "
+          f"{tr['busy_ms']:.3f} ms, idle share {idle}; device events "
+          f"{len(tr['events'])} kinds, the most device time: {top} "
+          f"[{card}]", flush=True)
+    return {"e2e": e2e, "launches": launches, "layers": layers,
+            "trace": tr, "first_ms": first_ms,
+            "resident_gb": resident / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def run_q3_dense(main: dict, args, card: str) -> dict:
+    """Phase 5c (b): bench.py's Q3 — orders and customer (make_q3_dims)
+    beside phase 4's lineitem, dense order keys: gagg over two chain
+    folds."""
+    cluster = main["cluster"]
+    s = cluster.session()
+    t0 = time.perf_counter()
+    orders, customer = make_q3_dims(args.rows, 43)
+    for ddl in Q3_DENSE_DDL:
+        s.execute(ddl)
+    bulk_append(cluster, "orders", orders)
+    bulk_append(cluster, "customer", customer)
+    want = expected_q3(main["arrays"], orders, customer, 0)
+    print(f"load: orders {len(orders['o_orderkey'])} and customer "
+          f"{len(customer['c_custkey'])} rows beside lineitem, numpy Q3; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return run_topk_query("TPC-H Q3 (dense keys)", cluster, Q3_DENSE, want,
+                          "gagg", ("fold",), 2, args.repeats, card)
+
+
+def run_q3_spec(args, device, card: str) -> dict:
+    """Phase 5c (a): TPC-H Q3 as the spec writes it over make_q3_spec at
+    ``--q3-sf`` (sparse order keys, TEXT segments), every table round
+    robin over 2 datanodes: the top join by the gsort co-sort, customer
+    folded into orders."""
+    from opentenbase_tpu_torch import Cluster
+
+    t0 = time.perf_counter()
+    tables = make_q3_spec(args.q3_sf, args.seed)
+    cluster = Cluster(num_datanodes=2, device=device)
+    s = cluster.session()
+    for ddl in Q3_SPEC_DDL:
+        s.execute(ddl)
+    for name, arrays in tables.items():
+        bulk_append(cluster, name, arrays)
+    want = expected_q3(tables["lineitem"], tables["orders"],
+                       tables["customer"], "BUILDING")
+    print(f"load: TPC-H SF{args.q3_sf:g} for Q3: " + ", ".join(
+        f"{k} {len(next(iter(v.values())))}" for k, v in tables.items())
+        + f" rows round robin in 2 datanodes, numpy Q3; "
+        f"{time.perf_counter() - t0:.3f} s", flush=True)
+    del tables
+    out = run_topk_query("TPC-H Q3 (spec keys)", cluster, Q3_SPEC, want,
+                         "gsort", ("fold",), 1, args.repeats, card)
+    return out
+
+
+def run_clickbench(args, device, card: str) -> dict:
+    """Phase 5c (c): ClickBench's top-10 UserIDs over ``--hits-rows``
+    rows of make_hits, round robin over 2 datanodes. The full-range
+    UserIDs overflow every packed key, so the run ends in the grouped
+    mode with every group shipped, as the reference's does."""
+    from opentenbase_tpu_torch import Cluster
+
+    t0 = time.perf_counter()
+    users = int(args.hits_rows * HITS_DISTINCT_SHARE)
+    hits = make_hits(args.hits_rows, users, args.seed)
+    cluster = Cluster(num_datanodes=2, device=device)
+    s = cluster.session()
+    s.execute(CLICKBENCH_DDL)
+    bulk_append(cluster, "hits", hits)
+    want = expected_clickbench(hits)
+    counts = [c for _u, c in want]
+    print(f"load: hits {args.hits_rows} rows, {users} distinct UserIDs, "
+          f"round robin in 2 datanodes, numpy top 10 (counts {counts}, "
+          f"distinct: {len(set(counts)) == len(counts)}); "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    del hits
+    return run_topk_query("ClickBench top-10 UserID", cluster, CLICKBENCH_Q,
+                          want, "grouped", (), 0, max(2, args.repeats // 2),
+                          card)
 
 
 def capture_probe_inputs(ssb: dict, sql: str):
@@ -1381,6 +1721,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--rows", type=int, default=60_000_000)
     ap.add_argument("--ssb-rows", type=int, default=60_000_000)
+    ap.add_argument("--q3-sf", type=float, default=10.0)
+    ap.add_argument("--hits-rows", type=int, default=60_000_000)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
 
@@ -1421,16 +1763,34 @@ def main(argv=None) -> int:
     check_radix_vs_plain(device, args.seed, card)
     main_run = run_main_path(args, device, card)
     rows = time_kernels(main_run, card, rate)
-    e2e_tpch, layers_tpch, trace_tpch, launches_tpch = (
+    topk = {"Q3 dense": run_q3_dense(main_run, args, card)}
+    e2e_tpch, layers_tpch, trace_tpch, launches_tpch, k2_tpch = (
         main_run["e2e"], main_run["breakdown"], main_run["trace"],
-        main_run["launches"])
-    del main_run  # free lineitem's planes before SSB loads
+        main_run["launches"], main_run["k2_launches"])
+    del main_run  # free lineitem's planes before SSB loads (the cluster
+    gc.collect()  # and its executors hold each other: a cycle)
     torch.cuda.empty_cache()
     ssb_run = run_ssb_path(args, device, card)
     grouped_run = run_ssb_grouped(ssb_run, args, card)
     radix_rows = time_radix(ssb_run, card, rate,
                             {**SSB_Q, **SSB_GROUPED_Q})
     ssb_launches = {**ssb_run["launches"], **grouped_run["launches"]}
+    del ssb_run["cluster"], ssb_run["session"]  # free SSB's planes
+    gc.collect()
+    torch.cuda.empty_cache()
+    topk["Q3 spec"] = run_q3_spec(args, device, card)
+    gc.collect()  # Q3's cluster, before hits loads
+    torch.cuda.empty_cache()
+    topk["ClickBench"] = run_clickbench(args, device, card)
+    # K1's and K2's launches in every path's run, the new queries too
+    path_launches = {
+        "scan_agg": {**launches_tpch, **ssb_run["k1_launches"],
+                     **grouped_run["k1_launches"]},
+        "radix_probe": {**k2_tpch, **ssb_launches},
+    }
+    for q, r in topk.items():
+        for k, n in r["launches"].items():
+            path_launches[k][q] = n
 
     kernels = []
     for r in rows:
@@ -1447,6 +1807,7 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"],
             "gbps": r["bytes"] / r["ms"] / 1e6,
             "library_ms": None,
+            "path_launches": path_launches["scan_agg"],
         })
     for r in radix_rows:
         kernels.append({
@@ -1462,6 +1823,7 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"],
             "gbps": r["bytes"] / r["ms"] / 1e6,
             "library_ms": None,
+            "path_launches": path_launches["radix_probe"],
         })
     # the JSON counts each trace's device event kinds; the trace lines
     # of the TPC-H queries name them
@@ -1469,14 +1831,21 @@ def main(argv=None) -> int:
                     if k not in ("events", "top")},
                  "event_kinds": len(tr["events"])}
              for q, tr in {**trace_tpch, **ssb_run["trace"],
-                           **grouped_run["trace"]}.items()}
+                           **grouped_run["trace"],
+                           **{q: r["trace"] for q, r in topk.items()}}.items()}
     print(json.dumps({"kernels": kernels,
                       "e2e_ms": {**e2e_tpch, **ssb_run["e2e"],
-                                 **grouped_run["e2e"]},
+                                 **grouped_run["e2e"],
+                                 **{q: r["e2e"] for q, r in topk.items()}},
                       "layers_ms": {**layers_tpch, **ssb_run["breakdown"],
-                                    **grouped_run["breakdown"]},
+                                    **grouped_run["breakdown"],
+                                    **{q: r["layers"]
+                                       for q, r in topk.items()}},
+                      "memory_gb": {q: [r["resident_gb"], r["peak_gb"]]
+                                    for q, r in topk.items()},
                       "trace": trace,
                       "rows": args.rows, "ssb_rows": args.ssb_rows,
+                      "q3_sf": args.q3_sf, "hits_rows": args.hits_rows,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

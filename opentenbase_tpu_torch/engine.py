@@ -34,8 +34,10 @@ from opentenbase_tpu_torch.catalog.nodes import NodeDef, NodeManager, NodeRole
 from opentenbase_tpu_torch.catalog.shardmap import ShardMap
 from opentenbase_tpu_torch.errors import NotPorted
 from opentenbase_tpu_torch.executor.fused import FusedExecutor
+from opentenbase_tpu_torch.executor.fused_dag import DagUnsupported
 from opentenbase_tpu_torch.executor.local import LocalExecutor
 from opentenbase_tpu_torch.plan import analyze_statement
+from opentenbase_tpu_torch.plan import logical as L
 from opentenbase_tpu_torch.plan.distribute import distribute_statement
 from opentenbase_tpu_torch.plan.optimize import optimize_statement
 from opentenbase_tpu_torch.sql import ast as A
@@ -146,6 +148,9 @@ class Cluster:
 class Session:
     def __init__(self, cluster: Cluster):
         self.cluster = cluster
+        # whether the last SELECT's device output came from the fused DAG
+        # (else from K1's route), the reference's attribute
+        self._fused_via_dag = False
 
     def execute(self, sql: str) -> Result:
         results = [self._execute_one(s) for s in parse(sql)]
@@ -293,14 +298,31 @@ class Session:
             raise NotPorted("scalar subqueries")
         snapshot = self.cluster.gts.snapshot_ts()
         fx = self.cluster.fused_executor()
-        # the reference's order: a single fragment tries the kernel's
-        # route; what it does not take, and every multi-fragment (join)
-        # plan, goes to the fused DAG
-        out, final_idx = None, 0
-        if len(dplan.fragments) == 1:
+        # the reference's route order (engine.py _try_fused_inner): a
+        # Limit(Sort(...)) coordinator plan tries the fused DAG first,
+        # which may rank on the device and ship k rows; a single fragment
+        # tries K1's route; what neither took, and every other plan, goes
+        # to the DAG. A DagUnsupported of the first try is the reference's
+        # "DAG returns None"; any other NotPorted is a gap of the port
+        # and propagates.
+        has_topk = isinstance(dplan.root, L.Limit) and isinstance(
+            dplan.root.child, L.Sort)
+        out, final_idx, declined = None, 0, None
+        self._fused_via_dag = False
+        if has_topk:
+            try:
+                final_idx, out = fx.dag_output(dplan, snapshot)
+                self._fused_via_dag = True
+            except DagUnsupported as e:
+                declined = e
+        if out is None and len(dplan.fragments) == 1:
             out = fx.fragment_output(dplan.fragments[0], snapshot)
         if out is None:
+            if declined is not None:
+                # the reference's host executor answers: not ported
+                raise declined
             final_idx, out = fx.dag_output(dplan, snapshot)
+            self._fused_via_dag = True
         batch = LocalExecutor(catalog, {final_idx: out}).run_plan(dplan.root)
         return Result(
             "SELECT", batch.to_rows(), batch.column_names(), batch.nrows

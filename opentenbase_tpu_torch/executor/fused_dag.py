@@ -1,5 +1,6 @@
 """Fused DAG executor on one GPU: join plans under a scalar or grouped
-aggregate (subset of the reference's opentenbase_tpu/executor/fused_dag.py).
+aggregate, ranked on the device under ORDER BY ... LIMIT (subset of the
+reference's opentenbase_tpu/executor/fused_dag.py).
 
 The reference compiles every fragment of a distributed plan into a
 ``shard_map`` program over its device mesh and wires redistribute
@@ -31,11 +32,26 @@ when a run finds more groups; the capacity that fit is remembered per
 plan, data version and literal values. TEXT keys group on their
 dictionary codes and decode on the host.
 
-Ported: the scalar and grouped final modes with their flag-retry loops,
-inner joins, and the join-mode notes (``last_join_modes``). The top-k
-modes (an ``ORDER BY ... LIMIT k`` the reference ranks on the device:
-gseg, gsort, gagg, wgagg, grouped_topk), the row-returning modes,
-semi/anti joins and the multi-device exchanges raise NotPorted.
+A coordinator plan ``Limit(Sort(...))`` over integer-family sort keys
+with k = limit + offset <= 1024 ranks on the device and ships k groups
+(``_detect_topk``; one device, so every group is whole). The mode, per
+orientation: gagg (one sort of the packed group key, aggregates by prefix
+differences and segmented scans, ranking at run ends) where the top join
+folds or there is none; gsort (one co-sort of build and probe keys,
+ranking at the build rows) for grouping by the unique build key of the
+top join; otherwise the grouped mode ranks its groups (grouped_topk).
+Each ranked run returns an ``ok`` flag, and its failures climb a ladder
+remembered per plan: the i32 program retries wide, gagg's cumsum run
+base retries with segmented add scans, and a ranking key whose range
+passes 2^62 ships every group unranked. Ties at the k-th row go to the
+lowest position, as in the reference.
+
+Ported: the scalar, grouped, gagg, gsort and grouped_topk final modes
+with their retry loops, inner joins, and the join-mode notes
+(``last_join_modes``). Where the reference would window gagg (wgagg),
+segment-reduce over the build rows (gseg) or ship rows (rows,
+rows_topk), and for semi/anti joins and the multi-device exchanges, the
+port raises NotPorted.
 """
 
 from __future__ import annotations
@@ -315,18 +331,362 @@ def _detect_topk(dplan, final):
     return k, tuple(zip(positions, descs, nfs)), merged
 
 
+# ORDER BY columns the device can rank: integer-family values packed into
+# one int64 ranking key (TEXT ranks by collation, not code)
+_PACKABLE_SORT_TYPES = _JOINABLE_KEY_TYPES
+
+
+def _join_side(root, orientation):
+    """(top join, build_right) for the outermost join under ``root``
+    (Filters stripped; the top join is the last in post-order), or
+    None."""
+    node = root
+    while isinstance(node, L.Filter):
+        node = node.child
+    if not isinstance(node, L.Join):
+        return None
+    ji = _count_inner_joins(root) - 1
+    return node, (orientation[ji] if ji < len(orientation) else "R") == "R"
+
+
+def _detect_build_group(agg, root, orientation):
+    """Group-by over the unique build side of the top join: every GROUP
+    BY expression is a bare column of the build side (or the probe join
+    key, equal to the build key on every matched row) and one of them IS
+    the join key, so groups are 1:1 with real build rows. Returns
+    build_cols, the build-side column backing each group expr, or
+    None."""
+    top = _join_side(root, orientation)
+    if top is None:
+        return None
+    node, build_right = top
+    if node.join_type != "inner":
+        return None
+    if len(node.left_keys) != 1 or len(node.right_keys) != 1:
+        return None
+    nl = len(node.left.schema)
+    lk, rk = node.left_keys[0], node.right_keys[0]
+    if build_right:
+        bkey, pkey = rk, lk
+        build_lo, build_hi = nl, nl + len(node.right.schema)
+        poff = 0
+    else:
+        bkey, pkey = lk, rk
+        build_lo, build_hi = 0, nl
+        poff = nl
+    if not isinstance(bkey, E.Col):
+        return None
+    pkey_pos = (poff + pkey.index) if isinstance(pkey, E.Col) else None
+    build_cols = []
+    has_key = False
+    for g in agg.group_exprs:
+        if not isinstance(g, E.Col):
+            return None
+        p = g.index
+        if build_lo <= p < build_hi:
+            bc = p - build_lo
+        elif pkey_pos is not None and p == pkey_pos:
+            bc = bkey.index
+        else:
+            return None
+        if bc == bkey.index:
+            has_key = True
+        build_cols.append(bc)
+    if not has_key:
+        return None
+    return tuple(build_cols)
+
+
+def _detect_gsort(agg, root, orientation):
+    """Eligibility for the co-sort join + group formulation: the
+    group-by-unique-build shape with the aggregate directly on the join
+    and every aggregate argument over probe columns only (sum/count by
+    cumsum differences, min/max by one reverse segmented scan). A join
+    residual rides along. Returns a spec dict or None."""
+    build_cols = _detect_build_group(agg, root, orientation)
+    if build_cols is None or not isinstance(root, L.Join):
+        return None
+    _join, build_right = _join_side(root, orientation)
+    nl = len(root.left.schema)
+    plo, phi = (0, nl) if build_right else (nl, nl + len(root.right.schema))
+    for a in agg.aggs:
+        if a.func == "count" and a.arg is None:
+            continue
+        if a.func not in ("sum", "count", "min", "max"):
+            return None
+        if a.func in ("min", "max") and a.arg.type.is_text:
+            return None  # code order is not collation order
+        if any(not (plo <= c < phi) for c in _expr_cols(a.arg)):
+            return None
+    bkey = (root.right_keys if build_right else root.left_keys)[0]
+    return {
+        "join": root,
+        "build_right": build_right,
+        "build_cols": build_cols,
+        "bkey_col": bkey.index,
+        "residual": root.residual,
+    }
+
+
+def _detect_gagg(agg):
+    """Eligibility for the sort-based grouped aggregate + top-k with no
+    build-side requirement (the ClickBench shape): integer-family or
+    TEXT-code group keys, and no min/max over TEXT."""
+    if not agg.group_exprs:
+        return None
+    for a in agg.aggs:
+        if a.func in ("min", "max") and (
+            a.arg is not None and a.arg.type.is_text
+        ):
+            return None
+        if a.func not in ("count", "sum", "min", "max"):
+            return None
+    for g in agg.group_exprs:
+        if not (g.type.id in _JOINABLE_KEY_TYPES or g.type.is_text):
+            return None
+    return True
+
+
+def _fd_map(root, orientation):
+    """Functional dependencies between output columns, in root.schema
+    positions: {determined: determining}. Every verified-unique inner
+    join makes its build-side columns functions of the probe key (a run
+    that returns with no flag raised proved its keys unique), so grouped
+    aggregation may pack a determinant subset of the GROUP BY keys."""
+    counter = [0]
+
+    # mirrors _Builder.build: both children of every join, this join's
+    # index post-order
+    def walk(node):
+        if isinstance(node, (L.Scan, RemoteSource)):
+            return {}
+        if isinstance(node, L.Filter):
+            return walk(node.child)
+        if isinstance(node, L.Project):
+            cfd = walk(node.child)
+            pos_of = {}
+            for o, ex in enumerate(node.exprs):
+                if isinstance(ex, E.Col) and ex.index not in pos_of:
+                    pos_of[ex.index] = o
+            out = {}
+            for o, ex in enumerate(node.exprs):
+                if not isinstance(ex, E.Col):
+                    continue
+                q = cfd.get(ex.index)
+                if q is not None and q in pos_of and pos_of[q] != o:
+                    out[o] = pos_of[q]
+            return out
+        if isinstance(node, L.Join):
+            if node.join_type in ("semi", "anti"):
+                lfd = walk(node.left)
+                walk(node.right)  # index alignment only
+                return lfd
+            lfd = walk(node.left)
+            rfd = walk(node.right)
+            nl = len(node.left.schema)
+            out = dict(lfd)
+            out.update({k + nl: v + nl for k, v in rfd.items()})
+            if node.join_type != "inner":
+                return out
+            ji = counter[0]
+            counter[0] += 1
+            build_right = (
+                orientation[ji] if ji < len(orientation) else "R"
+            ) == "R"
+            if len(node.left_keys) != 1:
+                return out
+            pkey = node.left_keys[0] if build_right else node.right_keys[0]
+            if not isinstance(pkey, E.Col):
+                return out
+            pkpos = pkey.index + (0 if build_right else nl)
+            lo, hi = (
+                (nl, nl + len(node.right.schema)) if build_right else (0, nl)
+            )
+            for p in range(lo, hi):
+                if p != pkpos:
+                    out[p] = pkpos
+            return out
+        return {}
+
+    return walk(root)
+
+
+def _fd_reduce(root, orientation, agg):
+    """(kept, dropped) group-expr indices after removing the keys
+    functionally determined (transitively) by another present key."""
+    fd = _fd_map(root, orientation)
+    nkeys = len(agg.group_exprs)
+    colpos = {
+        i: g.index
+        for i, g in enumerate(agg.group_exprs)
+        if isinstance(g, E.Col)
+    }
+    present = {p: i for i, p in colpos.items()}
+    drop: set = set()
+    changed = True
+    while changed:
+        changed = False
+        for i, p in colpos.items():
+            if i in drop:
+                continue
+            q = fd.get(p)
+            seen = set()
+            while q is not None and q not in present and q not in seen:
+                seen.add(q)
+                q = fd.get(q)
+            if (
+                q is not None and q in present
+                and present[q] != i and present[q] not in drop
+            ):
+                drop.add(i)
+                changed = True
+    return [i for i in range(nkeys) if i not in drop], sorted(drop)
+
+
+def _top_join(root):
+    """The outermost join under ``root``, peeling Filters AND Projects,
+    or None."""
+    node = root
+    while isinstance(node, (L.Filter, L.Project)):
+        node = node.child
+    return node if isinstance(node, L.Join) else None
+
+
+def _runs(start):
+    """(run id, first row, last row) of every position, for the runs
+    that begin where ``start`` is set (``start[0]`` is). The run heads
+    come from one ``nonzero`` (a host sync): torch's cummax and cummin,
+    the reference's carries, scan a 1-D tensor as one row on the card."""
+    n = start.shape[0]
+    heads = torch.nonzero(start).reshape(-1)
+    tails = torch.cat([heads[1:], heads.new_full((1,), n)]) - 1
+    rid = torch.cumsum(start, 0) - 1
+    return rid, heads[rid], tails[rid]
+
+
+def _seg_scan(x, runs, op: str):
+    """The reference's segmented scan, in the forms its callers read,
+    over ``runs`` (``_runs``). 'add' and 'first' (the run's first value)
+    give the forward prefix at every position, as the reference's scan
+    does. 'min' and 'max' give each run's full reduction at every
+    position: the reference's forward prefix at run ends and its reverse
+    suffix at run starts, the only positions the grouped top-k programs
+    read."""
+    rid, head, _tail = runs
+    if op == "first":
+        return x[head]
+    if op == "add":
+        cs = torch.cumsum(x, 0, dtype=x.dtype)
+        return cs - (cs - x)[head]
+    if op in ("min", "max"):
+        out = x.clone()
+        out.scatter_reduce_(0, rid, x, "amin" if op == "min" else "amax",
+                            include_self=False)
+        return out[rid]
+    raise ValueError(f"segmented scan {op!r}")
+
+
+def _rank_encode(d64, v, desc, nf, live, bound=2**62):
+    """Monotone slot encoding of ONE ORDER BY column over run-time
+    min/max ranges: (x, r, rf, okbit) with x the ascending slot in [0,
+    r), r its int64 range, rf the float64 range for overflow products,
+    okbit False when the value spread itself reaches ``bound``. NULLs
+    land at PG's default end (DESC first, ASC last) unless ``nf`` says
+    otherwise. Dead rows get bounded garbage; callers mask them."""
+    big = 2**62
+    nulls_first = desc if nf is None else nf
+    lv = live if v is None else (live & v)
+    mn = _reduce_or(torch.where(lv, d64, big), torch.amin, big)
+    mx = _reduce_or(torch.where(lv, d64, -big), torch.amax, -big)
+    mn = torch.minimum(mn, mx)  # no live rows: a range of 1
+    rngf = (mx.to(torch.float64) - mn.to(torch.float64)) + 1.0
+    okbit = rngf < float(bound)
+    rng = torch.clamp(mx - mn + 1, min=1)
+    base = (mx - d64) if desc else (d64 - mn)
+    base = torch.minimum(torch.clamp(base, min=0), rng - 1)
+    if v is None:
+        return base, rng, rngf, okbit
+    if nulls_first:
+        x = torch.where(v, base + 1, 0)
+    else:
+        x = torch.where(v, base, rng)
+    return x, rng + 1, rngf + 1.0, okbit
+
+
+def _pack_sort_cols(cols, sspecs, live):
+    """Pack ORDER BY columns into ONE ascending int64 ranking key from
+    their run-time ranges, the first key most significant. Returns
+    (packed, ok): ``ok`` is False when the product of the ranges reaches
+    2^62, and the caller then ships unranked rows."""
+    dev = live.device
+    stride = torch.ones((), dtype=torch.int64, device=dev)
+    prod = torch.ones((), dtype=torch.float64, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    packed = torch.zeros(live.shape[0], dtype=torch.int64, device=dev)
+    for (d, v), (_pos, desc, nf) in reversed(list(zip(cols, sspecs))):
+        x, r, rf, okbit = _rank_encode(d.to(torch.int64), v, desc, nf, live)
+        ok = ok & okbit
+        packed = packed + x * stride
+        stride = stride * r
+        prod = prod * torch.clamp(rf, min=1.0)
+    return packed, ok & (prod < 2.0**62)
+
+
+def _topk_idx(packed, live, k: int):
+    """Indices and validity of the k smallest packed keys among live
+    rows, in (key, index) order: ties go to the LOWEST index, as the
+    reference's chunked arg-min picks the first chunk and then the first
+    lane. (idx int64 [k], valid bool [k]); ``valid`` is False past the
+    live rows, whose indices are then any rows (callers mask them).
+
+    Exact without a full sort: the k-th smallest key is the threshold,
+    every key below it is taken, and the lowest-index keys equal to it
+    fill the rest; the taken rows land in index order through a prefix
+    count, then one stable sort of k keys orders them."""
+    big = 2**62
+    key = torch.where(live, packed, big)
+    n = key.shape[0]
+    dev = key.device
+    kk = min(k, n)
+    if kk == 0:
+        return (torch.zeros(k, dtype=torch.int64, device=dev),
+                torch.zeros(k, dtype=torch.bool, device=dev))
+    thr = torch.topk(key, kk, largest=False, sorted=True).values[kk - 1]
+    below = key < thr
+    eq = key == thr
+    need = kk - torch.sum(below, dtype=torch.int64)
+    taken = below | (eq & (torch.cumsum(eq, 0) <= need))
+    slot = torch.where(taken, torch.cumsum(taken, 0) - 1, kk)
+    buf = torch.zeros(kk + 1, dtype=torch.int64, device=dev)
+    # one writer per slot below kk; the spare slot kk takes the rest
+    buf.scatter_(0, slot, torch.arange(n, device=dev))
+    idx = buf[:kk]
+    idx = idx[torch.argsort(key[idx], stable=True)]
+    valid = key[idx] < big
+    if kk < k:  # fewer rows than k: pad with invalid lanes
+        idx = torch.cat([idx, torch.full((k - kk,), n - 1,
+                                         dtype=torch.int64, device=dev)])
+        valid = torch.cat([valid, torch.zeros(k - kk, dtype=torch.bool,
+                                              device=dev)])
+    return idx, valid
+
+
 def _dids(schema) -> list:
     return [c.dict_id for c in schema]
 
 
-def _chain_leaf(node, folded_ids: dict):
+def _chain_leaf(node, folded_ids=None, est=None):
     """Peel a build subtree down to the ONE leaf whose rows it preserves:
-    Filters keep rows; an inner join that folded (``folded_ids``: id ->
-    build_right, post-order known) keeps its probe side's rows. Returns
-    (leaf, leaf_positions): the positions of ``node.schema`` backed
-    directly by leaf columns (a fold key must be leaf-backed, since
-    folded-in columns hold garbage on unmatched rows). None when the
-    chain breaks."""
+    Filters keep rows; an inner join that folds keeps its probe side's
+    rows. Returns (leaf, leaf_positions): the positions of
+    ``node.schema`` backed directly by leaf columns (a fold key must be
+    leaf-backed, since folded-in columns hold garbage on unmatched
+    rows). None when the chain breaks.
+
+    ``folded_ids`` (id -> build_right): the joins the builder folded,
+    known post-order. ``est``: the row estimate the runner's mode choice
+    uses before any builder exists — it assumes a small-side join folds,
+    which risks only a slower mode, never a wrong answer."""
     offset = 0
     width = len(node.schema)
     while True:
@@ -334,10 +694,21 @@ def _chain_leaf(node, folded_ids: dict):
             node = node.child
             continue
         if isinstance(node, L.Join) and node.join_type == "inner":
-            if id(node) not in folded_ids:
-                return None
             nl = len(node.left.schema)
-            if folded_ids[id(node)]:  # built right: the left side stays
+            if folded_ids is not None:
+                if id(node) not in folded_ids:
+                    return None
+                build_right = folded_ids[id(node)]
+            elif est is not None:
+                le, re = est(node.left), est(node.right)
+                build_right = le > re
+                bn_est = min(le, re)
+                if not (0 < bn_est <= DIMFOLD_MAX_BUILD
+                        and bn_est * 2 <= max(le, re)):
+                    return None
+            else:
+                return None
+            if build_right:  # built right: the left side stays
                 node = node.left
                 width = nl
             else:
@@ -351,17 +722,21 @@ def _chain_leaf(node, folded_ids: dict):
 
 
 def _fold_gate(runner, node: L.Join, ji: int, build_right: bool,
-               fold_off, folded_ids: dict) -> bool:
-    """THE dimension-fold gate. Static checks only; density and
-    uniqueness are verified at run time by the fold flag. Requires a
-    build subtree that preserves ONE leaf's rows, with the join key
-    backed by that leaf, and a build side small in absolute terms AND
-    against the probe."""
+               fold_off, folded_ids=None) -> bool:
+    """THE dimension-fold gate, shared by the builder (``folded_ids``
+    given) and the runner's mode choice (row estimates). Static checks
+    only; density and uniqueness are verified at run time by the fold
+    flag. Requires a build subtree that preserves ONE leaf's rows, with
+    the join key backed by that leaf, and a build side small in absolute
+    terms AND against the probe."""
     if ji in fold_off:
         return False
     bnode = node.right if build_right else node.left
     pnode = node.left if build_right else node.right
-    chain = _chain_leaf(bnode, folded_ids)
+    chain = _chain_leaf(
+        bnode, folded_ids,
+        est=runner._est_rows if folded_ids is None else None,
+    )
     if chain is None:
         return False
     bkey = (node.right_keys if build_right else node.left_keys)[0]
@@ -625,6 +1000,8 @@ class _Builder:
         raise DagUnsupported(type(node).__name__)
 
     def _build_join(self, node: L.Join) -> Callable:
+        if node.join_type in ("semi", "anti"):
+            raise NotPorted(f"fused DAG {node.join_type} join")
         if node.join_type != "inner":
             raise DagUnsupported(f"{node.join_type} join")
         if len(node.left_keys) != 1 or len(node.right_keys) != 1:
@@ -751,6 +1128,15 @@ class DagRunner:
         # sorting from then on
         self._packing: dict = {}
         self._caps: dict = {}  # gcapkey -> group capacity that fit
+        # the top-k retry ladder, each entry remembered so a repeat
+        # starts where the last run ended: skey -> True once the i32
+        # operands of gagg/gsort overflowed (wide from then on); skey ->
+        # True once negative sums broke gagg's cumsum run base (segmented
+        # add scans); (skey, top-k spec, data versions) -> True once the
+        # ranking key's range overflowed (ship every group, unranked)
+        self._narrow_off: dict = {}
+        self._robust_on: dict = {}
+        self._topk_off: dict = {}
         self.last_mode = None  # final-fragment mode of the last run
         self.last_folded = frozenset()  # joins dense-folded in last run
         # join formulations the last run compiled ('fold'/'radix'/'merge')
@@ -772,6 +1158,15 @@ class DagRunner:
         final_root = final.root
         while isinstance(final_root, (L.Sort, L.Limit, L.Distinct)):
             final_root = final_root.child
+        probe_root = final_root
+        if isinstance(probe_root, L.Project):
+            probe_root = probe_root.child
+        if len(frags) == 1 and not (
+            isinstance(probe_root, L.Aggregate)
+            or _contains_join(final_root)
+        ):
+            # a bare scan chain: the reference's host executor answers it
+            raise DagUnsupported("trivial scan")
         for f in frags[:-1]:
             if f.motion == "broadcast":
                 continue
@@ -881,12 +1276,82 @@ class DagRunner:
                 return orientation
         return self._flip(orientation, flip)
 
-    def _cap_store(self, key, value) -> None:
-        """Remember a group capacity, bounded: keys of superseded data
-        versions would otherwise accumulate."""
-        self._caps[key] = value
-        while len(self._caps) > 512:
-            self._caps.pop(next(iter(self._caps)))
+    def _remember(self, store: dict, key, value=True) -> None:
+        """Record one retry outcome or group capacity in a bounded dict:
+        keys of superseded plans and data versions would otherwise
+        accumulate."""
+        store[key] = value
+        while len(store) > 512:
+            store.pop(next(iter(store)))
+
+    def _top_join_foldable(self, root, orientation, skey) -> bool:
+        """``_fold_gate`` applied to the TOP join before any builder
+        exists: where it holds, gagg over the folded tree is chosen over
+        the gsort co-sort."""
+        join = _top_join(root)
+        if join is None or join.join_type != "inner":
+            return False
+        ji = _count_inner_joins(root) - 1
+        build_right = (
+            orientation[ji] if ji < len(orientation) else "R"
+        ) == "R"
+        return _fold_gate(self, join, ji, build_right,
+                          self._fold_off.get(skey, ()))
+
+    def _wgagg_leaf(self, root, agg):
+        """(leaf, width, rmax) when the gagg program's sort operands
+        would pass the window budget, so the reference streams the
+        dominant scan leaf in shard-row windows (wgagg); None when it
+        all fits. The port has no windowed program: the caller refuses
+        the plan where the reference would window it."""
+        budget = batchplan.resolve_budget(
+            0, "OTB_DAG_WINDOW_BUDGET", batchplan.DEFAULT_WINDOW_BUDGET)
+        leaves = [lf for lf in _walk_leaves(root) if isinstance(lf, L.Scan)]
+        if not leaves:
+            return None
+        big = max(leaves, key=self._est_rows)
+        rows = self._est_rows(big)
+        # sort operands per probe row: key + per-aggregate value and
+        # validity + carried keys + row id, tripled for the sorted copies
+        # and the prefix scans
+        per_row = 8 + len(agg.aggs) * 9 + 8 + 4
+        if rows * per_row * 3 <= budget:
+            return None
+        meta = self.fx.catalog.get(big.table)
+        nodes = _scan_nodes(meta)
+        dtab = self.fx.cache.get(big.table, meta, self.fx.node_stores,
+                                 nodes, columns=big.columns)
+        width = batchplan.probe_window_width(
+            dtab.rmax, per_row * 3, len(nodes), budget)
+        if width >= dtab.rmax:
+            return None
+        return big, width, dtab.rmax
+
+    def _topk_spec(self, tk, agg, root, out_proj, skey, versions):
+        """The reference's packable-key test for a detected top-k: every
+        ORDER BY column of the shipped schema must be integer-family (not
+        TEXT), and a coordinator that re-aggregates needs partial
+        aggregates to rank. Positions move through an absorbed
+        projection into the aggregate's schema. (Whether every group is
+        whole on one device matters only on a mesh of several; here it
+        always is.) None where ranking is off, or remembered off after
+        the ranking key's range overflowed on these data versions."""
+        if tk is None:
+            return None
+        schema = (out_proj[1] if out_proj is not None
+                  else (agg.schema if agg is not None else root.schema))
+        kk, sspecs, merged = tk
+        if any(schema[p].type.id not in _PACKABLE_SORT_TYPES
+               or schema[p].type.is_text for p, _d, _nf in sspecs):
+            return None
+        if merged and agg is None:
+            return None  # the coordinator's re-aggregation needs partials
+        if out_proj is not None:
+            perm = out_proj[0]
+            tk = (kk, tuple((perm[p], d, nf) for p, d, nf in sspecs), merged)
+        if self._topk_off.get((skey, tk, versions)):
+            return None
+        return tk
 
     def _run_final(self, final_root, snap, versions, tk) -> ColumnBatch:
         root = final_root
@@ -903,35 +1368,25 @@ class DagRunner:
         ):
             out_proj = (tuple(e.index for e in root.exprs), root.schema)
             root = root.child
-        if not isinstance(root, L.Aggregate):
-            raise NotPorted("fused DAG rows mode (the final fragment "
-                            "ships rows, not partial aggregates)")
-        if any(a.distinct for a in root.aggs):
-            raise DagUnsupported("distinct agg")
-        for a in root.aggs:
-            if a.func not in ("sum", "count", "min", "max"):
-                raise DagUnsupported(a.func)
-        agg, root = root, root.child
-        if tk is not None:
-            # the reference's packable-key test (its packable types are
-            # the joinable ones): ranking needs integer sort keys, and
-            # TEXT ranks by collation, not code
-            schema = out_proj[1] if out_proj is not None else agg.schema
-            if any(
-                schema[p].type.id not in _JOINABLE_KEY_TYPES
-                or schema[p].type.is_text
-                for p, _d, _nf in tk[1]
-            ):
-                tk = None
-        if tk is not None:
-            raise NotPorted(
-                "fused DAG top-k modes (gseg, gsort, gagg, wgagg, "
-                "grouped_topk): the reference ranks this ORDER BY ... "
-                "LIMIT on the device")
+        agg = None
+        if isinstance(root, L.Aggregate):
+            if any(a.distinct for a in root.aggs):
+                raise DagUnsupported("distinct agg")
+            for a in root.aggs:
+                if a.func not in ("sum", "count", "min", "max"):
+                    raise DagUnsupported(a.func)
+            agg, root = root, root.child
         # the executed tree (inlined) keys the programs and the retry
         # state; the key holds literal values, as the reference's does
         # for every plan with a join
         skey = final_root.key()
+        tk = self._topk_spec(tk, agg, root, out_proj, skey, versions)
+        if agg is None:
+            if tk is not None:
+                raise NotPorted("fused DAG rows_topk mode (ORDER BY ... "
+                                "LIMIT over join rows, ranked on the device)")
+            raise NotPorted("fused DAG rows mode (the final fragment "
+                            "ships rows, not partial aggregates)")
         orientation = self._orientation_for(skey, root)
         arrays = _collect_arrays(self.fx, root)
         sig = _shapes_sig(arrays)
@@ -943,14 +1398,45 @@ class DagRunner:
         gcap = OPTIMISTIC_GROUP_CAP
         gcapkey = None
         while True:
+            # mode choice per orientation (one device, so groups are
+            # complete): gagg over a folded top join > gsort (co-sort
+            # with the unique build side) > gagg > gseg > the grouped
+            # mode, ranked (grouped_topk) while a top-k applies
+            gs = ga = None
+            if tk is not None:
+                ga_ok = _detect_gagg(agg)
+                if ga_ok and self._top_join_foldable(root, orientation,
+                                                     skey):
+                    ga = ga_ok
+                else:
+                    gs = _detect_gsort(agg, root, orientation)
+                    if gs is None:
+                        ga = ga_ok
+            if ga is not None and self._wgagg_leaf(root, agg) is not None:
+                raise NotPorted(
+                    "fused DAG wgagg mode (the gagg sort operands pass the "
+                    "window budget, OTB_DAG_WINDOW_BUDGET: the reference "
+                    "streams the probe in windows)")
+            bg = None
+            if tk is not None and gs is None and ga is None:
+                bg = _detect_build_group(agg, root, orientation)
+            if bg is not None:
+                raise NotPorted(
+                    "fused DAG gseg mode (grouped by the unique build key "
+                    "of the top join, ranked on the device)")
+            narrow = (gs is not None or ga is not None) and not \
+                self._narrow_off.get(skey)
+            robust = bool(self._robust_on.get(skey))
             fo = self._offs(skey)
             # versions: the mode gates read row counts at compile time
             fkey = ("final", skey, orientation, sig, fo, versions,
-                    gcap if grouped else None, packing)
+                    gcap if grouped else None, packing, tk,
+                    gs is not None, ga is not None, narrow, robust)
             entry = self._programs.get(fkey)
             if entry is None:
-                entry = self._compile_final(agg, root, orientation, fo,
-                                            gcap, packing)
+                entry = self._compile_final(
+                    agg, root, orientation, fo, gcap, packing, tk, gs,
+                    ga is not None, narrow, robust)
                 self._programs[fkey] = entry
                 while len(self._programs) > _PROGRAM_CACHE_MAX:
                     self._programs.pop(next(iter(self._programs)))
@@ -981,36 +1467,65 @@ class DagRunner:
                     # one sort per key part (the answer never depended
                     # on the packing)
                     packing = False
-                    self._packing[skey] = False
-                    while len(self._packing) > 512:
-                        self._packing.pop(next(iter(self._packing)))
+                    self._remember(self._packing, skey, False)
                     continue
                 orientation = self._on_flag(skey, orientation, flip, jinfo)
                 gcapkey = None  # keyed per orientation
                 continue
+            if mode != "grouped" and mode != "scalar" and not bool(outs[-1]):
+                # the ladder: i32 operands overflowed -> the wide program;
+                # negative sums broke gagg's run base -> segmented add
+                # scans; the ranking key's range overflowed -> ship every
+                # group unranked (correct, a bigger transfer)
+                if mode != "grouped_topk" and narrow:
+                    self._remember(self._narrow_off, skey)
+                elif mode == "gagg" and not robust:
+                    self._remember(self._robust_on, skey)
+                else:
+                    self._remember(self._topk_off, (skey, tk, versions))
+                    tk = None
+                continue
             self._orientations[skey] = orientation
+            if mode in ("gagg", "gsort"):
+                out_keys, out_vals, sel, _ok = outs
+                return self._apply_proj(
+                    self._collect_grouped(agg, out_keys, out_vals, sel),
+                    out_proj)
             if not grouped:
                 return self._collect_scalar(agg, outs)
-            out_keys, out_vals, gvalid, ngroups = outs
+            out_keys, out_vals, gvalid, ngroups = outs[:4]
             actual = int(ngroups)
             if actual >= gcap:
                 gcap = bucket_size(actual + 1)
                 continue
-            self._cap_store(gcapkey, gcap)
+            self._remember(self._caps, gcapkey, gcap)
             return self._apply_proj(
                 self._collect_grouped(agg, out_keys, out_vals, gvalid),
                 out_proj,
             )
 
-    def _compile_final(self, agg, root, orientation, fo, gcap, packing):
+    def _compile_final(self, agg, root, orientation, fo, gcap, packing,
+                       tk=None, gs=None, ga=False, narrow=False,
+                       robust=False):
+        """(program, compiler, mode, jinfo, join modes) of one mode:
+        gsort (``gs``), gagg (``ga``), or the scalar / grouped reduce,
+        grouped_topk where ``tk`` ranks its groups."""
         comp = ExprCompiler(self.fx.device)
         b = _Builder(self.fx, comp, orientation, root, runner=self, offs=fo)
+        if gs is not None:
+            program = self._compile_gsort(b, comp, agg, gs, tk, narrow)
+            return program, comp, "gsort", b.jinfo(), frozenset(b.modes)
         ev = b.build(root)
+        if ga:
+            program = self._compile_gagg(ev, comp, agg, root, orientation,
+                                         tk, narrow, robust)
+            return program, comp, "gagg", b.jinfo(), frozenset(b.modes)
         dids = _dids(root.schema)
         gfns = [comp.compile(g, dids) for g in agg.group_exprs]
         specs, afns = _agg_specs(comp, agg, dids)
         specs = tuple(specs)
         grouped = bool(agg.group_exprs)
+        nkeys = len(agg.group_exprs)
         # the packed single sort takes integer-family and TEXT (code)
         # keys; a run-time range flag retries with per-part sorting
         use_packed = packing and all(
@@ -1031,10 +1546,560 @@ class DagRunner:
                 keys, vals, mask, gcap, specs, use_packed)
             if pack_ok is not None:
                 flags = flags + [~pack_ok]
-            return (out_keys, out_vals, gvalid, ngroups), flags
+            if tk is None:
+                return (out_keys, out_vals, gvalid, ngroups), flags
+            # grouped_topk: rank the groups, keep k
+            kk, sspecs, _m = tk
+            sortcols = [out_keys[p] if p < nkeys else out_vals[p - nkeys]
+                        for p, _d, _nf in sspecs]
+            packed, ok = _pack_sort_cols(sortcols, sspecs, gvalid)
+            idx, sel = _topk_idx(packed, gvalid, kk)
+            out_keys = [_take(pair, idx) for pair in out_keys]
+            out_vals = [_take(pair, idx) for pair in out_vals]
+            return (out_keys, out_vals, sel, ngroups, ok), flags
 
-        mode = "grouped" if grouped else "scalar"
+        if not grouped:
+            mode = "scalar"
+        else:
+            mode = "grouped_topk" if tk is not None else "grouped"
         return program, comp, mode, b.jinfo(), frozenset(b.modes)
+
+    def _compile_gagg(self, ev, comp, agg, root, orientation, topk,
+                      narrow: bool, robust: bool):
+        """Grouped aggregation + top-k as ONE sort and prefix scans, no
+        join required. Rows sort by the run-time packed group key;
+        groups are runs; sums and counts are prefix differences against
+        the prefix at the run's head, min/max a segmented scan each;
+        ranking happens at run ENDS, where every aggregate is final, and
+        only k rows leave the device.
+
+        Group keys functionally determined by another grouped key
+        (through verified-unique joins, ``_fd_reduce``) stay out of the
+        packed key and are read back per output row through the row id
+        (the sort permutation); the kept keys decode straight out of the
+        sorted packed key, since the monotone packing inverts. ``narrow``
+        sorts an i32 key and carries i32 values while the run-time
+        ranges fit; ``robust`` sums by segmented add scans, for negative
+        values or a wrapping global prefix. Either overflow, and an
+        overflow of the ranking key, clears the returned ``ok``."""
+        dids = _dids(root.schema)
+        gfns = [comp.compile(g, dids) for g in agg.group_exprs]
+        specs, afns = _agg_specs(comp, agg, dids)
+        k, sspecs, _merged = topk
+        nkeys = len(agg.group_exprs)
+        kept, dropped = _fd_reduce(root, orientation, agg)
+        drop = set(dropped)
+        # ORDER BY group keys that were FD-dropped ride the sort as
+        # carried operands (their values are not in the packed key)
+        carried = sorted({p for p, _d, _nf in sspecs
+                          if p < nkeys and p in drop})
+        big = 2**62
+
+        def program(arrays, params, snap):
+            env, mask, n, flags = ev(arrays, params, snap)
+            dev = mask.device
+            keys = [_bcast(fn(env, params), n) for fn in gfns]
+            ok = torch.ones((), dtype=torch.bool, device=dev)
+            # pack the kept keys, remembering (mn, stride, r, rng) per key
+            # so values decode back out of the sorted key
+            stride0 = torch.ones((), dtype=torch.int64, device=dev)
+            prod0 = torch.ones((), dtype=torch.float64, device=dev)
+            packed = torch.zeros(n, dtype=torch.int64, device=dev)
+            decode_info = {}
+            for i in kept:
+                d, v = keys[i]
+                live = mask if v is None else (mask & v)
+                d64 = d.to(torch.int64)
+                mn = _reduce_or(torch.where(live, d64, big), torch.amin, big)
+                mx = _reduce_or(torch.where(live, d64, -big), torch.amax,
+                                -big)
+                mn = torch.minimum(mn, mx)
+                rngf = (mx.to(torch.float64) - mn.to(torch.float64)) + 1.0
+                ok = ok & (rngf < 2.0**62)
+                rng = torch.clamp(mx - mn + 1, min=1)
+                if v is None:
+                    x, r, rf = d64 - mn, rng, rngf
+                else:
+                    x = torch.where(v, d64 - mn, rng)
+                    r, rf = rng + 1, rngf + 1.0
+                decode_info[i] = (mn, stride0, r, rng)
+                packed = packed + x * stride0
+                stride0 = stride0 * r
+                prod0 = prod0 * torch.clamp(rf, min=1.0)
+            ok = ok & (prod0 < 2.0**62)
+            if narrow:
+                ok = ok & (prod0 < float(_I32_SENT))
+                ksent = _I32_SENT
+                skeyop = torch.where(mask, packed, _I32_SENT).to(torch.int32)
+            else:
+                ksent = big
+                skeyop = torch.where(mask, packed, big)
+
+            def narrow_val(dv):
+                nonlocal ok
+                if narrow and dv.dtype == torch.int64:
+                    ok = ok & _fits_i32(dv)
+                    return dv.to(torch.int32)
+                return dv
+
+            operands = []  # value operands, permuted with the sort key
+            val_pos: list = []
+            for spec, fn in zip(specs, afns):
+                if fn is None:
+                    val_pos.append(None)
+                    continue
+                d, v = _bcast(fn(env, params), n)
+                d = _widen(d)
+                vv = mask if v is None else (mask & v)
+                if spec in ("min", "max"):
+                    # identity padding so dead and NULL rows never win;
+                    # inside the narrow bound, so it trips no flag
+                    if d.dtype.is_floating_point:
+                        ident = float("inf") if spec == "min" else \
+                            float("-inf")
+                    else:
+                        mag = (_I32_SENT - 1) if narrow else big
+                        ident = mag if spec == "min" else -mag
+                    dv = narrow_val(torch.where(vv, d, ident))
+                else:
+                    dv = narrow_val(torch.where(vv, d, 0))
+                operands.append(dv)
+                vi = None
+                if v is not None or spec in ("min", "max"):
+                    operands.append(vv.to(torch.int8))
+                    vi = len(operands) - 1
+                val_pos.append((len(operands) - (2 if vi is not None
+                                                 else 1), vi))
+            carried_pos = {}
+            for p in carried:
+                d, v = keys[p]
+                operands.append(narrow_val(
+                    torch.where(mask, d.to(torch.int64), 0)))
+                ci, vi = len(operands) - 1, None
+                if v is not None:
+                    operands.append((mask & v).to(torch.int8))
+                    vi = len(operands) - 1
+                carried_pos[p] = (ci, vi)
+            salk, perm = torch.sort(skeyop, stable=False)
+            sops = [op[perm] for op in operands]
+            boundary = torch.ones(n, dtype=torch.bool, device=dev)
+            boundary[1:] = salk[1:] != salk[:-1]
+            end = torch.ones(n, dtype=torch.bool, device=dev)
+            end[:-1] = boundary[1:]
+            is_live = salk < ksent
+            live_end = end & is_live
+            runs = _runs(boundary)
+
+            def run_from_start(cs, own):
+                # the run's value at any position: the prefix less the
+                # prefix just before the run start (the reference carries
+                # that base by a cummax, the same where cs is monotone)
+                return cs - (cs - own)[runs[1]]
+
+            run_cnt = []
+
+            def get_run_cnt():
+                if not run_cnt:
+                    lv = is_live.to(torch.int64)
+                    run_cnt.append(run_from_start(torch.cumsum(lv, 0), lv))
+                return run_cnt[0]
+
+            out_vals_pos = []
+            for spec, vp in zip(specs, val_pos):
+                if spec == "count_star":
+                    c = get_run_cnt()
+                    out_vals_pos.append((c, c > 0))
+                    continue
+                oi, vi = vp
+                sval = sops[oi]
+                if vi is not None:
+                    lv = sops[vi].to(torch.int64)
+                    vcnt = run_from_start(torch.cumsum(lv, 0), lv)
+                    vvalid = vcnt > 0
+                else:
+                    vvalid = live_end
+                if spec == "count":
+                    c = vcnt if vi is not None else get_run_cnt()
+                    out_vals_pos.append((c, live_end))
+                    continue
+                if spec in ("min", "max"):
+                    out_vals_pos.append(
+                        (_widen(_seg_scan(sval, runs, spec)), vvalid))
+                    continue
+                sval = _widen(sval)
+                if robust:
+                    sv = _seg_scan(sval, runs, "add")
+                else:
+                    # the cumsum run base needs non-negative values and a
+                    # global prefix that does not wrap
+                    ok = ok & ~(_reduce_or(sval, torch.amin, 0) < 0)
+                    cs = torch.cumsum(sval, 0)
+                    if not cs.dtype.is_floating_point:
+                        ok = ok & (cs[-1] < big) & (cs[-1] >= 0)
+                    sv = run_from_start(cs, sval)
+                out_vals_pos.append((sv, vvalid))
+
+            def decode_key(i, src):
+                """(value, valid or None) of kept key i from packed keys
+                ``src`` (inverts the monotone packing)."""
+                mn, strd, r, rng = decode_info[i]
+                x = torch.remainder(
+                    torch.div(src.to(torch.int64), strd,
+                              rounding_mode="floor"), r)
+                d = x + mn
+                if keys[i][1] is None:
+                    return d, None
+                return torch.where(x == rng, 0, d), x != rng
+
+            stride = torch.ones((), dtype=torch.int64, device=dev)
+            prod = torch.ones((), dtype=torch.float64, device=dev)
+            packed_rank = torch.zeros(n, dtype=torch.int64, device=dev)
+            for p, desc, nf in reversed(sspecs):
+                if p >= nkeys:
+                    d64, v = out_vals_pos[p - nkeys]
+                    d64 = d64.to(torch.int64)
+                elif p in drop:
+                    ci, vi = carried_pos[p]
+                    d64 = sops[ci].to(torch.int64)
+                    v = None if vi is None else sops[vi] > 0
+                else:
+                    d64, v = decode_key(p, salk)
+                x, r, rf, okbit = _rank_encode(d64, v, desc, nf, live_end)
+                packed_rank = packed_rank + x * stride
+                stride = stride * r
+                prod = prod * torch.clamp(rf, min=1.0)
+                ok = ok & okbit
+            ok = ok & (prod < 2.0**62)
+
+            idx, sel = _topk_idx(packed_rank, live_end, k)
+            row_k = perm[idx] if drop else None
+            salk_k = salk[idx]
+            out_keys = []
+            for i, (d, v) in enumerate(keys):
+                if i in drop:
+                    dk = d[row_k]
+                    vk = sel if v is None else v[row_k]
+                else:
+                    dk, vk = decode_key(i, salk_k)
+                    dk = dk.to(d.dtype)
+                    if vk is None:
+                        vk = sel
+                out_keys.append((dk, vk))
+            out_vals = [_take(pair, idx) for pair in out_vals_pos]
+            return (out_keys, out_vals, sel, ok), flags
+
+        return program
+
+    def _compile_gsort(self, b, comp, agg, gs, topk, narrow: bool):
+        """Co-sort join + grouped aggregation + top-k in ONE program,
+        when grouping by the unique build key of the top join: the
+        concatenated [build keys, probe keys] sort by (key, is_probe),
+        so each run starts at its build row, and every per-group
+        quantity falls out of prefix scans — run sums by cumsum
+        differences, the run-end prefix read back at the build position,
+        min/max by one segmented scan. A join residual rides the sort:
+        build-side inputs forward-fill from each run's build row and
+        failing probe rows leave every reduction. Ranking happens at the
+        build positions, where build-side ORDER BY columns are local;
+        only k rows leave the device. ``narrow`` sorts i32 keys and carries i32
+        values while the run-time ranges fit."""
+        join = gs["join"]
+        build_right = gs["build_right"]
+        build_cols = gs["build_cols"]
+        bkey_col = gs["bkey_col"]
+        residual = gs["residual"]
+        left_fn = b.build(join.left)
+        right_fn = b.build(join.right)
+        lkfn = comp.compile(join.left_keys[0], _dids(join.left.schema))
+        rkfn = comp.compile(join.right_keys[0], _dids(join.right.schema))
+        jdids = _dids(join.schema)
+        resfn = (comp.compile(residual, jdids)
+                 if residual is not None else None)
+        res_cols = sorted(_expr_cols(residual)) if residual is not None \
+            else []
+        specs, afns = _agg_specs(comp, agg, jdids)
+        k, sspecs, _merged = topk
+        nkeys = len(agg.group_exprs)
+        nl = len(join.left.schema)
+        nr = len(join.right.schema)
+        # build-side ORDER BY columns: their slots are encoded on the
+        # build side before the sort and carried as one payload
+        bslot_cols = sorted({
+            build_cols[p] for p, _d, _nf in sspecs
+            if p < nkeys and build_cols[p] != bkey_col
+        })
+        big = 2**62
+
+        def program(arrays, params, snap):
+            lenv, lmask, ln, lflags = left_fn(arrays, params, snap)
+            renv, rmask, rn, rflags = right_fn(arrays, params, snap)
+            flags = lflags + rflags
+            lk = _bcast(lkfn(lenv, params), ln)
+            rk = _bcast(rkfn(renv, params), rn)
+            if build_right:
+                bk, benv, bmask, bn = rk, renv, rmask, rn
+                pk, penv, pmask, pn = lk, lenv, lmask, ln
+                poff, boff = 0, nl
+            else:
+                bk, benv, bmask, bn = lk, lenv, lmask, ln
+                pk, penv, pmask, pn = rk, renv, rmask, rn
+                poff, boff = nl, 0
+            dev = bmask.device
+            bkd, bkv = bk
+            pkd, pkv = pk
+            breal = bmask if bkv is None else (bmask & bkv)
+            preal = pmask if pkv is None else (pmask & pkv)
+            bk64, pk64 = bkd.to(torch.int64), pkd.to(torch.int64)
+            # ONE sort key: key * 2 + is_probe, so build rows lead their
+            # runs; dead rows ride in the sentinel run at the end
+            allk = torch.cat([torch.where(breal, bk64 * 2, big),
+                              torch.where(preal, pk64 * 2 + 1, big)])
+            kmax = torch.maximum(
+                _reduce_or(torch.where(breal, bk64, 0), torch.amax, 0),
+                _reduce_or(torch.where(preal, pk64, 0), torch.amax, 0))
+            kmin = torch.minimum(
+                _reduce_or(torch.where(breal, bk64, 0), torch.amin, 0),
+                _reduce_or(torch.where(preal, pk64, 0), torch.amin, 0))
+            ok = (kmax < 2**61) & (kmin > -(2**61))
+            if narrow:
+                ok = ok & (kmax < 2**29) & (kmin > -(2**29))
+                allk = torch.where(allk >= big, _I32_SENT, allk).to(
+                    torch.int32)
+            # probe-side aggregate inputs (build positions ride as zeros)
+            zero = (torch.zeros((), dtype=torch.int32, device=dev), None)
+            env_full = [zero] * (nl + nr)
+            for i, c in enumerate(penv):
+                env_full[poff + i] = c
+            operands = []  # permuted with the sort key
+            val_pos: list = []  # per agg: (operand idx, valid idx or None)
+            sents: list = []  # per agg: the min/max identity or None
+            for spec, fn in zip(specs, afns):
+                if fn is None:
+                    val_pos.append(None)
+                    sents.append(None)
+                    continue
+                d, v = _bcast(fn(env_full, params), pn)
+                d = _widen(d)
+                vv = preal if v is None else (preal & v)
+                dv = torch.where(vv, d, 0)
+                if narrow and dv.dtype == torch.int64:
+                    ok = ok & _fits_i32(dv)
+                    dv = dv.to(torch.int32)
+                if spec in ("min", "max"):
+                    # dead and NULL rows and the build positions carry
+                    # the identity, so the reverse segmented scan reduces
+                    # over live probe rows only
+                    if dv.dtype.is_floating_point:
+                        sent = float("inf") if spec == "min" else \
+                            float("-inf")
+                    elif dv.dtype == torch.int32:
+                        sent = _I32_SENT if spec == "min" else -(2**31)
+                    else:
+                        sent = big if spec == "min" else -big
+                    dv = torch.where(vv, dv, sent)
+                    bfill = torch.full((bn,), sent, dtype=dv.dtype,
+                                       device=dev)
+                    sents.append(sent)
+                else:
+                    bfill = torch.zeros(bn, dtype=dv.dtype, device=dev)
+                    sents.append(None)
+                operands.append(torch.cat([bfill, dv]))
+                vi = None
+                if v is not None:
+                    operands.append(torch.cat([
+                        torch.zeros(bn, dtype=torch.int8, device=dev),
+                        vv.to(torch.int8)]))
+                    vi = len(operands) - 1
+                val_pos.append((len(operands) - (2 if vi is not None
+                                                 else 1), vi))
+            # residual inputs ride the sort: probe-side columns are local
+            # at probe positions; build-side columns sit at each run's
+            # leading build row and forward-fill after the sort
+            res_pos: dict = {}  # col -> (op idx, valid idx, is_build)
+            pspan = range(poff, poff + len(penv))
+            for c in res_cols:
+                is_bld = c not in pspan
+                d, v = benv[c - boff] if is_bld else penv[c - poff]
+                m = bn if is_bld else pn
+                d = d.expand(m) if d.dim() == 0 else d
+                zd = torch.zeros(pn if is_bld else bn, dtype=d.dtype,
+                                 device=dev)
+                operands.append(torch.cat([d, zd] if is_bld else [zd, d]))
+                oi, vi = len(operands) - 1, None
+                if v is not None:
+                    v8 = (v.expand(m) if v.dim() == 0 else v).to(torch.int8)
+                    z8 = torch.zeros(pn if is_bld else bn, dtype=torch.int8,
+                                     device=dev)
+                    operands.append(torch.cat([v8, z8] if is_bld
+                                              else [z8, v8]))
+                    vi = len(operands) - 1
+                res_pos[c] = (oi, vi, is_bld)
+            # build ORDER BY slots: direction and NULLs encoded on the
+            # build side (ranges over real build rows, a superset of the
+            # matched groups, still order-preserving), packed with the
+            # build row index into ONE int64 payload
+            slot_rng: dict = {}
+            slot_stride: dict = {}
+            sb_acc = torch.zeros(bn, dtype=torch.int64, device=dev)
+            sb_stride = torch.ones((), dtype=torch.int64, device=dev)
+            sb_prod = torch.ones((), dtype=torch.float64, device=dev)
+            for bc in bslot_cols:
+                _p, desc, nf = next(
+                    s for s in sspecs
+                    if s[0] < nkeys and build_cols[s[0]] == bc)
+                d, v = _bcast(benv[bc], bn)
+                slot, r, rf, okbit = _rank_encode(
+                    d.to(torch.int64), v, desc, nf, breal, bound=2**61)
+                ok = ok & okbit
+                slot_rng[bc] = r
+                slot_stride[bc] = sb_stride
+                sb_acc = sb_acc + slot * sb_stride
+                sb_stride = sb_stride * r
+                sb_prod = sb_prod * torch.clamp(rf, min=1.0)
+            ok = ok & (sb_prod * float(max(bn, 1)) < 2.0**62)
+            operands.append(torch.cat([
+                sb_acc * bn + torch.arange(bn, device=dev),
+                torch.zeros(pn, dtype=torch.int64, device=dev)]))
+            sb_i = len(operands) - 1
+
+            salk, perm = torch.sort(allk, stable=False)
+            sops = [op[perm] for op in operands]
+            ksent = _I32_SENT if narrow else big
+            skey = salk >> 1  # the run key (an arithmetic shift)
+            M = bn + pn
+            boundary = torch.ones(M, dtype=torch.bool, device=dev)
+            boundary[1:] = skey[1:] != skey[:-1]
+            odd = (salk & 1) == 1
+            real = salk < ksent
+            isb = ~odd & real
+            isp = odd & real
+            # duplicate real build keys: adjacent build rows in one run
+            # (build rows sort first), the same verdict as _lookup's
+            flags = flags + [torch.any(isb[1:] & isb[:-1] & ~boundary[1:])]
+            end = torch.ones(M, dtype=torch.bool, device=dev)
+            end[:-1] = boundary[1:]
+            runs = _runs(boundary)
+            resid_ok = None
+            if resfn is not None:
+                env_res = [zero] * (nl + nr)
+                for c, (oi, vi, is_bld) in res_pos.items():
+                    rd = sops[oi]
+                    rv = None if vi is None else sops[vi]
+                    if is_bld:
+                        rd = _seg_scan(rd, runs, "first")
+                        if rv is not None:
+                            rv = _seg_scan(rv, runs, "first")
+                    env_res[c] = (rd, None if rv is None else rv > 0)
+                okd, okv = _bcast(resfn(env_res, params), M)
+                resid_ok = okd if okv is None else (okd & okv)
+            isp_ok = isp if resid_ok is None else (isp & resid_ok)
+
+            def run_total(cs):
+                # the value at a BUILD position (its run's first row,
+                # contributing nothing) is the run-end prefix less its
+                # own prefix (the reference carries the run-end prefix
+                # back by a reverse cummin, the same where cs is
+                # monotone). Probe rows of build-less runs never surface:
+                # their run has no build position.
+                return cs[runs[2]] - cs
+
+            run_cnt = []
+
+            def get_run_cnt():
+                if not run_cnt:
+                    run_cnt.append(run_total(torch.cumsum(
+                        isp_ok.to(torch.int64), 0)))
+                return run_cnt[0]
+
+            # group existence: without a residual every build row that
+            # is not its run's end has a probe row; with one, a group
+            # lives iff a probe row PASSED
+            has_probe = ~end if resid_ok is None else (get_run_cnt() > 0)
+            out_vals_pos = []
+            for spec, vp, sent in zip(specs, val_pos, sents):
+                if spec == "count_star":
+                    out_vals_pos.append((get_run_cnt(), has_probe))
+                    continue
+                oi, vi = vp
+                sval = sops[oi]
+                if resid_ok is not None:
+                    # failing probe rows leave every reduction
+                    sval = torch.where(isp & ~resid_ok,
+                                       0 if sent is None else sent, sval)
+                if vi is not None:
+                    vlive = isp_ok & (sops[vi] > 0)
+                    vcnt = run_total(torch.cumsum(vlive.to(torch.int64), 0))
+                    vvalid = vcnt > 0
+                else:
+                    vcnt = None
+                    vvalid = has_probe
+                if spec == "count":
+                    c = vcnt if vcnt is not None else get_run_cnt()
+                    out_vals_pos.append((c, has_probe))
+                    continue
+                if spec in ("min", "max"):
+                    # the full-run reduction lands at the run START: the
+                    # build row, where every per-group output lives
+                    out_vals_pos.append((_seg_scan(sval, runs, spec),
+                                         vvalid))
+                    continue
+                # sum: the reverse-cummin carry needs a monotone prefix;
+                # a negative value or a wrapping prefix clears ok
+                ok = ok & ~(_reduce_or(sval, torch.amin, 0) < 0)
+                if sval.dtype.is_floating_point:
+                    cs = torch.cumsum(sval, 0)
+                else:
+                    cs = torch.cumsum(sval, 0, dtype=torch.int64)
+                    ok = ok & (cs[-1] < big) & (cs[-1] >= 0)
+                out_vals_pos.append((run_total(cs), vvalid))
+
+            live = isb & has_probe
+            ssb = sops[sb_i]
+            nbd = max(bn, 1)
+            sslots = torch.div(ssb, nbd, rounding_mode="floor")
+            # rank at the build positions: build ORDER BY slots are
+            # local, run-level values were just computed
+            stride = torch.ones((), dtype=torch.int64, device=dev)
+            prod = torch.ones((), dtype=torch.float64, device=dev)
+            packed = torch.zeros(M, dtype=torch.int64, device=dev)
+            for p, desc, nf in reversed(sspecs):
+                if p < nkeys and build_cols[p] == bkey_col:
+                    d64, v = skey.to(torch.int64), None
+                elif p < nkeys:
+                    bc = build_cols[p]
+                    sl = torch.remainder(
+                        torch.div(sslots, slot_stride[bc],
+                                  rounding_mode="floor"), slot_rng[bc])
+                    packed = packed + sl * stride
+                    stride = stride * slot_rng[bc]
+                    prod = prod * torch.clamp(
+                        slot_rng[bc].to(torch.float64), min=1.0)
+                    continue
+                else:
+                    d64, v = out_vals_pos[p - nkeys]
+                    d64 = d64.to(torch.int64)
+                x, r, rf, okbit = _rank_encode(d64, v, desc, nf, live)
+                packed = packed + x * stride
+                stride = stride * r
+                prod = prod * torch.clamp(rf, min=1.0)
+                ok = ok & okbit
+            ok = ok & (prod < 2.0**62)
+
+            idx, sel = _topk_idx(packed, live, k)
+            brow_k = torch.remainder(ssb[idx], nbd)
+            out_keys = []
+            for gi in range(nkeys):
+                bc = build_cols[gi]
+                if bc == bkey_col:
+                    out_keys.append((skey[idx], sel))
+                else:
+                    d, v = _bcast(benv[bc], bn)
+                    out_keys.append((d[brow_k],
+                                     sel if v is None else v[brow_k]))
+            out_vals = [_take(pair, idx) for pair in out_vals_pos]
+            return (out_keys, out_vals, sel, ok), flags
+
+        return program
 
     def _apply_proj(self, batch, out_proj) -> ColumnBatch:
         """Re-apply an absorbed bare-column projection: reorder and
@@ -1080,6 +2145,28 @@ class DagRunner:
 # ---------------------------------------------------------------------------
 
 
+# the dead-row sentinel of an i32 ("narrow") sort key, and the bound
+# narrowed values must stay strictly inside
+_I32_SENT = 2**31 - 1
+
+
+def _fits_i32(x) -> torch.Tensor:
+    """0-d: every value of int64 ``x`` lies strictly inside +-(2^31 - 1)
+    (two-sided, not abs(): abs of INT64_MIN wraps negative)."""
+    return ((_reduce_or(x, torch.amax, 0) < _I32_SENT)
+            & (_reduce_or(x, torch.amin, 0) > -_I32_SENT))
+
+
+def _widen(d):
+    """Integer (and bool) values as int64, floats as float64."""
+    return d.to(torch.float64 if d.dtype.is_floating_point else torch.int64)
+
+
+def _take(pair, idx):
+    d, v = pair
+    return d[idx], (None if v is None else v[idx])
+
+
 def _shapes_sig(arrays) -> tuple:
     def leaves(x):
         if isinstance(x, torch.Tensor):
@@ -1092,6 +2179,17 @@ def _shapes_sig(arrays) -> tuple:
         tuple((tuple(a.shape), str(a.dtype)) for a in leaves(blk))
         for blk in arrays
     )
+
+
+def _contains_join(plan) -> bool:
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, L.Join):
+            return True
+        if isinstance(node, (L.Filter, L.Project, L.Aggregate)):
+            stack.append(node.child)
+    return False
 
 
 def _count_inner_joins(plan) -> int:

@@ -1,6 +1,7 @@
 """Spill-aware batch planner: size the radix hash-join table against a
-device-memory budget (the subset of the reference's
-opentenbase_tpu/plan/batchplan.py the fused DAG's radix join reads).
+device-memory budget, and the probe window of a bigger-than-budget
+grouped top-k (the subset of the reference's
+opentenbase_tpu/plan/batchplan.py the fused DAG reads).
 
 A hash join whose build side outgrows its budget splits into passes
 (src/backend/executor/nodeHash.c ExecHashIncreaseNumBatches in the
@@ -18,6 +19,7 @@ from dataclasses import dataclass
 
 # defaults mirror the historical env knobs in executor/fused_dag.py
 DEFAULT_EXCHANGE_BUDGET = 4_000_000_000
+DEFAULT_WINDOW_BUDGET = 6_000_000_000
 # a radix hash table is transient (freed after its join): allow it a
 # fraction of the budget so probe/build residency still fits beside it
 RADIX_TABLE_FRACTION = 4
@@ -100,3 +102,19 @@ def plan_radix_join(
         if table_bytes <= cap:
             return RadixPlan(partitions, bucket, passes, table_bytes)
     return None
+
+
+def probe_window_width(
+    rows_per_shard: int, per_row_bytes: int, shards: int, budget: int,
+    floor: int = 1024,
+) -> int:
+    """Power-of-two window width (dividing the power-of-two shard
+    capacity) for streaming a bigger-than-budget probe side: halve until
+    the window's sort operands fit, never below ``floor`` rows."""
+    width = rows_per_shard
+    while (
+        shards * width * per_row_bytes > budget
+        and width % 2 == 0 and width > floor
+    ):
+        width //= 2
+    return width

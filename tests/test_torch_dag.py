@@ -184,15 +184,15 @@ def test_single_table_aggregate_over_date_dim(ssb):
 
 @pytest.mark.parametrize("case", ["top-k", "rows"])
 def test_grouped_join_is_not_ported(ssb, case):
-    """What the DAG still refuses: a grouped join under ORDER BY ...
-    LIMIT on integer keys, which the reference ranks on the device in a
-    top-k mode, and a join with no aggregate (rows mode). The plain
-    grouped join runs (tests/test_torch_dag_grouped.py)."""
+    """What the DAG still refuses: join rows under ORDER BY ... LIMIT,
+    which the reference ranks on the device (rows_topk), and a join with
+    no aggregate (rows mode). The grouped join runs, ranked or not
+    (tests/test_torch_dag_grouped.py, tests/test_torch_dag_topk.py)."""
     _dist, _lo, _dd, _rs, _port, ps = ssb
     sql, match = {
-        "top-k": ("select d_year, sum(lo_discount) from lineorder, "
-                  "date_dim where lo_orderdate = d_datekey group by d_year "
-                  "order by d_year limit 10", "top-k modes"),
+        "top-k": ("select lo_quantity, d_year from lineorder, date_dim "
+                  "where lo_orderdate = d_datekey "
+                  "order by lo_quantity limit 10", "rows_topk mode"),
         "rows": ("select lo_quantity, d_year from lineorder, date_dim "
                  "where lo_orderdate = d_datekey", "rows mode"),
     }[case]

@@ -187,6 +187,43 @@ def test_kernel_path_taken(one_commit):
     assert sa.scan_agg.launches == before
 
 
+def test_topk_plan_tries_the_dag_first(one_commit):
+    """The reference's route order: a Limit(Sort(...)) coordinator plan
+    goes to the fused DAG before K1's route, even for one fragment that
+    K1's certifier would take. This small-domain grouped top-k runs in
+    the DAG's gagg mode in the reference (on a one-device mesh) and in
+    the port, with the same answer."""
+    import jax
+
+    from opentenbase_tpu.executor.fused import FusedExecutor as RefFused
+    from opentenbase_tpu.executor.fused_dag import DagRunner as RefDag
+    from opentenbase_tpu.plan.analyze import analyze_statement
+    from opentenbase_tpu.plan.distribute import distribute_statement
+    from opentenbase_tpu.plan.optimize import optimize_statement
+    from opentenbase_tpu.sql.parser import parse
+
+    ref, rs, port, ps_ = one_commit
+    sql = ("select l_returnflag, sum(l_quantity) from lineitem "
+           "group by l_returnflag order by 2 desc limit 2")
+    want = rs.query(sql)
+    assert rs._fused_via_dag
+    mesh1 = jax.sharding.Mesh(np.asarray(jax.devices("cpu")[:1]), ("dn",))
+    runner = RefDag(RefFused(ref.catalog, ref.stores, mesh=mesh1))
+    dp = distribute_statement(optimize_statement(
+        analyze_statement(parse(sql)[0], ref.catalog), ref.catalog),
+        ref.catalog)
+    assert len(dp.fragments) == 1
+    runner.run(dp, ref.gts.snapshot_ts(), rs._dicts_view(), [])
+    assert ps_.query(sql) == want
+    dag = port.fused_executor()._dag
+    assert dag is not None, "the port never reached the fused DAG"
+    assert dag.last_mode == runner.last_mode == "gagg"
+    assert ps_._fused_via_dag
+    # without the LIMIT the single fragment stays on K1's route
+    ps_.query(sql.replace(" limit 2", ""))
+    assert not ps_._fused_via_dag
+
+
 @pytest.mark.parametrize(
     "sql",
     [
