@@ -45,6 +45,14 @@ Phases, one line each; any failure raises and exits non-zero:
    UserIDs over ``--hits-rows`` rows (full-range ids: the grouped mode,
    every group shipped, as the reference). Each exact against numpy in
    the mode the CPU tests fixed, with K1's and K2's launches counted;
+5d. main path, fragment program and coordinator expressions: TPC-H Q1
+   as the spec writes it (three avgs, sum_charge) over phase 5c's
+   lineitem (its columns Q1 reads), and ClickBench Q0, Q1, Q2, Q6 and
+   Q7 over phase 5c's hits (AdvEngineID, ResolutionWidth and EventDate
+   added). Each exact against numpy on the route and rung the CPU tests
+   fixed (FRAGMENT_ROUTES: the kernel where the certifier takes the
+   fragment, else the fragment program's scalar or hash rung), K1
+   launched once on its route and never on the program's;
 6. timing, per path: median end-to-end ms per query, the layers each
    timed on its own, the device busy and idle share of single queries
    from a torch.profiler trace, kernel ms from CUDA events at the main
@@ -159,7 +167,9 @@ Q3_SPEC_DDL = (
     "o_orderdate date, o_shippriority int) distribute by roundrobin",
     "create table lineitem (l_orderkey bigint, "
     "l_extendedprice numeric(12,2), l_discount numeric(4,2), "
-    "l_shipdate date) distribute by roundrobin",
+    "l_shipdate date, l_quantity numeric(10,2), l_tax numeric(4,2), "
+    "l_receiptdate date, l_returnflag text, l_linestatus text) "
+    "distribute by roundrobin",
 )
 Q3_SPEC = (
     "select l_orderkey, sum(l_extendedprice*(1-l_discount)) as revenue, "
@@ -175,17 +185,35 @@ Q3_SPEC = (
 SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD")
 
 
+class Text:
+    """A TEXT column as indices into a small vocabulary (``vocab[idx]``
+    are the strings): ``encode_text`` codes it without sorting a
+    string per row."""
+
+    def __init__(self, vocab, idx):
+        self.vocab = np.asarray(vocab)
+        self.idx = np.asarray(idx)
+
+    def __len__(self) -> int:
+        return len(self.idx)
+
+
 def make_q3_spec(sf: float, seed: int = 42) -> dict:
-    """The columns TPC-H Q3 reads, as dbgen makes them (spec rev. 3,
-    section 4.2.3), at scale factor ``sf``: customer 150 000 x SF rows,
-    keys 1..N, the segment uniform over the five; orders 1 500 000 x SF
-    rows with SPARSE keys (the first 8 of every 32), a customer uniform
-    over the keys not divisible by 3, a date uniform over 1992-01-01 ..
+    """The lineitem columns TPC-H Q3 and Q1 read, and those of customer
+    and orders Q3 reads, as dbgen makes them (spec rev. 3, section
+    4.2.3), at scale factor ``sf``: customer 150 000 x SF rows, keys
+    1..N, the segment uniform over the five; orders 1 500 000 x SF rows
+    with SPARSE keys (the first 8 of every 32), a customer uniform over
+    the keys not divisible by 3, a date uniform over 1992-01-01 ..
     1998-08-02 and priority 0; 1-7 lines an order, quantity 1-50, the
     extended price the quantity times the part's retail price (90000 +
     (partkey / 10) mod 20001 + 100 (partkey mod 1000), in cents, over
-    200 000 x SF parts), discount 0.00-0.10 and a ship date 1-121 days
-    after the order."""
+    200 000 x SF parts), discount 0.00-0.10, a ship date 1-121 days
+    after the order, tax 0.00-0.08, a receipt date 1-30 days after the
+    ship date, the return flag 'R' or 'A' at random where the receipt
+    date is on or before 1995-06-17 (dbgen's CURRENTDATE) and 'N'
+    after it, the line status 'O' where the ship date is after
+    1995-06-17 and 'F' otherwise."""
     rng = np.random.default_rng(seed)
     n_c = max(int(150_000 * sf), 3)
     n_o = max(int(1_500_000 * sf), 1)
@@ -201,10 +229,22 @@ def make_q3_spec(sf: float, seed: int = 42) -> dict:
     n_l = len(oi)
     pk = rng.integers(1, n_p + 1, n_l)
     retail = 90_000 + (pk // 10) % 20_001 + 100 * (pk % 1000)
+    # the draws Q3's columns take come first, in their earlier order,
+    # so Q3's data does not change with the columns Q1 adds
+    segment = rng.integers(0, 5, n_c)
+    qty = rng.integers(1, 51, n_l)
+    disc = rng.integers(0, 11, n_l).astype(np.int64)
+    ship = (odate[oi] + rng.integers(1, 122, n_l)).astype(np.int32)
+    tax = rng.integers(0, 9, n_l).astype(np.int64)
+    receipt = (ship + rng.integers(1, 31, n_l)).astype(np.int32)
+    current = _day("1995-06-17")
+    # 'A' or 'R' where received by CURRENTDATE, else 'N' (RF_VOCAB)
+    flag = np.where(receipt <= current,
+                    np.where(rng.random(n_l) < 0.5, 0, 2), 1)
     return {
         "customer": {
             "c_custkey": np.arange(1, n_c + 1, dtype=np.int64),
-            "c_mktsegment": np.array(SEGMENTS)[rng.integers(0, 5, n_c)],
+            "c_mktsegment": np.array(SEGMENTS)[segment],
         },
         "orders": {
             "o_orderkey": okey,
@@ -214,13 +254,69 @@ def make_q3_spec(sf: float, seed: int = 42) -> dict:
         },
         "lineitem": {
             "l_orderkey": okey[oi],
-            "l_extendedprice": (rng.integers(1, 51, n_l) * retail).astype(
-                np.int64),
-            "l_discount": rng.integers(0, 11, n_l).astype(np.int64),
-            "l_shipdate": (odate[oi] + rng.integers(1, 122, n_l)).astype(
-                np.int32),
+            "l_extendedprice": (qty * retail).astype(np.int64),
+            "l_discount": disc,
+            "l_shipdate": ship,
+            "l_quantity": (qty * 100).astype(np.int64),
+            "l_tax": tax,
+            "l_receiptdate": receipt,
+            "l_returnflag": Text(RF_VOCAB, flag.astype(np.int8)),
+            "l_linestatus": Text(LS_VOCAB, (ship > current).astype(np.int8)),
         },
     }
+
+
+RF_VOCAB = ("A", "N", "R")
+LS_VOCAB = ("F", "O")
+# TPC-H rev. 3 Q1 (section 2.4.1) with its validation DELTA = 90: the
+# spec's `interval '90' day (3)`, in the interval syntax both parsers
+# take
+Q1_SPEC = (
+    "select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty, "
+    "sum(l_extendedprice) as sum_base_price, "
+    "sum(l_extendedprice*(1-l_discount)) as sum_disc_price, "
+    "sum(l_extendedprice*(1-l_discount)*(1+l_tax)) as sum_charge, "
+    "avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price, "
+    "avg(l_discount) as avg_disc, count(*) as count_order "
+    "from lineitem "
+    "where l_shipdate <= date '1998-12-01' - interval '90 days' "
+    "group by l_returnflag, l_linestatus "
+    "order by l_returnflag, l_linestatus"
+)
+
+
+def _avg32(total: int, scale: int, n: int) -> float:
+    """The reference's avg: CAST(sum AS FLOAT8) / CAST(count AS FLOAT8),
+    computed FLOAT8 being float32 on its device (a decimal sum divided
+    by its scale factor in float64 first)."""
+    return float(np.float32(np.float64(total) / scale) / np.float32(n))
+
+
+def expected_q1_spec(li) -> list:
+    """TPC-H Q1 in numpy over the same arrays: exact scaled-integer sums
+    per (return flag, line status) in string order, the averages as the
+    reference computes them (``_avg32``)."""
+    m = li["l_shipdate"] <= _day("1998-09-02")
+    rf, ls = li["l_returnflag"].idx, li["l_linestatus"].idx
+    rows = []
+    for fi in sorted(range(len(RF_VOCAB)), key=RF_VOCAB.__getitem__):
+        for si in sorted(range(len(LS_VOCAB)), key=LS_VOCAB.__getitem__):
+            g = m & (rf == fi) & (ls == si)
+            n = int(g.sum())
+            if not n:
+                continue
+            q, p = li["l_quantity"][g], li["l_extendedprice"][g]
+            d, tx = li["l_discount"][g], li["l_tax"][g]
+            sq, sp, sd = int(q.sum()), int(p.sum()), int(d.sum())
+            disc_price = p * (100 - d)
+            rows.append((
+                RF_VOCAB[fi], LS_VOCAB[si], sq / 100, sp / 100,
+                int(disc_price.sum()) / 10**4,
+                int((disc_price * (100 + tx)).sum()) / 10**6,
+                _avg32(sq, 100, n), _avg32(sp, 100, n), _avg32(sd, 100, n),
+                n,
+            ))
+    return rows
 
 
 def _key_pos(keys, probe):
@@ -256,7 +352,10 @@ def expected_q3(lineitem, orders, customer, building) -> list:
              int(orders["o_shippriority"][o])) for o in top]
 
 
-CLICKBENCH_DDL = "create table hits (UserID bigint) distribute by roundrobin"
+# hits' columns the queries here read, typed as ClickBench's create.sql
+CLICKBENCH_DDL = (
+    "create table hits (UserID bigint, AdvEngineID smallint, "
+    "ResolutionWidth smallint, EventDate date) distribute by roundrobin")
 # ClickBench queries.sql, the top-10 users by hits
 CLICKBENCH_Q = ("SELECT UserID, COUNT(*) FROM hits GROUP BY UserID "
                 "ORDER BY COUNT(*) DESC LIMIT 10")
@@ -278,7 +377,52 @@ def make_hits(n: int, users: int, seed: int = 42) -> dict:
                             side="right")
     rows = np.concatenate([np.arange(users), np.minimum(extra, users - 1)])
     rng.shuffle(rows)
-    return {"userid": ids[rows]}
+    # the scalar queries' columns, synthetic (drawn after the UserIDs,
+    # which stay as they were): AdvEngineID 0 on 99 % of the rows, else
+    # one of ADV_ENGINES with Zipf weights; ResolutionWidth one of
+    # SCREEN_WIDTHS with their weights; EventDate uniform over July 2013
+    adv = np.zeros(n, dtype=np.int32)
+    ad = rng.random(n) < 0.01
+    w = 1.0 / np.arange(1, len(ADV_ENGINES) + 1)
+    adv[ad] = np.array(ADV_ENGINES, np.int32)[
+        rng.choice(len(ADV_ENGINES), int(ad.sum()), p=w / w.sum())]
+    sw = np.array([wt for _w, wt in SCREEN_WIDTHS], np.float64)
+    width = np.array([w_ for w_, _wt in SCREEN_WIDTHS], np.int32)[
+        rng.choice(len(SCREEN_WIDTHS), n, p=sw / sw.sum())]
+    date = (_day("2013-07-01") + rng.integers(0, 31, n)).astype(np.int32)
+    return {"userid": ids[rows], "advengineid": adv,
+            "resolutionwidth": width, "eventdate": date}
+
+
+ADV_ENGINES = (2, 3, 4, 8, 12, 13, 16, 17, 21, 22, 27, 30, 32, 35, 41, 48,
+               52, 58)
+SCREEN_WIDTHS = ((1366, 30), (1920, 20), (1280, 10), (1440, 8), (1600, 6),
+                 (1024, 6), (1536, 5), (360, 5), (375, 3), (414, 3),
+                 (768, 2), (1680, 1), (2560, 1))
+# ClickBench queries.sql Q0, Q1, Q2, Q6 and Q7: single-table scalar and
+# small grouped aggregates (Q3, AVG(UserID), is left out: its sum over
+# full-range keys overflows int64 in the reference too)
+CLICKBENCH_SCALAR_Q = {
+    "ClickBench Q0": "SELECT COUNT(*) FROM hits",
+    "ClickBench Q1": "SELECT COUNT(*) FROM hits WHERE AdvEngineID <> 0",
+    "ClickBench Q2": ("SELECT SUM(AdvEngineID), COUNT(*), "
+                      "AVG(ResolutionWidth) FROM hits"),
+    "ClickBench Q6": "SELECT MIN(EventDate), MAX(EventDate) FROM hits",
+    "ClickBench Q7": ("SELECT AdvEngineID, COUNT(*) FROM hits "
+                      "WHERE AdvEngineID <> 0 GROUP BY AdvEngineID "
+                      "ORDER BY COUNT(*) DESC"),
+}
+# what answers each on the port (and on the reference, one device):
+# route, and the fragment program's rung (tests/test_torch_fragment.py
+# fixes the same at CPU sizes)
+FRAGMENT_ROUTES = {
+    "TPC-H Q1 (spec)": ("program", ("hash", 64)),
+    "ClickBench Q0": ("scan_agg", None),
+    "ClickBench Q1": ("scan_agg", None),
+    "ClickBench Q2": ("scan_agg", None),
+    "ClickBench Q6": ("program", ("scalar", None)),
+    "ClickBench Q7": ("program", ("hash", 64)),
+}
 
 
 def expected_clickbench(hits) -> list:
@@ -287,6 +431,33 @@ def expected_clickbench(hits) -> list:
     u, c = np.unique(hits["userid"], return_counts=True)
     top = np.lexsort((u, -c))[:10]
     return [(int(u[i]), int(c[i])) for i in top]
+
+
+def _date(day: int) -> str:
+    return str(np.datetime64(int(day), "D"))
+
+
+def expected_clickbench_scalar(hits, q: str) -> list:
+    """ClickBench ``q`` in numpy over the same arrays; AVG as the
+    reference computes an int column's: its partial sum is typed FLOAT8
+    (float64) and the count cast to FLOAT8 (float32), divided in
+    float64."""
+    adv = hits["advengineid"]
+    n = len(adv)
+    if q == "ClickBench Q0":
+        return [(n,)]
+    if q == "ClickBench Q1":
+        return [(int(np.count_nonzero(adv)),)]
+    if q == "ClickBench Q2":
+        s = int(hits["resolutionwidth"].sum(dtype=np.int64))
+        return [(int(adv.sum(dtype=np.int64)), n,
+                 float(np.float64(s) / np.float64(np.float32(n))))]
+    if q == "ClickBench Q6":
+        d = hits["eventdate"]
+        return [(_date(d.min()), _date(d.max()))]
+    u, c = np.unique(adv[adv != 0], return_counts=True)
+    order = np.lexsort((u, -c))
+    return [(int(u[i]), int(c[i])) for i in order]
 
 
 SSB_DDL = (
@@ -743,6 +914,15 @@ def encode_text(meta, name: str, arr):
     dic = meta.dictionaries.get(name)
     if dic is None:
         return arr
+    if isinstance(arr, Text):
+        # each vocabulary entry's first row, one compare a value
+        first = np.array([
+            int(np.argmax(arr.idx == i)) if (arr.idx == i).any()
+            else len(arr) for i in range(len(arr.vocab))])
+        codes = np.zeros(len(arr.vocab), dtype=np.int32)
+        seen = np.argsort(first)[:int((first < len(arr)).sum())]
+        codes[seen] = dic.encode(arr.vocab[seen].tolist())
+        return codes[arr.idx]
     vocab, first, inv = np.unique(arr, return_index=True,
                                   return_inverse=True)
     order = np.argsort(first)
@@ -1138,7 +1318,8 @@ def time_kernels(main: dict, card: str, rate: float) -> list:
     rows = []
     # the programs the main path compiled, in query order (Q6, Q1)
     for qname, (spec, _kinds, scan_cols) in zip(
-        ("Q6", "Q1"), fx._programs.values()
+        ("Q6", "Q1"), [v for k, v in fx._programs.items()
+                       if k[0] == "scan_agg"]
     ):
         cols = [dtab.columns[scan_cols[i]] for i in spec.cols]
         args = (cols, dtab.xmin, dtab.xmax, dtab.nrows_dev, snap, spec)
@@ -1618,9 +1799,13 @@ def run_q3_spec(args, device, card: str) -> dict:
         f"{k} {len(next(iter(v.values())))}" for k, v in tables.items())
         + f" rows round robin in 2 datanodes, numpy Q3; "
         f"{time.perf_counter() - t0:.3f} s", flush=True)
+    want_q1 = expected_q1_spec(tables["lineitem"])
     del tables
     out = run_topk_query("TPC-H Q3 (spec keys)", cluster, Q3_SPEC, want,
                          "gsort", ("fold",), 1, args.repeats, card)
+    # phase 6: Q1 as the spec writes it, over the same lineitem
+    out["fragment"] = {"TPC-H Q1 (spec)": run_fragment_query(
+        "TPC-H Q1 (spec)", cluster, Q1_SPEC, want_q1, args.repeats, card)}
     return out
 
 
@@ -1644,10 +1829,184 @@ def run_clickbench(args, device, card: str) -> dict:
           f"round robin in 2 datanodes, numpy top 10 (counts {counts}, "
           f"distinct: {len(set(counts)) == len(counts)}); "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    want_scalar = {q: expected_clickbench_scalar(hits, q)
+                   for q in CLICKBENCH_SCALAR_Q}
     del hits
-    return run_topk_query("ClickBench top-10 UserID", cluster, CLICKBENCH_Q,
-                          want, "grouped", (), 0, max(2, args.repeats // 2),
-                          card)
+    out = run_topk_query("ClickBench top-10 UserID", cluster, CLICKBENCH_Q,
+                         want, "grouped", (), 0, max(2, args.repeats // 2),
+                         card)
+    # phase 6: the scalar queries over the same hits
+    out["fragment"] = {
+        q: run_fragment_query(q, cluster, sql, want_scalar[q],
+                              args.repeats, card)
+        for q, sql in CLICKBENCH_SCALAR_Q.items()}
+    out["k1_rows"] = time_k1_at(cluster, {
+        q: CLICKBENCH_SCALAR_Q[q] for q, (route, _r) in
+        FRAGMENT_ROUTES.items() if route == "scan_agg"}, card)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: single-table aggregates off the kernel, coordinator expressions
+# ---------------------------------------------------------------------------
+
+
+def certified_route(cluster, sql: str) -> str:
+    """What the port's copy of the reference certifier decides for the
+    query's fragment on the resident arrays' bounds: "scan_agg" where
+    it takes the fragment, "program" where it does not."""
+    from opentenbase_tpu_torch.executor.fused import _match_partial_fragment
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+    from opentenbase_tpu_torch.plan import analyze_statement
+    from opentenbase_tpu_torch.plan.distribute import distribute_statement
+    from opentenbase_tpu_torch.plan.optimize import optimize_statement
+    from opentenbase_tpu_torch.sql import parse_one
+
+    cat = cluster.catalog
+    dplan = distribute_statement(optimize_statement(
+        analyze_statement(parse_one(sql), cat), cat), cat)
+    (frag,) = dplan.fragments
+    m = _match_partial_fragment(frag.root)
+    fx = cluster.fused_executor()
+    meta = cat.get(m.scan.table)
+    dtab = fx.cache.get(m.scan.table, meta, fx.node_stores, frag.nodes,
+                        columns=m.scan.columns)
+    if any(dtab.validity[c] is not None for c in m.scan.columns):
+        return "program"
+    try:
+        fx._scan_agg_plan(m, [dtab.col_maxabs.get(c) for c in
+                              m.scan.columns],
+                          [dtab.col_range.get(c) for c in m.scan.columns])
+    except sa.PallasUnsupported:
+        return "program"
+    return "scan_agg"
+
+
+def run_fragment_query(name: str, cluster, sql: str, want: list,
+                       repeats: int, card: str) -> dict:
+    """One query of phase 6: the first run exact against numpy on the
+    route and rung FRAGMENT_ROUTES names (which the certifier's verdict
+    on these arrays must confirm), K1's and K2's launches counted from 0
+    around it (K1 once on its route, never on the program's); then the
+    warm median, the memory, the layers and one traced run."""
+    import torch
+
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    route, rung = FRAGMENT_ROUTES[name]
+    if certified_route(cluster, sql) != route:
+        raise AssertionError(f"{name}: the certifier does not route it "
+                             f"to {route}")
+    s = cluster.session()
+    rp.radix_probe.launches = 0
+    sa.scan_agg.launches = 0
+    t1 = time.perf_counter()
+    got = s.query(sql)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1000
+    launches = {"scan_agg": sa.scan_agg.launches,
+                "radix_probe": rp.radix_probe.launches}
+    fx = cluster.fused_executor()
+    seen = (fx.last_route, fx.last_rung)
+    if got != want:
+        raise AssertionError(f"{name}: port {got} != numpy {want}")
+    if seen != (route, rung) or s._fused_via_dag:
+        raise AssertionError(f"{name}: route and rung {seen}, want "
+                             f"{(route, rung)}")
+    k1 = 1 if route == "scan_agg" else 0
+    if launches != {"scan_agg": k1, "radix_probe": 0}:
+        raise AssertionError(f"{name}: launches {launches}, want "
+                             f"scan_agg {k1}, radix_probe 0")
+    print(f"main path: {name} exact through {route} (rung {rung}; "
+          f"scan_agg launches {launches['scan_agg']}, radix_probe "
+          f"launches {launches['radix_probe']}; {len(got)} rows; first "
+          f"run incl. upload {first_ms:.3f} ms) {got[:2]}... [{card}]",
+          flush=True)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ts = []
+    for _ in range(repeats):
+        t1 = time.perf_counter()
+        got = s.query(sql)
+        ts.append((time.perf_counter() - t1) * 1000)
+        if got != want:
+            raise AssertionError(f"{name}: answer changed between runs")
+    e2e = statistics.median(ts)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"end to end: {name} median {e2e:.3f} ms over {repeats} runs "
+          f"({route}) [{card}]", flush=True)
+    print(f"memory: {name} resident {resident / 1e9:.3f} GB (the cluster's "
+          f"planes), peak over the warm runs {peak / 1e9:.3f} GB [{card}]",
+          flush=True)
+    layers = layer_breakdown(cluster, sql, repeats)
+    print(f"layers: {name} median ms " + ", ".join(
+        f"{k} {v:.3f}" for k, v in layers.items()) + f" [{card}]", flush=True)
+    tr = trace_query(s, sql, repeats)
+    idle = ("not measured (no device events in the trace)"
+            if tr["idle_share"] is None else f"{tr['idle_share']:.4f}")
+    top = "; ".join(f"{k} {v:.3f} ms" for k, v in tr["top"])
+    print(f"trace: {name} one query under torch.profiler, median of "
+          f"{repeats}: host {tr['wall_ms']:.3f} ms, device busy "
+          f"{tr['busy_ms']:.3f} ms, idle share {idle}; device events "
+          f"{len(tr['events'])} kinds, the most device time: {top} "
+          f"[{card}]", flush=True)
+    return {"e2e": e2e, "launches": launches, "layers": layers,
+            "trace": tr, "first_ms": first_ms, "route": seen,
+            "resident_gb": resident / 1e9, "peak_gb": peak / 1e9}
+
+
+def time_k1_at(cluster, queries: dict, card: str) -> list:
+    """K1's kernel, plain-version and bound times at the inputs the main
+    path hands it for each query (captured by one more warm run with the
+    wrapper swapped for a recorder that delegates to it), held equal to
+    the plain version there; as ``time_kernels`` for Q6 and Q1."""
+    import torch
+
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    kernel = sa.scan_agg
+    n0 = kernel.launches
+    rows = []
+    for q, sql in queries.items():
+        calls = []
+
+        def record(*a, **kw):
+            calls.append((a, kw))
+            return kernel(*a, **kw)
+
+        record.launches = 0  # the wrapper counts under its module name
+        sa.scan_agg = record
+        try:
+            cluster.session().query(sql)
+        finally:
+            sa.scan_agg = kernel
+        if len(calls) != 1:
+            raise AssertionError(f"{q}: expected one K1 launch, saw "
+                                 f"{len(calls)}")
+        (args, kw), = calls
+        ks, kc = kernel(*args, **kw)
+        ps, pc = sa.scan_agg_plain(*args)
+        torch.cuda.synchronize()
+        err = max(int((ks - ps).abs().max()) if ks.numel() else 0,
+                  int((kc - pc).abs().max()))
+        if err:
+            raise AssertionError(f"scan_agg {q}: kernel != plain")
+        ms = _cuda_ms(lambda: kernel(*args, **kw), 20)
+        plain_ms = _cuda_ms(lambda: sa.scan_agg_plain(*args), 3)
+        nbytes = sa.spec_bytes(*args)
+        bound = nbytes / rate * 1e3
+        rows.append({"query": q, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": "bytes",
+                     "bytes": nbytes, "max_abs_err": float(err)})
+        print(f"kernel: scan_agg {q} {ms:.4f} ms, {nbytes / ms / 1e6:.1f} "
+              f"GB/s, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes} bytes at {rate / 1e12:.2f} TB/s; "
+              f"{len(args[0])} columns; rows passed {int(kc.sum())}) "
+              f"[{card}]", flush=True)
+    kernel.launches = n0  # comparison and timing launches are not counted
+    return rows
 
 
 def capture_probe_inputs(ssb: dict, sql: str):
@@ -1788,7 +2147,11 @@ def main(argv=None) -> int:
                      **grouped_run["k1_launches"]},
         "radix_probe": {**k2_tpch, **ssb_launches},
     }
-    for q, r in topk.items():
+    # phase 6's queries ran in phase 5c's clusters
+    frag = {**topk["Q3 spec"].pop("fragment"),
+            **topk["ClickBench"].pop("fragment")}
+    k1_rows = topk["ClickBench"].pop("k1_rows")
+    for q, r in {**topk, **frag}.items():
         for k, n in r["launches"].items():
             path_launches[k][q] = n
 
@@ -1800,6 +2163,22 @@ def main(argv=None) -> int:
             "source": "opentenbase_tpu_torch/csrc/scan_agg.cu",
             "replaces": "opentenbase_tpu/ops/pallas_scan.py:317",
             "launches": launches_tpch[r["query"]],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "gbps": r["bytes"] / r["ms"] / 1e6,
+            "library_ms": None,
+            "path_launches": path_launches["scan_agg"],
+        })
+    for r in k1_rows:
+        kernels.append({
+            "name": f"scan_agg ({r['query']} shape)",
+            "route": "cuda",
+            "source": "opentenbase_tpu_torch/csrc/scan_agg.cu",
+            "replaces": "opentenbase_tpu/ops/pallas_scan.py:317",
+            "launches": frag[r["query"]]["launches"]["scan_agg"],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -1827,22 +2206,24 @@ def main(argv=None) -> int:
         })
     # the JSON counts each trace's device event kinds; the trace lines
     # of the TPC-H queries name them
+    late = {**topk, **frag}
     trace = {q: {**{k: v for k, v in tr.items()
                     if k not in ("events", "top")},
                  "event_kinds": len(tr["events"])}
              for q, tr in {**trace_tpch, **ssb_run["trace"],
                            **grouped_run["trace"],
-                           **{q: r["trace"] for q, r in topk.items()}}.items()}
+                           **{q: r["trace"] for q, r in late.items()}}.items()}
     print(json.dumps({"kernels": kernels,
                       "e2e_ms": {**e2e_tpch, **ssb_run["e2e"],
                                  **grouped_run["e2e"],
-                                 **{q: r["e2e"] for q, r in topk.items()}},
+                                 **{q: r["e2e"] for q, r in late.items()}},
                       "layers_ms": {**layers_tpch, **ssb_run["breakdown"],
                                     **grouped_run["breakdown"],
                                     **{q: r["layers"]
-                                       for q, r in topk.items()}},
+                                       for q, r in late.items()}},
+                      "routes": {q: r["route"] for q, r in frag.items()},
                       "memory_gb": {q: [r["resident_gb"], r["peak_gb"]]
-                                    for q, r in topk.items()},
+                                    for q, r in late.items()},
                       "trace": trace,
                       "rows": args.rows, "ssb_rows": args.ssb_rows,
                       "q3_sf": args.q3_sf, "hits_rows": args.hits_rows,

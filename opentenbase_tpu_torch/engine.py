@@ -4,8 +4,9 @@ reference's opentenbase_tpu/engine.py).
 Statements: ``create table ... distribute by
 roundrobin|shard(...)|replication``, ``insert ... values`` of literals,
 and ``select`` through analyze -> optimize -> distribute -> the device
-(the fused single fragment, or the fused DAG for joins) -> the
-coordinator merge. Anything else raises NotPorted.
+(a single fragment through the scan-aggregate kernel or the fragment
+program, joins through the fused DAG) -> the coordinator merge.
+Anything else raises NotPorted.
 
 Commit timestamps come from ``cluster.gts``, a monotone in-process
 counter in place of the reference's GTS: a write commits at the next

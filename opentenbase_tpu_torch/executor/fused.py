@@ -3,22 +3,28 @@ opentenbase_tpu/executor/fused.py).
 
 All shards of a table live stacked on the device as [S, Rmax] planes per
 column (a TEXT column as its int32 dictionary codes) plus the xmin/xmax
-commit-timestamp planes; the shard axis is the
-leading tensor dimension, where the reference spread it over a device
-mesh. An eligible fragment (scan -> filter/project chain -> partial
-aggregate, gathered to the coordinator) runs as one launch of the
-scan-aggregate kernel (ops/scan_agg.py) and yields the per-shard partial
-rows the coordinator merges. Any other plan goes to ``dag_output``, the
-fused DAG (executor/fused_dag.py), which runs joins under a scalar
-or grouped aggregate over the same cached planes.
+commit-timestamp planes; the shard axis is the leading tensor
+dimension, where the reference spread it over a device mesh. A fragment
+of the shape scan -> filter/project chain -> partial aggregate,
+gathered to the coordinator, runs as one launch of the scan-aggregate
+kernel (ops/scan_agg.py) where the kernel's certifier takes it, and
+otherwise through the fragment program: eager torch over the shard
+planes flattened to one row axis (the reference's one-device form of its
+XLA-fused program) — the live mask, the filter/project chain over
+(data, valid) pairs, the visible rows compacted, then a scalar reduce,
+hash-addressed grouping at 64 and then 1024 slots, or sort-based
+grouping, the reference's ladder. Any other plan goes to ``dag_output``,
+the fused DAG (executor/fused_dag.py), which runs joins under an
+aggregate over the same cached planes.
 
 Ported: the full upload of ``DeviceCache`` for any table (all shards, or
 one replica of a replicated table; compact [S, 1] MVCC planes when every
 shard is uniform), the host column stats the certifier reads, the
-fragment matcher, the kernel route of ``fragment_output`` and
+fragment matcher, ``fragment_output`` (the kernel, then the program) and
 ``dag_output``. Not ported: delta-tail uploads, MVCC replay, zone
-windows, chunked scans and the XLA-fused program — a fragment of the
-kernel's shape that the kernel does not take raises NotPorted.
+windows and chunked scans. Where the reference's program declines and
+its host executor answers (min/max over TEXT, the sort mode past its
+capacity), the port raises NotPorted.
 """
 
 from __future__ import annotations
@@ -31,12 +37,23 @@ import numpy as np
 import torch
 
 from opentenbase_tpu_torch.errors import NotPorted
+from opentenbase_tpu_torch.ops import agg as agg_ops
 from opentenbase_tpu_torch.ops import scan_agg as sa
-from opentenbase_tpu_torch.ops.filter import bucket_size
+from opentenbase_tpu_torch.ops.expr import ExprCompiler, resolve_param
+from opentenbase_tpu_torch.ops.filter import (
+    bucket_size,
+    compact_indices,
+    gather_cols,
+)
 from opentenbase_tpu_torch.plan import logical as L
+from opentenbase_tpu_torch.plan import texpr as E
 from opentenbase_tpu_torch.plan.distribute import Fragment
 from opentenbase_tpu_torch.storage.column import Column
 from opentenbase_tpu_torch.storage.table import ColumnBatch
+
+# slots of the fragment program's largest hash rung (the reference's
+# DEFAULT_GROUP_CAP); the first rung takes min(64, this)
+DEFAULT_GROUP_CAP = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +251,11 @@ def _match_partial_fragment(root: L.LogicalPlan) -> Optional[_FusablePartial]:
 
 
 class FusedExecutor:
-    """Runs eligible partial-aggregate fragments through the scan-aggregate
-    kernel, and join plans through the fused DAG, on ``device``."""
+    """Runs partial-aggregate fragments through the scan-aggregate kernel
+    or the fragment program, and join plans through the fused DAG, on
+    ``device``. ``last_route`` names what answered the last fragment
+    ("scan_agg", "program" or "dag"), and ``last_rung`` the program's
+    rung: ("scalar", None), ("hash", slots) or ("sort", capacity)."""
 
     def __init__(self, catalog, node_stores, device: torch.device):
         self.catalog = catalog
@@ -244,6 +264,8 @@ class FusedExecutor:
         self.cache = DeviceCache(self.device)
         self._programs: dict = {}
         self._dag = None
+        self.last_route: Optional[str] = None
+        self.last_rung: Optional[tuple] = None
 
     def dag_output(self, dplan, snapshot_ts) -> tuple[int, ColumnBatch]:
         """Run a whole plan — joins under an aggregate — through the
@@ -253,18 +275,19 @@ class FusedExecutor:
 
         if self._dag is None:
             self._dag = DagRunner(self)
-        return self._dag.run(dplan, snapshot_ts)
+        out = self._dag.run(dplan, snapshot_ts)
+        self.last_route, self.last_rung = "dag", None
+        return out
 
     def fragment_output(
-        self, frag: Fragment, snapshot_ts: Optional[int],
+        self, frag: Fragment, snapshot_ts: Optional[int]
     ) -> Optional[ColumnBatch]:
         """The fragment's gathered output batch (what the motion would
         deliver to the coordinator), or None when the fragment is not a
         scan -> filter/project -> partial aggregate over every shard of
         its table: the caller then hands the plan to ``dag_output``, as
-        the reference does. Raises NotPorted for a fragment of that shape
-        the kernel does not take (the reference runs it through its
-        XLA-fused program, which is not ported)."""
+        the reference does. The kernel answers where its certifier takes
+        the fragment, the fragment program otherwise."""
         if frag.motion != "gather":
             return None
         m = _match_partial_fragment(frag.root)
@@ -277,20 +300,178 @@ class FusedExecutor:
             m.scan.table, meta, self.node_stores, frag.nodes,
             columns=m.scan.columns,
         )
-        for c in m.scan.columns:
-            if dtab.validity[c] is not None:
-                raise NotPorted(f"NULL-able scan column {c!r}")
-        return self._scan_agg(m, dtab, snapshot_ts)
+        out = self._scan_agg(m, dtab, snapshot_ts)
+        if out is not None:
+            self.last_route, self.last_rung = "scan_agg", None
+            return out
+        return self._run_program(m, dtab, snapshot_ts)
+
+    # -- the fragment program (the reference's XLA-fused program) ----------
+    def _run_program(self, m, dtab, snapshot_ts) -> ColumnBatch:
+        """The reference's ``_run_xla_fragment``: the fragment's visible
+        rows, then its grouping ladder — hash at min(64, cap) slots, hash
+        at ``cap``, then sort-based grouping — where a rung whose slots
+        collide hands over to the next. The rows are computed once: only
+        the slots and the reduction depend on the rung."""
+        rows, specs, param_specs = self._compile(m)
+        # compiled on every call, so this query's literals (and the codes
+        # of its TEXT constants, which move as dictionaries grow) are the
+        # ones bound: eager torch has no compile cost for a cache to save,
+        # the reference's jit does
+        params = tuple(
+            resolve_param(s, self.device, self.catalog.dictionary)
+            for s in param_specs
+        )
+        snap = snapshot_ts if snapshot_ts is not None else 2**61
+        keys, vals, k = rows(dtab, m.scan.columns, snap, params)
+        if not keys:
+            outs = agg_ops.scalar_reduce(
+                vals, torch.ones(k, dtype=torch.bool, device=self.device),
+                specs)
+            batch, _ = self._collect(
+                m, [], [(d.reshape(1), v.reshape(1)) for d, v in outs],
+                torch.ones(1, dtype=torch.bool, device=self.device), None)
+            self.last_route, self.last_rung = "program", ("scalar", None)
+            return batch
+        for cap in (min(64, DEFAULT_GROUP_CAP), DEFAULT_GROUP_CAP):
+            slot, _ngroups, collision = agg_ops.hash_slots(keys, None, cap)
+            out_keys, out_vals, gvalid = agg_ops.group_reduce(
+                keys, vals, None, slot, cap, specs)
+            batch, collided = self._collect(m, out_keys, out_vals, gvalid,
+                                            collision)
+            if not collided:
+                self.last_route, self.last_rung = "program", ("hash", cap)
+                return batch
+        cap = DEFAULT_GROUP_CAP
+        perm, seg, ngroups = agg_ops.group_ids(keys, None)
+        out_keys, out_vals, gvalid = agg_ops.group_reduce(
+            keys, vals, perm, seg, cap, specs)
+        batch, ngroups = self._collect(m, out_keys, out_vals, gvalid,
+                                       ngroups)
+        if ngroups >= cap:
+            raise NotPorted(
+                f"group capacity overflow in the sort mode ({cap} groups; "
+                "the reference answers on its host executor)")
+        self.last_route, self.last_rung = "program", ("sort", cap)
+        return batch
+
+    def _compile(self, m: _FusablePartial):
+        """(rows, specs, param specs) for the fragment (the part of the
+        reference's ``_compile`` before its grouping): ``rows(dtab,
+        scan_columns, snap, params)`` returns the group keys and the
+        aggregates' arguments as (data, valid) pairs over the visible
+        rows, compacted, and their number."""
+        comp = ExprCompiler(self.device)
+        step_fns = []
+        cur_schema = m.scan.schema
+        for step in m.steps:
+            dids = [c.dict_id for c in cur_schema]
+            if isinstance(step, L.Filter):
+                step_fns.append(("filter", comp.compile(step.predicate,
+                                                        dids)))
+            else:
+                want = [c.dict_id for c in step.schema]
+                step_fns.append(("project", [
+                    comp.compile(e, dids,
+                                 (w or None) if e.type.is_text else None)
+                    for e, w in zip(step.exprs, want)
+                ]))
+            cur_schema = step.schema
+        dids = [c.dict_id for c in cur_schema]
+        gfns = [comp.compile(g, dids) for g in m.agg.group_exprs]
+        specs: list = []
+        afns: list = []
+        for a in m.agg.aggs:
+            if a.func == "count" and a.arg is None:
+                specs.append("count_star")
+                afns.append(None)
+                continue
+            if a.func not in ("sum", "count", "min", "max"):
+                raise NotPorted(f"aggregate {a.func} in the fragment "
+                                "program")
+            if a.func in ("min", "max") and a.arg.type.is_text:
+                # codes follow insertion order, not collation: the
+                # reference's host executor ranks them
+                raise NotPorted(f"{a.func} over TEXT on the device (the "
+                                "reference answers it on its host "
+                                "executor)")
+            specs.append(a.func)
+            afns.append(comp.compile(a.arg, dids))
+        dev = self.device
+        # the columns the aggregate reads: only these are compacted
+        used = {
+            x.index
+            for e in (*m.agg.group_exprs,
+                      *(a.arg for a in m.agg.aggs if a.arg is not None))
+            for x in E.walk(e) if isinstance(x, E.Col)
+        }
+
+        def rows(dtab, scan_columns, snap, params):
+            S, rmax = len(dtab.nrows), dtab.rmax
+            n = S * rmax
+            live = (
+                (torch.arange(rmax, device=dev)[None, :]
+                 < dtab.nrows_dev[:, None])
+                & (dtab.xmin <= snap) & (snap < dtab.xmax)
+            ).reshape(n)
+            env = []
+            for c in scan_columns:
+                v = dtab.validity[c]
+                env.append((dtab.columns[c].reshape(n),
+                            None if v is None else v.reshape(n)))
+            mask = live
+            for kind, fn in step_fns:
+                if kind == "filter":
+                    d, v = fn(env, params)
+                    keep = d if v is None else (d & v)
+                    mask = mask & keep.expand(n)
+                else:
+                    env = [_bcast(f(env, params), n) for f in fn]
+            # the aggregate reads only the visible rows, compacted: no
+            # invisible row reaches a scatter (they would all contend
+            # for the overflow slot)
+            idx = compact_indices(mask)
+            env = [gather_cols([c], idx)[0] if i in used else None
+                   for i, c in enumerate(env)]
+            k = idx.shape[0]
+            keys = [_bcast(fn(env, params), k) for fn in gfns]
+            vals = [None if fn is None else _bcast(fn(env, params), k)
+                    for fn in afns]
+            return keys, vals, k
+
+        return rows, tuple(specs), tuple(comp.params)
+
+    def _collect(self, m, out_keys, out_vals, gvalid, flag):
+        """(the program's groups as partial rows, ``flag`` on the host):
+        the reference's ``_collect``. ``flag`` is the hash rung's
+        collision bit or the sort rung's group count, fetched with the
+        rows in one transfer."""
+        pairs = list(out_keys) + list(out_vals)
+        host = _to_host([flag, gvalid]
+                        + [x for pair in pairs for x in pair])
+        fl = None if flag is None else host[0].item()
+        keep = np.nonzero(host[1].reshape(-1))[0]
+        cols: dict[str, Column] = {}
+        for i, oc in enumerate(m.agg.schema):
+            d, v = host[2 + 2 * i], host[3 + 2 * i]
+            dd = d.reshape(-1)[keep].astype(oc.type.np_dtype)
+            vv = None if v is None else v.reshape(-1)[keep]
+            dic = self.catalog.dictionary(oc.dict_id) if oc.dict_id else None
+            cols[oc.name] = Column(oc.type, dd, vv, dic)
+        return ColumnBatch(cols, len(keep)), fl
 
     # -- scan-aggregate kernel path (ops/scan_agg.py) ----------------------
     def _scan_agg(
         self, m: _FusablePartial, dtab: DeviceTable, snapshot_ts
-    ) -> ColumnBatch:
+    ) -> Optional[ColumnBatch]:
         """Route a filter+SUM/COUNT fragment — ungrouped, or grouped by
-        small-domain keys (TPC-H Q1's shape) — through the kernel.
-        Eligibility is the reference certifier's, re-run against the
-        current column stats on every call (data growth can push values
-        past its bounds)."""
+        small-domain keys (TPC-H Q1's shape) — through the kernel, or
+        return None where it does not apply: a NULL-able scan column, or
+        a fragment outside the reference certifier's subset, re-run
+        against the current column stats on every call (data growth can
+        push values past its bounds)."""
+        if any(dtab.validity[c] is not None for c in m.scan.columns):
+            return None
         col_bounds = [dtab.col_maxabs.get(c) for c in m.scan.columns]
         col_ranges = [dtab.col_range.get(c) for c in m.scan.columns]
         try:
@@ -300,15 +481,13 @@ class FusedExecutor:
             key = ("scan_agg", m.agg.key(), sig)
             compiled = self._programs.get(key)
             if compiled is None:
-                compiled = self._compile(preds, agg_args, group_plan) + (
+                compiled = self._compile_spec(preds, agg_args,
+                                              group_plan) + (
                     tuple(m.scan.columns),
                 )
                 self._programs[key] = compiled
-        except sa.PallasUnsupported as e:
-            raise NotPorted(
-                f"aggregate outside the kernel's certified subset ({e}); "
-                "the reference runs it through its XLA-fused program"
-            ) from None
+        except sa.PallasUnsupported:
+            return None  # outside the certified subset: the program runs
         spec, specs, _scan_cols = compiled
         decoders, n_groups = (
             (group_plan[1], group_plan[2]) if group_plan else (None, 1)
@@ -319,7 +498,7 @@ class FusedExecutor:
             cols, dtab.xmin, dtab.xmax, dtab.nrows_dev, snap, spec,
             max_nrows=int(dtab.nrows.max(initial=0)),
         )
-        sums, counts = sums.cpu().numpy(), counts.cpu().numpy()
+        sums, counts = _to_host([sums, counts])
         S = len(dtab.nrows)
         if decoders is None:
             return self._scalar_batch(m, sums[:, 0], counts[:, 0], specs, S)
@@ -424,7 +603,7 @@ class FusedExecutor:
             sig_parts.append(f"sum{len(dec)}")
         return preds, agg_args, group_plan, tuple(sig_parts)
 
-    def _compile(self, preds, agg_args, group_plan):
+    def _compile_spec(self, preds, agg_args, group_plan):
         """(ScanAggSpec, per-agg output kinds) for a certified plan."""
         specs = ["count_star" if a is None else "sum" for a in agg_args]
         values = [a for a in agg_args if a is not None]
@@ -432,3 +611,35 @@ class FusedExecutor:
         if group_plan is not None:
             key_expr, _decoders, n_groups = group_plan
         return sa.compile_spec(preds, key_expr, values, n_groups), specs
+
+
+def _bcast(kv, n: int):
+    """A (data, valid) pair at ``n`` rows: a 0-d constant broadcasts."""
+    d, v = kv
+    if d.dim() == 0:
+        d = d.expand(n)
+    if v is not None and v.dim() == 0:
+        v = v.expand(n)
+    return (d, v)
+
+
+def _to_host(tensors: list) -> list:
+    """numpy copies of ``tensors`` (None stays None) from one
+    device-to-host transfer: their bytes ride one buffer, so the host
+    waits for the device once."""
+    flat = [None if t is None else t.reshape(-1).contiguous()
+            for t in tensors]
+    live = [t for t in flat if t is not None]
+    if not live:
+        return flat
+    buf = torch.cat([t.view(torch.uint8) for t in live]).cpu().numpy()
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        if t is None:
+            out.append(None)
+            continue
+        nb = f.numel() * f.element_size()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(buf[off:off + nb].view(dtype).reshape(t.shape).copy())
+        off += nb
+    return out

@@ -3,12 +3,20 @@ opentenbase_tpu/executor/local.py).
 
 After the fused fragment ran on the device, the coordinator merges the
 gathered per-shard partial rows: ``RemoteSource -> Aggregate (merge) ->
-Project -> Sort -> Limit``. The inputs are a few rows per shard (or per
-group), so this runs in numpy on the host. TEXT values stay dictionary
-codes: they group on codes, and ORDER BY, min and max work on each
-code's rank in the sorted dictionary (codes follow insertion order, not
-collation). Operators and expressions outside this subset raise
-NotPorted.
+Project -> Sort -> Limit``, with Filter for HAVING. The inputs are a few
+rows per shard (or per group), so the operators run in numpy on the
+host; every expression beyond a column reference (``avg``'s sum / count,
+HAVING predicates, computed sort keys) is compiled by the port's
+``ExprCompiler`` and run over CPU tensors, as the reference runs its own
+compiler on jnp, so the device and the coordinator share one set of
+semantics (FLOAT8 computed in float32, division by zero NULL).
+
+TEXT values stay dictionary codes: they group on codes, and ORDER BY,
+min and max work on each code's rank in the sorted dictionary (codes
+follow insertion order, not collation). Float group keys group by the
+reference's ``float_key_parts`` (every NaN one group, -0.0 with 0.0);
+ORDER BY puts NaN last in both directions, as the reference's stable
+argsort passes do. Operators outside this subset raise NotPorted.
 """
 
 from __future__ import annotations
@@ -16,11 +24,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from opentenbase_tpu_torch import types as t
 from opentenbase_tpu_torch.catalog.catalog import Catalog
 from opentenbase_tpu_torch.errors import NotPorted
 from opentenbase_tpu_torch.ops import LITERAL_DICT
+from opentenbase_tpu_torch.ops.expr import ExprCompiler, resolve_param
 from opentenbase_tpu_torch.ops.filter import bucket_size
 from opentenbase_tpu_torch.plan import logical as L
 from opentenbase_tpu_torch.plan import texpr as E
@@ -81,7 +91,10 @@ class LocalExecutor:
                 used[name] = used.get(name, 0) + 1
                 name = f"{name}_{used[oc.name]}"
             ty = oc.type
-            dic = self.catalog.dictionary(oc.dict_id) if oc.dict_id else None
+            if oc.dict_id:
+                dic = self.catalog.dictionary(oc.dict_id)
+            else:  # computed TEXT codes index the literal pool
+                dic = self.catalog.literals if ty.is_text else None
             cols[name] = Column(ty, np.asarray(data).astype(ty.np_dtype),
                                 valid, dic)
         return ColumnBatch(cols, b.n)
@@ -105,38 +118,67 @@ class LocalExecutor:
         ]
         return HostBatch(tuple(plan.schema), cols, batch.nrows)
 
-    @staticmethod
-    def _col(e: E.TExpr, child: HostBatch):
-        if not isinstance(e, E.Col):
-            raise NotPorted(
-                f"coordinator expression {type(e).__name__} (only column "
-                "references are ported)"
-            )
-        return child.cols[e.index]
+    # -- expressions: the port's compiler over CPU tensors ------------------
+    def _bind(self, exprs, schema, want_dids=None):
+        """Compile ``exprs`` over ``schema`` with one shared param list
+        (the reference's ``_bind``): (functions, bound params)."""
+        comp = ExprCompiler("cpu")
+        dids = [c.dict_id for c in schema]
+        fns = []
+        for i, e in enumerate(exprs):
+            want = None
+            if want_dids is not None and e.type.is_text:
+                want = want_dids[i] or LITERAL_DICT
+            fns.append(comp.compile(e, dids, want))
+        params = tuple(resolve_param(s, "cpu", self.catalog.dictionary)
+                       for s in comp.params)
+        return fns, params
+
+    def _eval_exprs(self, exprs, child: HostBatch, want_dids=None) -> list:
+        """Each expression over ``child``'s rows as a numpy (data, valid)
+        pair. A plain column reference passes through; anything else
+        runs through ``_bind``."""
+        out: list = [None] * len(exprs)
+        todo = []
+        for i, e in enumerate(exprs):
+            want = None
+            if want_dids is not None and e.type.is_text:
+                want = want_dids[i] or LITERAL_DICT
+            if isinstance(e, E.Col) and (
+                want is None
+                or (child.schema[e.index].dict_id or LITERAL_DICT) == want
+            ):
+                out[i] = child.cols[e.index]
+            else:
+                todo.append(i)
+        if not todo:
+            return out
+        fns, params = self._bind(
+            [exprs[i] for i in todo], child.schema,
+            None if want_dids is None else [want_dids[i] for i in todo])
+        env = [(_tensor(d), None if v is None else _tensor(v))
+               for d, v in child.cols]
+        n = child.n
+        for i, fn in zip(todo, fns):
+            d, v = fn(env, params)
+            out[i] = (d.expand(n).contiguous().numpy(),
+                      None if v is None else v.expand(n).contiguous().numpy())
+        return out
 
     def _eval_project(self, plan: L.Project) -> HostBatch:
         child = self.eval(plan.child)
-        cols = []
-        for e, oc in zip(plan.exprs, plan.schema):
-            d, v = self._col(e, child)
-            src = child.schema[e.index].dict_id or LITERAL_DICT
-            if e.type.is_text and oc.dict_id and src != oc.dict_id:
-                # the output names another dictionary (min/max of a
-                # column types as computed text, in the literal pool):
-                # carry each code over by its string
-                table = self._translate(src, oc.dict_id)
-                d = table[np.clip(d, 0, len(table) - 1)]
-            cols.append((d, v))
+        cols = self._eval_exprs(plan.exprs, child,
+                                [oc.dict_id for oc in plan.schema])
         return HostBatch(plan.schema, cols, child.n)
 
-    def _translate(self, src: str, dst: str) -> np.ndarray:
-        """code in dictionary ``src`` -> code of the same string in
-        ``dst`` (minted there where missing)."""
-        vals = list(self.catalog.dictionary(src).values)
-        table = np.zeros(max(len(vals), 1), dtype=np.int32)
-        if vals:
-            table[: len(vals)] = self.catalog.dictionary(dst).encode(vals)
-        return table
+    def _eval_filter(self, plan: L.Filter) -> HostBatch:
+        child = self.eval(plan.child)
+        ((d, v),) = self._eval_exprs([plan.predicate], child)
+        keep = np.broadcast_to(d if v is None else (d & v), (child.n,))
+        idx = np.nonzero(keep)[0]
+        cols = [(d[idx], None if v is None else v[idx])
+                for d, v in child.cols]
+        return HostBatch(plan.schema, cols, len(idx))
 
     # -- aggregate: the merge of per-shard partials --------------------------
     def _eval_aggregate(self, plan: L.Aggregate) -> HostBatch:
@@ -150,7 +192,7 @@ class LocalExecutor:
                 and a.type.scale != a.arg.type.scale
             ):
                 raise NotPorted("sum with a decimal rescale")
-        keys = [self._col(g, child) for g in plan.group_exprs]
+        keys = self._eval_exprs(plan.group_exprs, child)
         if keys:
             gid, first = _group_ids(keys, child.n)
             ng = len(first)
@@ -161,25 +203,32 @@ class LocalExecutor:
         cols = [
             (d[first], None if v is None else v[first]) for d, v in keys
         ]
+        args = self._eval_exprs(
+            [a.arg for a in plan.aggs if a.arg is not None], child)
         for a in plan.aggs:
-            cols.append(self._reduce(a, child, gid, ng))
+            arg = None if a.arg is None else args.pop(0)
+            cols.append(self._reduce(a, arg, child, gid, ng))
         return HostBatch(plan.schema, cols, ng)
 
-    def _reduce(self, a: E.AggCall, child: HostBatch, gid, ng):
+    def _reduce(self, a: E.AggCall, arg, child: HostBatch, gid, ng):
+        """One merge aggregate per group (the reference's group_reduce
+        and ``_finalize_aggs``): integer sums exact in int64, float sums
+        in the values' own float type. An ``avg`` reaches the merge as
+        a partial sum and count, finished by the Project above it."""
         if a.arg is None:  # count(*)
             return (np.bincount(gid, minlength=ng).astype(np.int64), None)
-        d, v = self._col(a.arg, child)
+        d, v = arg
+        d = np.asarray(d)
         valid = np.ones(child.n, dtype=bool) if v is None else v
         cnt = np.bincount(gid[valid], minlength=ng).astype(np.int64)
         if a.func == "count":
             return (cnt, None)
         if a.func in ("min", "max"):
-            d = np.asarray(d)
             inv = None
             if a.arg.type.is_text:
                 # reduce in rank space, then map the winner back to its code
                 ranks, inv = self._dict_ranks(
-                    child.schema[a.arg.index].dict_id, with_order=True)
+                    _texpr_did(a.arg, child.schema), with_order=True)
                 d = ranks[np.clip(d, 0, len(ranks) - 1)]
             if d.dtype.kind == "f":
                 init = np.inf if a.func == "min" else -np.inf
@@ -194,32 +243,35 @@ class LocalExecutor:
             if inv is not None:
                 out = inv[np.clip(out, 0, len(inv) - 1)]
             return (out.astype(a.type.np_dtype), cnt > 0)
-        # exact integer sums (scaled decimals and ints are int64 here)
-        s = np.zeros(ng, dtype=np.int64)
-        np.add.at(s, gid[valid], d[valid].astype(np.int64))
+        # integers (scaled decimals included) exact in int64, floats in
+        # their own type (NaN propagates)
+        s = np.zeros(ng, dtype=d.dtype if d.dtype.kind == "f" else np.int64)
+        np.add.at(s, gid[valid], d[valid].astype(s.dtype))
         return (s.astype(a.type.np_dtype), cnt > 0)  # SQL: sum of none is NULL
 
     # -- sort / limit ---------------------------------------------------------
     def _eval_sort(self, plan: L.Sort) -> HostBatch:
+        """Stable passes from the least significant key to the most (the
+        reference's ``ops/sort.order_indices``): each key sorts its
+        values (negated for DESC, so NaN stays last either way), then a
+        stable pass on its NULL flag puts the NULLs first or last."""
         child = self.eval(plan.child)
-        lex = []
-        # np.lexsort sorts by the LAST key first: feed keys in reverse,
-        # each as (value rank, null rank) with the null rank primary
-        for k in reversed(plan.keys):
-            d, v = self._col(k.expr, child)
-            valid = np.ones(child.n, dtype=bool) if v is None else v
-            nulls_first = (
-                k.nulls_first if k.nulls_first is not None else k.descending
-            )
+        keys = self._eval_exprs([k.expr for k in plan.keys], child)
+        perm = np.arange(child.n)
+        for k, (d, v) in zip(reversed(plan.keys), reversed(keys)):
+            d = np.asarray(d)
             if k.expr.type.is_text:
-                ranks = self._dict_ranks(child.schema[k.expr.index].dict_id)
+                ranks = self._dict_ranks(_texpr_did(k.expr, child.schema))
                 d = ranks[np.clip(d, 0, len(ranks) - 1)]
-            rank = np.unique(d, return_inverse=True)[1].reshape(-1)
-            lex.append(-rank if k.descending else rank)
-            lex.append(valid if nulls_first else ~valid)
-        perm = (
-            np.lexsort(lex) if lex else np.arange(child.n)
-        )
+            elif d.dtype == np.bool_:
+                d = d.astype(np.int32)
+            x = d[perm]
+            perm = perm[np.argsort(-x if k.descending else x, kind="stable")]
+            if v is not None:
+                nulls_first = (k.nulls_first if k.nulls_first is not None
+                               else k.descending)
+                null = ~np.asarray(v)[perm]
+                perm = perm[np.argsort(null != nulls_first, kind="stable")]
         cols = [
             (d[perm], None if v is None else v[perm]) for d, v in child.cols
         ]
@@ -235,19 +287,58 @@ class LocalExecutor:
         return HostBatch(plan.schema, cols, hi - lo)
 
 
+def _tensor(a) -> torch.Tensor:
+    """A CPU tensor over a numpy array (copied only where numpy's layout
+    or write flag forbids sharing it)."""
+    a = np.asarray(a)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a)
+    return torch.from_numpy(a)
+
+
+def _texpr_did(e: E.TExpr, schema):
+    """The dictionary a TEXT expression's codes index: its column's, or
+    the literal pool for computed TEXT."""
+    if isinstance(e, E.Col):
+        return schema[e.index].dict_id
+    if isinstance(e, E.CastE):
+        return _texpr_did(e.operand, schema)
+    return LITERAL_DICT if e.type.is_text else None
+
+
+def _float_key_parts(d: np.ndarray) -> list:
+    """numpy twin of ``ops/agg.float_key_parts``: int32 views under which
+    equal floats compare equal, -0.0 folded into 0.0 and every NaN one
+    pattern; float64 as its hi and lo float32 parts."""
+    with np.errstate(all="ignore"):
+        d = np.where(d == 0, np.zeros((), d.dtype), d)
+        d = np.where(np.isnan(d), np.full((), np.nan, d.dtype), d)
+        if d.dtype == np.float64:
+            hi = d.astype(np.float32)
+            lo = (d - hi.astype(np.float64)).astype(np.float32)
+            lo = np.where(np.isfinite(d), lo, np.float32(0))
+            return [hi.view(np.int32), lo.view(np.int32)]
+        return [d.astype(np.float32).view(np.int32)]
+
+
 def _group_ids(keys, n: int):
-    """Dense group id per row (groups in ascending key order, NULL keys
-    grouped together after the non-NULL ones) and each group's first
-    row."""
+    """Dense group id per row and each group's first row, groups in the
+    reference's order: ascending key parts (a float key by its
+    ``float_key_parts``), NULL keys after the non-NULL ones."""
+    parts = []
+    for d, v in keys:
+        d = np.asarray(d)
+        for p in _float_key_parts(d) if d.dtype.kind == "f" else [d]:
+            parts.append((p, v))
     lex = []
-    for d, v in reversed(keys):
+    for d, v in reversed(parts):
         valid = np.ones(n, dtype=bool) if v is None else v
         lex.append(np.where(valid, d, 0))
         lex.append(~valid)
     order = np.lexsort(lex) if n else np.zeros(0, dtype=np.int64)
     same = np.ones(len(order), dtype=bool)  # row equals its predecessor
     same[:1] = False
-    for d, v in keys:
+    for d, v in parts:
         valid = np.ones(n, dtype=bool) if v is None else v
         dv, vv = np.where(valid, d, 0)[order], valid[order]
         same[1:] &= (dv[1:] == dv[:-1]) & (vv[1:] == vv[:-1])

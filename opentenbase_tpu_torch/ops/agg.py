@@ -1,14 +1,27 @@
-"""Aggregation over masked columns, plain PyTorch (subset of the
-reference's opentenbase_tpu/ops/agg.py: the ungrouped reduce and the
-sort-based grouping).
+"""Aggregation over masked columns, plain PyTorch (the reference's
+opentenbase_tpu/ops/agg.py: the ungrouped reduce, the sort-based
+grouping and the hash-addressed grouping).
 
-Grouping is sort-based, as in the reference: rows sort stably by their
-key parts, segment boundaries label groups in ascending key order (NULL
-keys after the non-NULL ones, rows outside the mask last), and every
+Sort-based grouping, as in the reference: rows sort stably by their key
+parts, segment boundaries label groups in ascending key order (NULL keys
+after the non-NULL ones, rows outside the mask last), and every
 aggregate is one segment reduction (``index_add_`` for sums and counts,
 ``scatter_reduce`` for min and max) into a static group capacity plus an
 overflow bin that swallows the invisible rows. Integer sums are exact
 int64.
+
+Hash-addressed grouping (``hash_slots``): each row goes straight to a
+slot ``hash(key) & (cap - 1)`` with the reference's 64-bit FNV mix, so
+the same keys take the same slots in both packages; a slot holding two
+keys (a collision, or more groups than slots) is detected exactly and
+the caller climbs its capacity ladder. ``group_reduce`` then reduces by
+slot as it does by sorted segment.
+
+A query with few groups sends every row's atomic update to a handful of
+addresses, so the reductions whose result does not depend on the order
+of the rows (integer sums and counts, min, max) go through a
+[blocks, groups] table of partials first: no more than ``_SEG_BLOCK``
+rows contend for one accumulator.
 """
 
 from __future__ import annotations
@@ -66,7 +79,10 @@ def scalar_reduce(vals, mask: torch.Tensor, specs: tuple):
             else:
                 raise TypeError(f"{spec} over {d.dtype}")
             dd = torch.where(vvalid, d, torch.full_like(d, sent))
-            r = torch.amin(dd) if spec == "min" else torch.amax(dd)
+            if not dd.numel():  # no rows: the sentinel, flagged NULL
+                r = torch.full((), sent, dtype=d.dtype, device=d.device)
+            else:
+                r = torch.amin(dd) if spec == "min" else torch.amax(dd)
             out.append((r, cnt > 0))
         else:
             raise ValueError(f"unknown scalar agg {spec}")
@@ -163,9 +179,38 @@ def group_ids(keys, mask):
     return perm, seg, ngroups
 
 
-def _seg_sum(x: torch.Tensor, seg: torch.Tensor, nseg: int) -> torch.Tensor:
-    out = torch.zeros(nseg, dtype=x.dtype, device=x.device)
-    return out.index_add_(0, seg, x)
+# rows per block of a segment reduction's partial table, and its bound
+_SEG_BLOCK = 4096
+_SEG_TABLE_MAX = 1 << 22
+
+
+def _segment_reducer(seg: torch.Tensor, nseg: int):
+    """``reduce(x, op='sum', init=0)``: x reduced by ``seg`` into
+    ``nseg`` bins starting from ``init`` (``op``: 'sum', 'amin' or
+    'amax'). Blocked as the module docstring says, except float sums,
+    whose rounding would follow the blocking; the blocked ids are built
+    once for every reduction over the same segments."""
+    n = seg.shape[0]
+    blocks = max(1, min(-(-n // _SEG_BLOCK), _SEG_TABLE_MAX // nseg))
+    bseg = seg if blocks == 1 else (
+        torch.arange(n, device=seg.device) // -(-n // blocks) * nseg + seg)
+
+    def reduce(x, op="sum", init=0):
+        nb, idx = (1, seg) if op == "sum" and x.dtype.is_floating_point \
+            else (blocks, bseg)
+        t = torch.full((nb * nseg,), init, dtype=x.dtype, device=x.device)
+        if op == "sum":
+            t.index_add_(0, idx, x)
+        else:
+            t.scatter_reduce_(0, idx, x, op, include_self=True)
+        if nb == 1:
+            return t
+        t = t.view(nb, nseg)
+        if op == "sum":
+            return t.sum(0, dtype=x.dtype)
+        return t.amin(0) if op == "amin" else t.amax(0)
+
+    return reduce
 
 
 def group_reduce(keys, vals, perm, seg, num_groups: int, specs: tuple):
@@ -173,23 +218,29 @@ def group_reduce(keys, vals, perm, seg, num_groups: int, specs: tuple):
     ``_group_reduce_impl``).
 
     keys/vals: lists of (data, valid_or_None) in unsorted row order;
-    specs: per val 'sum' | 'count' | 'count_star' (val None) | 'min' |
-    'max' | 'any' (the group's first row). Rows whose group is at or
-    past ``num_groups`` fall into one overflow bin and are dropped.
-    Returns (out_keys, out_vals, group_valid): lists of (data, valid) of
-    length ``num_groups``, and which groups exist."""
+    ``seg[i]`` the group of sorted row i, ``perm`` the sort permutation
+    (None: the rows are not sorted, ``seg`` is each row's group, as a
+    hash slot is); specs: per val 'sum' | 'count' | 'count_star' (val
+    None) | 'min' | 'max' | 'any' (the group's first row). Rows whose
+    group is at or past ``num_groups`` fall into one overflow bin and
+    are dropped. Returns (out_keys, out_vals, group_valid): lists of
+    (data, valid) of length ``num_groups``, and which groups exist."""
     nseg = num_groups + 1
-    n = perm.shape[0]
-    dev = perm.device
+    n = seg.shape[0]
+    dev = seg.device
     seg = torch.clamp(seg.to(torch.int64), max=nseg - 1)
-    # each group's representative: its first sorted row
-    first_sorted = torch.full((nseg,), n, dtype=torch.int64, device=dev)
-    first_sorted.scatter_reduce_(
-        0, seg, torch.arange(n, device=dev), "amin", include_self=True)
+    # each group's representative: its first sorted row (an int32 min
+    # where it fits: CUDA has no native int64 atomic min)
+    pos = torch.arange(n, device=dev,
+                       dtype=torch.int32 if n < 2**31 else torch.int64)
+    reduce = _segment_reducer(seg, nseg)
+    first_sorted = reduce(pos, "amin", n).to(torch.int64)
     got = first_sorted < n
     if n:
         # a gather faults on an index out of range (jnp.take clamps)
-        first_row = perm[torch.clamp(first_sorted, max=n - 1)]
+        first_row = torch.clamp(first_sorted, max=n - 1)
+        if perm is not None:
+            first_row = perm[first_row]
     else:
         first_row = torch.zeros(nseg, dtype=torch.int64, device=dev)
 
@@ -203,31 +254,43 @@ def group_reduce(keys, vals, perm, seg, num_groups: int, specs: tuple):
         return (d, (valid[first_row] & got)[:num_groups])
 
     out_keys = [take_first(d, v) for d, v in keys]
-    seg_unsorted = torch.empty_like(seg)
-    seg_unsorted[perm] = seg
-    live = seg_unsorted < num_groups
+    if perm is not None:
+        seg_unsorted = torch.empty_like(seg)
+        seg_unsorted[perm] = seg
+        reduce = _segment_reducer(seg_unsorted, nseg)
+    # a row outside the groups reduces into the overflow bin, which is
+    # dropped: only NULL arguments need masking
+    row_cnt = None  # rows per group, shared by the mask-less arguments
+
+    def count(valid):
+        nonlocal row_cnt
+        if valid is not None:
+            return reduce(valid.to(torch.int64))
+        if row_cnt is None:
+            row_cnt = reduce(torch.ones(n, dtype=torch.int64, device=dev))
+        return row_cnt
+
     out_vals = []
     for spec, val in zip(specs, vals):
         if spec == "count_star":
-            c = _seg_sum(live.to(torch.int64), seg_unsorted, nseg)
+            c = count(None)
             out_vals.append((c[:num_groups], got[:num_groups]))
             continue
         data, valid = val
-        vvalid = live if valid is None else (live & valid)
         if spec == "count":
-            c = _seg_sum(vvalid.to(torch.int64), seg_unsorted, nseg)
+            c = count(valid)
             out_vals.append((c[:num_groups], got[:num_groups]))
             continue
         if spec == "any":
             out_vals.append(take_first(data, valid))
             continue
-        cnt = _seg_sum(vvalid.to(torch.int32), seg_unsorted, nseg)
+        cnt = count(valid)
         if spec == "sum":
             if not data.dtype.is_floating_point:
                 data = data.to(torch.int64)  # exact: no int32 wrap
-            d = torch.where(vvalid, data, torch.zeros((), dtype=data.dtype,
-                                                      device=dev))
-            s = _seg_sum(d, seg_unsorted, nseg)
+            d = data if valid is None else torch.where(
+                valid, data, torch.zeros((), dtype=data.dtype, device=dev))
+            s = reduce(d)
             out_vals.append((s[:num_groups], (cnt > 0)[:num_groups]))
             continue
         if spec in ("min", "max"):
@@ -242,14 +305,66 @@ def group_reduce(keys, vals, perm, seg, num_groups: int, specs: tuple):
                 sent = info.max if spec == "min" else info.min
             else:
                 sent = _I64_MAX if spec == "min" else _I64_MIN
-            d = torch.where(vvalid, data, torch.full((), sent,
-                                                     dtype=data.dtype,
-                                                     device=dev))
-            m = torch.full((nseg,), sent, dtype=data.dtype, device=dev)
-            m.scatter_reduce_(0, seg_unsorted, d,
-                              "amin" if spec == "min" else "amax",
-                              include_self=True)
+            d = data if valid is None else torch.where(
+                valid, data, torch.full((), sent, dtype=data.dtype,
+                                        device=dev))
+            m = reduce(d, "amin" if spec == "min" else "amax", sent)
             out_vals.append((m[:num_groups], (cnt > 0)[:num_groups]))
             continue
         raise ValueError(f"unknown agg spec {spec}")
     return out_keys, out_vals, got[:num_groups]
+
+
+_FNV_OFFSET = 1469598103934665603
+_FNV_PRIME = 1099511628211
+
+
+def hash_slot_ids(keys, mask, cap: int):
+    """Row -> slot in [0, cap) by mixing the key parts (the reference's
+    ``_hash_slot_ids``): a 64-bit FNV mix over every part and validity
+    bit, int64 products wrapping as jnp's do, then ``h ^ (h >> 29)``
+    (arithmetic shift) so the low bits feel the high ones. Rows outside
+    ``mask`` get slot ``cap``. Returns (slot int32, the mixed parts as
+    (int64 part, whether it was int64), visibility or None)."""
+    assert cap & (cap - 1) == 0, "group capacity must be a power of two"
+    parts = _key_parts(keys)
+    n = parts[0][0].shape[0] if parts else mask.shape[0]
+    dev = parts[0][0].device if parts else mask.device
+    h = torch.full((n,), _FNV_OFFSET, dtype=torch.int64, device=dev)
+    mixed: list = []
+    for d, v in parts:
+        for x in (d,) if v is None else (d, v):
+            x64 = x.to(torch.int64)
+            mixed.append((x64, x.dtype == torch.int64))
+            h = (h ^ x64) * _FNV_PRIME
+    h = h ^ (h >> 29)
+    slot = (h & (cap - 1)).to(torch.int32)
+    if mask is None:
+        return slot, mixed, None
+    return torch.where(mask, slot, cap), mixed, mask
+
+
+def hash_slots(keys, mask, cap: int):
+    """Hash-addressed grouping (the reference's ``_hash_slots_impl``):
+    (slot, ngroups, collision). Exact: a visible row that differs from
+    its slot's mean, floored, in any mixed part is a collision (two keys
+    in one slot, or more groups than ``cap``): a slot whose rows differ
+    has its largest value above the mean. int64 parts go as two 32-bit
+    halves, so no sum wraps; every sum is an ``index_add_`` (where the
+    reference keeps per-slot minimums, which on CUDA would be int64
+    compare-and-swap loops). Invisible rows take slot ``cap``, the
+    overflow bin of ``group_reduce``, and are never compared."""
+    slot, mixed, vis = hash_slot_ids(keys, mask, cap)
+    dev = slot.device
+    sl = slot.to(torch.int64)
+    reduce = _segment_reducer(sl, cap + 1)
+    cnt = reduce(torch.ones(sl.shape[0], dtype=torch.int64, device=dev))
+    safe = torch.clamp(cnt, min=1)
+    collision = torch.zeros((), dtype=torch.bool, device=dev)
+    for x, wide in mixed:
+        for p in (x >> 32, x & 0xFFFFFFFF) if wide else (x,):
+            differs = p != (reduce(p) // safe)[sl]
+            if vis is not None:
+                differs = differs & vis
+            collision = collision | torch.any(differs)
+    return slot, torch.sum(cnt[:cap] > 0, dtype=torch.int32), collision

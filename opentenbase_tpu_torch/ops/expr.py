@@ -1,10 +1,10 @@
 """Compile typed expressions (plan/texpr.py) to functions over torch
-columns (subset of the reference's opentenbase_tpu/ops/expr.py).
+columns (a port of the reference's opentenbase_tpu/ops/expr.py).
 
 A column value is a pair ``(data, valid)``: ``data`` a tensor, ``valid`` a
 bool tensor or ``None`` (statically all-valid). NULL semantics are SQL's
 three-valued logic: comparisons and arithmetic are NULL if any operand
-is; AND/OR are Kleene.
+is; AND/OR are Kleene; division by zero is NULL.
 
 Numeric and date literals are always lifted into runtime parameters
 (the reference's ``lift_consts=True``): the compiler records a
@@ -12,24 +12,33 @@ Numeric and date literals are always lifted into runtime parameters
 with ``resolve_param`` on every run, so a compiled function serves every
 query that differs only in its literals.
 
+Types follow the reference on its device: FLOAT8 *computed* by an
+expression (a cast, a quotient) is float32 (``_dev_dtype``), while a raw
+FLOAT8 column stays float64; operands promote by dtype alone, as jnp
+promotes them (a dimensioned float32 column meeting a 0-d float64 literal
+becomes float64).
+
 TEXT values are int32 codes into a host-side dictionary; the compiler
 resolves TEXT constants against the dictionary of the column they meet
 (``dict_ids[i]`` names input column i's), through params bound per run:
 a ``TextCodeParam`` (the constant's code, -1 when the dictionary lacks
-it, so equality matches nothing) or a ``CodeMaskParam`` (a per-code
-boolean mask computed on the host, for an ordered comparison or an IN
-list: codes follow insertion order, not collation).
+it, so equality matches nothing), a ``CodeMaskParam`` (a per-code
+boolean mask computed on the host, for an ordered comparison, an IN list
+or a LIKE pattern: codes follow insertion order, not collation) or a
+``DictTranslateParam`` (codes of one dictionary mapped to another's).
 
 The subset: column references, lifted literals, NULL, the six
-comparisons, AND/OR/NOT, unary minus, ``+ - *`` (decimals in scaled-int64
-form, a product typed at the sum of the scales), casts that widen
-integers or rescale to a decimal, IN lists, and TEXT: a value-producing
-literal, comparison of a column with a constant, and equality of two
-columns of one dictionary. Anything else raises NotPorted.
+comparisons, AND/OR/NOT, unary minus, ``+ - * / // %`` (decimals in
+scaled-int64 form), IS [NOT] NULL, CASE, casts between the numeric,
+decimal, date and timestamp types, IN lists, LIKE/ILIKE, coalesce,
+nullif and date_add_days; TEXT compared
+with a constant, equality of two columns of one dictionary, and TEXT
+values carried across dictionaries. Anything else raises NotPorted.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from functools import reduce
 from typing import Callable, Optional
@@ -83,13 +92,28 @@ class TextEncodeParam:
 @dataclass(frozen=True)
 class CodeMaskParam:
     """Per-code bool membership mask over dictionary ``dict_id``, padded
-    to a power of two: ``values`` exact strings (an IN list), or ``cmp``
-    an ordered comparison (op, reference string) in Python's string
-    order. Exactly one is set."""
+    to a power of two: ``patterns`` LIKE patterns (ORed; ``ilike``
+    ignores case), ``values`` exact strings (an IN list), or ``cmp`` an
+    ordered comparison (op, reference string) in Python's string order.
+    Exactly one is set. A pattern is matched once per dictionary value
+    on the host; the device only tests code membership."""
 
     dict_id: str
+    patterns: tuple = ()
     values: tuple = ()
+    ilike: bool = False
     cmp: tuple = ()
+
+
+@dataclass(frozen=True)
+class DictTranslateParam:
+    """int32 table mapping codes of dictionary ``src`` to the codes of the
+    same strings in ``dst`` (minted there where missing), padded to a
+    power of two: aligns TEXT values of different dictionaries under one
+    output column (a CASE mixing a column with literals)."""
+
+    src: str
+    dst: str
 
 
 ColVal = tuple  # (data: torch.Tensor, valid: torch.Tensor | None)
@@ -158,8 +182,13 @@ class ExprCompiler:
             if e.type.is_text and want is not None:
                 src = (dids[idx] if idx < len(dids) else None) or LITERAL_DICT
                 if src != want:
-                    raise NotPorted("TEXT column translated across "
-                                    "dictionaries")
+                    pi = self._param(DictTranslateParam(src, want))
+
+                    def run_xlate(cols, params):
+                        d, v = cols[idx]
+                        return (_lookup(params[pi], d), v)
+
+                    return run_xlate
             return lambda cols, params: cols[idx]
         if isinstance(e, E.Const):
             return self._const(e, want)
@@ -181,7 +210,26 @@ class ExprCompiler:
                 return run_not
             raise NotPorted(f"unary operator {e.op!r}")
         if isinstance(e, E.CastE):
-            return self._cast(e, dids)
+            return self._cast(e, dids, want)
+        if isinstance(e, E.IsNullE):
+            cf = self._c(e.operand, dids)
+
+            def run_isnull(cols, params):
+                d, v = cf(cols, params)
+                if v is None:
+                    out = torch.zeros(d.shape, dtype=torch.bool,
+                                      device=d.device)
+                else:
+                    out = ~v
+                return (~out if e.negated else out, None)
+
+            return run_isnull
+        if isinstance(e, E.CaseE):
+            return self._case(e, dids, want)
+        if isinstance(e, E.LikeE):
+            return self._like(e, dids)
+        if isinstance(e, E.FuncE):
+            return self._func(e, dids, want)
         raise NotPorted(f"expression {type(e).__name__}")
 
     def _const(self, e: E.Const, want=None) -> CompiledExpr:
@@ -251,7 +299,38 @@ class ExprCompiler:
                 rd, rv = rf(cols, params)
                 return (fn(*_promote(ld, rd)), _and_valid(lv, rv))
             return run_arith
-        raise NotPorted(f"operator {op!r}")
+        if op not in ("/", "//", "%"):
+            raise NotPorted(f"operator {op!r}")
+        res_t = e.type
+        decimal = res_t.id == t.TypeId.DECIMAL
+        factor = res_t.decimal_factor
+        # PG truncates integer quotients toward zero; a float quotient
+        # is a true division
+        int_div = op == "//" or res_t.is_integer
+
+        def run_div(cols, params):
+            ld, lv = lf(cols, params)
+            rd, rv = rf(cols, params)
+            nz = rd != 0
+            valid = _and_valid(lv, rv, nz)  # x / 0 is NULL
+            safe = torch.where(nz, rd, torch.ones_like(rd))
+            if decimal and op == "/":
+                num, den = _promote(ld * factor, safe)
+                return (_div_round(num, den), valid)
+            if op == "%" or int_div:
+                a, b = _promote(ld, safe)
+                mag = a.abs() % b.abs() if op == "%" else (
+                    a.abs() // b.abs())
+                sign = a.sign() if op == "%" else a.sign() * b.sign()
+                # the result takes the dividend's dtype (jnp's astype)
+                return ((sign * mag).to(ld.dtype), valid)
+            if not (ld.dtype.is_floating_point
+                    or rd.dtype.is_floating_point):
+                # jnp divides integers in float64 (torch would take its
+                # default float32)
+                ld, safe = ld.to(torch.float64), safe.to(torch.float64)
+            return (torch.div(*_promote(ld, safe)), valid)
+        return run_div
 
     # -- TEXT comparisons, on dictionary codes ---------------------------
     def _expr_dict_id(self, e: E.TExpr, dids) -> Optional[str]:
@@ -259,6 +338,18 @@ class ExprCompiler:
             return dids[e.index] if e.index < len(dids) else None
         if isinstance(e, E.CastE):
             return self._expr_dict_id(e.operand, dids)
+        if isinstance(e, E.CaseE):
+            for _c, v in e.whens:
+                d = self._expr_dict_id(v, dids)
+                if d:
+                    return d
+            if e.default is not None:
+                return self._expr_dict_id(e.default, dids)
+        if isinstance(e, E.FuncE) and e.name == "coalesce":
+            for a in e.args:
+                d = self._expr_dict_id(a, dids)
+                if d:
+                    return d
         return None
 
     def _text_cmp(self, e: E.BinE, dids) -> CompiledExpr:
@@ -290,8 +381,12 @@ class ExprCompiler:
             return run_cc
         did = self._expr_dict_id(col_e, dids)
         if did is None:
-            raise NotPorted("comparison of computed TEXT")
-        cf = self._c(col_e, dids)
+            # computed TEXT (a CASE over literals): its codes are
+            # canonicalised through the literal dictionary, compared there
+            did = LITERAL_DICT
+            cf = self._c(col_e, dids, LITERAL_DICT)
+        else:
+            cf = self._c(col_e, dids)
         if const_e.value is None:
             def run_nullcmp(cols, params):
                 d, _v = cf(cols, params)
@@ -316,7 +411,7 @@ class ExprCompiler:
 
         def run_ord(cols, params):
             d, v = cf(cols, params)
-            return (_mask_lookup(params[pi], d), v)
+            return (_lookup(params[pi], d), v)
 
         return run_ord
 
@@ -333,7 +428,7 @@ class ExprCompiler:
                 str(v) for v in vals)))
 
             def member(d, params):
-                return _mask_lookup(params[pi], d)
+                return _lookup(params[pi], d)
         elif vals:
             pi = self._param(ArrayConstParam(vals, e.operand.type))
 
@@ -354,37 +449,179 @@ class ExprCompiler:
 
         return run_in
 
-    def _cast(self, e: E.CastE, dids) -> CompiledExpr:
+    def _like(self, e: E.LikeE, dids) -> CompiledExpr:
+        """LIKE/ILIKE on codes: the pattern is matched against every
+        dictionary value on the host (``CodeMaskParam``), the device
+        reads the mask at each row's code."""
+        did = self._expr_dict_id(e.operand, dids)
+        if did is None:
+            raise NotPorted("LIKE over computed TEXT")
         cf = self._c(e.operand, dids)
+        pi = self._param(CodeMaskParam(did, patterns=(e.pattern,),
+                                       ilike=e.ilike))
+
+        def run_like(cols, params):
+            d, v = cf(cols, params)
+            out = _lookup(params[pi], d)
+            return (~out if e.negated else out, v)
+
+        return run_like
+
+    def _case(self, e: E.CaseE, dids, want=None) -> CompiledExpr:
+        vwant = (want or LITERAL_DICT) if e.type.is_text else None
+        whenfs = [
+            (self._c(c, dids), self._c(v, dids, vwant)) for c, v in e.whens
+        ]
+        deff = (self._c(e.default, dids, vwant)
+                if e.default is not None else None)
+        dt = torch_dtype(e.type)
+
+        def run_case(cols, params):
+            if deff is not None:
+                out, outv = deff(cols, params)
+            else:
+                out = torch.zeros((), dtype=dt, device=self.device)
+                outv = torch.zeros((), dtype=torch.bool, device=self.device)
+            # evaluated in reverse: an earlier WHEN overrides a later one
+            for cf, vf in reversed(whenfs):
+                cd, cv = cf(cols, params)
+                hit = cd if cv is None else (cd & cv)
+                vd, vv = vf(cols, params)
+                out = torch.where(hit, *_promote(vd, out))
+                if outv is not None or vv is not None:
+                    o = torch.ones_like(hit) if outv is None else outv
+                    nv = torch.ones_like(hit) if vv is None else vv
+                    outv = torch.where(hit, nv, o)
+            return (out, outv)
+
+        return run_case
+
+    def _func(self, e: E.FuncE, dids, want=None) -> CompiledExpr:
+        name = e.name
+        if name not in _FUNCS:
+            raise NotPorted(f"function {name}")
+        # a TEXT-valued function passes its target dictionary on
+        vwant = (want or LITERAL_DICT) if e.type.is_text else None
+        argfs = [self._c(a, dids, vwant) for a in e.args]
+        if name == "coalesce":
+            def run_coalesce(cols, params):
+                d, v = argfs[0](cols, params)
+                for f in argfs[1:]:
+                    if v is None:
+                        return (d, None)
+                    nd, nv = f(cols, params)
+                    d = torch.where(v, *_promote(d, nd))
+                    v = v | (torch.ones_like(v) if nv is None else nv)
+                return (d, v)
+            return run_coalesce
+        if name == "nullif":
+            def run_nullif(cols, params):
+                ad, av = argfs[0](cols, params)
+                bd, bv = argfs[1](cols, params)
+                eq = torch.eq(*_promote(ad, bd))
+                if bv is not None:
+                    eq = eq & bv
+                return (ad, ~eq if av is None else (av & ~eq))
+            return run_nullif
+        # date_add_days: date +/- an integer the analyzer left unfolded
+        def run_dad(cols, params):
+            d, v = argfs[0](cols, params)
+            nd, nv = argfs[1](cols, params)
+            return ((d + nd).to(torch.int32), _and_valid(v, nv))
+        return run_dad
+
+    def _cast(self, e: E.CastE, dids, want=None) -> CompiledExpr:
         src, dst = e.operand.type, e.type
-        ints = (t.TypeId.INT4, t.TypeId.INT8, t.TypeId.BOOL)
-        if src.id == dst.id and src.scale == dst.scale:
-            return cf
-        if dst.id == t.TypeId.DECIMAL and src.id == t.TypeId.DECIMAL:
-            if dst.scale < src.scale:
-                raise NotPorted("decimal cast to a smaller scale")
-            factor = 10 ** (dst.scale - src.scale)
-        elif dst.id == t.TypeId.DECIMAL and src.id in ints:
-            factor = dst.decimal_factor
-        elif dst.id in (t.TypeId.INT4, t.TypeId.INT8) and src.id in ints:
-            factor = 1
-        else:
-            raise NotPorted(f"cast {src.id.value} -> {dst.id.value}")
-        dt = torch_dtype(dst)
+        if src.is_text or dst.is_text:
+            if src.id != dst.id:
+                raise NotPorted(f"cast {src.id.value} -> {dst.id.value}")
+            return self._c(e.operand, dids, want)
+        cf = self._c(e.operand, dids)
 
         def run_cast(cols, params):
             d, v = cf(cols, params)
-            d = d.to(dt)
-            return (d * factor if factor != 1 else d, v)
+            return (_cast_data(d, src, dst), v)
 
         return run_cast
 
 
-def _mask_lookup(mask: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """``mask[codes]`` with the codes clamped into the mask: a CUDA
-    gather faults on an index out of range where jnp.take clamps, and a
-    NULL slot's code (0) or a padded one must not fault."""
-    return mask[codes.long().clamp(0, mask.shape[0] - 1)]
+_FUNCS = frozenset(("coalesce", "nullif", "date_add_days"))
+_US_DAY = 86_400_000_000
+
+
+def _dev_dtype(ty: t.SqlType) -> torch.dtype:
+    """The dtype a value of ``ty`` is computed in on the device: FLOAT8
+    computes as float32, as the reference's device does (its types.py
+    rationale; ``_dev_dtype`` there), so both packages round alike."""
+    if ty.id == t.TypeId.FLOAT8:
+        return torch.float32
+    return torch_dtype(ty)
+
+
+def _div_round(num, den):
+    """Integer division rounding half away from zero (PG numeric)."""
+    half = den // 2
+    return (num + torch.where(num >= 0, half, -half)) // den
+
+
+def _cast_data(d: torch.Tensor, src: t.SqlType, dst: t.SqlType):
+    """The reference's ``_cast_data`` on torch (FLOAT8 results in
+    float32, ``_dev_dtype``)."""
+    T = t.TypeId
+    if src.id == dst.id and src.scale == dst.scale:
+        return d
+    if dst.id == T.DECIMAL:
+        if src.id == T.DECIMAL:
+            if dst.scale >= src.scale:
+                return d * (10 ** (dst.scale - src.scale))
+            return _div_round(d, 10 ** (src.scale - dst.scale))
+        if src.is_integer or src.id == T.BOOL:
+            return d.to(torch.int64) * dst.decimal_factor
+        # float -> decimal (round half to even, as jnp.round)
+        return torch.round(d.to(torch.float64) * dst.decimal_factor).to(
+            torch.int64)
+    if src.id == T.DECIMAL:
+        if dst.is_integer:
+            return _div_round(d, src.decimal_factor).to(torch_dtype(dst))
+        # divided in float64 (jnp's int64 / int), then rounded once more
+        return (d.to(torch.float64) / src.decimal_factor).to(
+            _dev_dtype(dst))
+    if src.id == T.DATE and dst.id == T.TIMESTAMP:
+        return d.to(torch.int64) * _US_DAY
+    if src.id == T.TIMESTAMP and dst.id == T.DATE:
+        return torch.div(d, _US_DAY, rounding_mode="floor").to(torch.int32)
+    if dst.is_integer and src.id in (T.FLOAT4, T.FLOAT8):
+        return torch.trunc(d).to(torch_dtype(dst))
+    return d.to(_dev_dtype(dst))
+
+
+def _like_to_regex(pattern: str) -> str:
+    """A LIKE pattern as an anchored regular expression (``%`` any run,
+    ``_`` one character, a backslash escapes the next one)."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == "\\" and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if c == "%":
+            out.append(".*")
+        elif c == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    return "^" + "".join(out) + "$"
+
+
+def _lookup(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """``table[codes]`` (a code mask or a translation table) with the
+    codes clamped into it: a CUDA gather faults on an index out of range
+    where jnp.take clamps, and a NULL slot's code (0) or a padded one
+    must not fault."""
+    return table[codes.long().clamp(0, table.shape[0] - 1)]
 
 
 def resolve_param_host(spec, dictionary=None) -> np.ndarray:
@@ -403,11 +640,24 @@ def resolve_param_host(spec, dictionary=None) -> np.ndarray:
     if isinstance(spec, TextEncodeParam):
         code = dictionary(spec.dict_id).encode_one(spec.value)
         return np.asarray(code, dtype=np.int32)
+    if isinstance(spec, DictTranslateParam):
+        vals = list(dictionary(spec.src).values)
+        table = np.zeros(bucket_size(len(vals), 1), dtype=np.int32)
+        if vals:
+            table[: len(vals)] = dictionary(spec.dst).encode(vals)
+        return table
     if isinstance(spec, CodeMaskParam):
         d = dictionary(spec.dict_id)
         vals = d.values
         mask = np.zeros(bucket_size(len(vals), 1), dtype=np.bool_)
-        if spec.cmp:
+        if spec.patterns:
+            flags = re.IGNORECASE if spec.ilike else 0
+            for p in spec.patterns:
+                rx = re.compile(_like_to_regex(p), flags)
+                for i, s in enumerate(vals):
+                    if rx.match(s):
+                        mask[i] = True
+        elif spec.cmp:
             op, ref = spec.cmp
             cmpf = {
                 "<": lambda s: s < ref,

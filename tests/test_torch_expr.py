@@ -1,7 +1,10 @@
 """The port's expression compiler and scalar reduce against the
 reference's, on the same seeded columns with NULLs: three-valued
 AND/OR/NOT, the six comparisons against lifted literals, decimal
-arithmetic, integer casts, IN lists; TEXT on dictionary codes (equality,
+arithmetic, integer casts, IN lists; division and modulo (by zero:
+NULL), IS NULL, CASE, coalesce/nullif and date arithmetic, casts to
+and from FLOAT8 (float32 where computed, as jnp's, float64 for a raw
+column); LIKE/ILIKE; TEXT on dictionary codes (equality,
 inequality, ordered comparison and BETWEEN against a constant, a
 literal the dictionary lacks, IN and OR of equalities, equality of two
 columns of one dictionary, a value-producing literal); sum/count/min/max
@@ -31,7 +34,7 @@ N = 4000
 
 def _columns(seed=21):
     """(data, valid) per column: int4, int8, bool, decimal(12,2),
-    decimal(4,2), date; every column has NULLs."""
+    decimal(4,2), date, float8; every column has NULLs."""
     rng = np.random.default_rng(seed)
     cols = [
         rng.integers(-50, 50, N).astype(np.int32),
@@ -42,12 +45,16 @@ def _columns(seed=21):
         (8036 + rng.integers(0, 2556, N)).astype(np.int32),
     ]
     valids = [rng.random(N) > 0.15 for _ in cols]
+    # the raw FLOAT8 column (float64 in both packages), drawn after the
+    # others so their values stay what they were
+    cols.append(rng.normal(0.0, 1e4, N))
+    valids.append(rng.random(N) > 0.15)
     return cols, valids
 
 
 def _types(T):
     return [T.INT4, T.INT8, T.BOOL, T.SqlType(T.TypeId.DECIMAL, 12, 2),
-            T.SqlType(T.TypeId.DECIMAL, 4, 2), T.DATE]
+            T.SqlType(T.TypeId.DECIMAL, 4, 2), T.DATE, T.FLOAT8]
 
 
 def _exprs(E, T):
@@ -94,6 +101,50 @@ def _exprs(E, T):
     }
     for op in ("=", "<>", "<", "<=", ">", ">="):
         out[f"cmp{op}"] = cmp(op, C(4), K(5, ty[4]))
+    # division and modulo (column 0 holds zeros: x / 0 is NULL), in the
+    # forms the analyzer writes: // for integers, FLOAT8 operands for a
+    # decimal quotient, % at one decimal scale
+    F8 = T.FLOAT8
+    dec2 = T.SqlType(T.TypeId.DECIMAL, 38, 2)
+    i8 = E.CastE(C(0), T.INT8)
+    out.update({
+        "div_int": E.BinE("//", C(1), i8, T.INT8),
+        "div_int_neg": E.BinE("//", E.UnaryE("-", C(1), T.INT8), i8, T.INT8),
+        "mod_int": E.BinE("%", C(1), i8, T.INT8),
+        "mod_dec": E.BinE("%", E.CastE(C(3), dec2), E.CastE(C(4), dec2),
+                          dec2),
+        "div_float8": E.BinE("/", E.CastE(C(1), F8), E.CastE(C(0), F8), F8),
+        "div_dec_float8": E.BinE("/", E.CastE(C(3), F8), E.CastE(C(4), F8),
+                                 F8),
+        "mod_float8": E.BinE("%", C(6), E.CastE(C(4), F8), F8),
+        "is_null": E.IsNullE(C(0), False),
+        "is_not_null": E.IsNullE(C(6), True),
+        "is_null_of_sum": E.IsNullE(E.BinE("+", C(3), C(3), ty[3]), False),
+        "case": E.CaseE(
+            ((cmp("<", C(0), K(0, T.INT4)), C(1)),
+             (C(2), E.CastE(C(0), T.INT8))), K(-1, T.INT8), T.INT8),
+        "case_no_else": E.CaseE(
+            ((cmp(">", C(4), K(5, ty[4])), C(3)),), None, ty[3]),
+        "case_float8": E.CaseE(
+            ((C(2), E.CastE(C(1), F8)),), C(6), F8),
+        # casts to and from FLOAT8: float32 when computed, float64 raw
+        "cast_int4_float8": E.CastE(C(0), F8),
+        "cast_int8_float8": E.CastE(C(1), F8),
+        "cast_dec_float8": E.CastE(C(3), F8),
+        "cast_float8_int8": E.CastE(C(6), T.INT8),
+        "cast_float8_dec": E.CastE(C(6), T.SqlType(T.TypeId.DECIMAL, 18, 2)),
+        "cast_computed_float8_int4": E.CastE(E.CastE(C(3), F8), T.INT4),
+        "cast_dec_down": E.CastE(C(3), T.SqlType(T.TypeId.DECIMAL, 12, 0)),
+        "cast_dec_int8": E.CastE(C(3), T.INT8),
+        "float8_times_literal": E.BinE("*", C(6), K(2.5, F8), F8),
+        "float32_plus_float8": E.BinE("+", E.CastE(C(1), F8), C(6), F8),
+        "float32_vs_literal": cmp("<", E.CastE(C(3), F8), K(0.5, F8)),
+        "coalesce": E.FuncE("coalesce", (C(1), E.CastE(C(0), T.INT8),
+                                         K(3, T.INT8)), T.INT8),
+        "nullif": E.FuncE("nullif", (C(4), K(5, ty[4])), ty[4]),
+        "date_add_days": E.FuncE("date_add_days",
+                                 (C(5), K(-90, T.INT4)), T.DATE),
+    })
     return out
 
 
@@ -173,6 +224,18 @@ def _text_exprs(E, T):
     }
     for op in ("<", "<=", ">", ">="):
         out[f"ord{op}"] = cmp(op, c, K("MFGR#222"))
+    # LIKE/ILIKE: matched against the dictionary on the host, a code
+    # mask on the device
+    out.update({
+        "like_prefix": E.LikeE(c, "MFGR#22%", False, False),
+        "like_underscore": E.LikeE(c, "MFGR#_2_", False, False),
+        "like_one_char": E.LikeE(c, "_", False, False),
+        "not_like": E.LikeE(c, "%2%", False, True),
+        "ilike": E.LikeE(c, "A%", True, False),
+        "not_ilike": E.LikeE(c, "mfgr#2%", True, True),
+        "like_escaped": E.LikeE(c, "MFGR\\#22", False, False),
+        "like_all": E.LikeE(c, "%", False, False),
+    })
     return out
 
 
@@ -236,11 +299,13 @@ def test_text_literal_encodes_into_target_dictionary():
 def test_outside_the_subset_raises_not_ported():
     ty = _types(pt)
     comp = port_expr.ExprCompiler("cpu")
-    with pytest.raises(NotPorted):
-        comp.compile(PE.BinE("/", PE.Col(1, ty[1]), PE.Col(1, ty[1]),
-                             ty[1]))
-    with pytest.raises(NotPorted):
-        comp.compile(PE.IsNullE(PE.Col(0, ty[0]), False))
+    with pytest.raises(NotPorted):  # a host string function
+        comp.compile(PE.FuncE("upper", (PE.Col(0, pt.TEXT),), pt.TEXT),
+                     ["x.c"])
+    with pytest.raises(NotPorted):  # a scalar subquery's value
+        comp.compile(PE.SubqueryParam(0, ty[1]))
+    with pytest.raises(NotPorted):  # TEXT cast to a number
+        comp.compile(PE.CastE(PE.Col(0, pt.TEXT), ty[1]), ["x.c"])
 
 
 SPECS = ("sum", "count", "count_star", "min", "max")

@@ -230,9 +230,9 @@ def test_topk_plan_tries_the_dag_first(one_commit):
         # a join
         "select count(*) from lineitem a, lineitem b "
         "where a.l_orderkey = b.l_orderkey",
-        # an aggregate the certifier rejects (wide * wide): the reference
-        # runs it through its XLA-fused program
-        "select sum(l_extendedprice * l_extendedprice) from lineitem",
+        # a scalar subquery (the coordinator's subplans)
+        "select count(*) from lineitem "
+        "where l_quantity < (select avg(l_quantity) from lineitem)",
         # a non-aggregate scan
         "select l_orderkey from lineitem where l_quantity < 2",
         # a statement outside the slice
@@ -246,17 +246,31 @@ def test_outside_the_slice_raises_not_ported(one_commit, sql):
 
 
 def test_text_and_nullable_columns_not_ported():
+    """A NULL-able scan column and a TEXT predicate keep the fragment off
+    the kernel's route (the reference's certifier takes neither); they
+    once raised NotPorted here, and now run through the fragment
+    program, as the reference's XLA-fused program runs them."""
     port = Cluster(num_datanodes=2, device="cpu")
     s = port.session()
     s.execute("create table t (a int, b bigint, c text) "
               "distribute by roundrobin")
     s.execute("insert into t (a, b) values (1, 2), (3, null)")
-    with pytest.raises(NotPorted, match="NULL-able"):
-        s.query("select sum(b) from t")
-    # TEXT scan columns reach the kernel's route, whose certifier (the
-    # reference's rule) takes no TEXT predicate: the reference answers
-    # through its XLA-fused program, which is not ported
+    before = sa.scan_agg.launches
+    assert s.query("select sum(b), count(b), count(*) from t") == [(2, 1, 2)]
+    fx = port.fused_executor()
+    assert fx.last_route == "program" and fx.last_rung == ("scalar", None)
     s.execute("create table u (a int, c text) distribute by roundrobin")
     s.execute("insert into u values (1, 'x'), (2, 'y')")
-    with pytest.raises(NotPorted, match="certified subset"):
-        s.query("select count(*) from u where c = 'x'")
+    assert s.query("select count(*) from u where c = 'x'") == [(1,)]
+    assert fx.last_route == "program"
+    assert sa.scan_agg.launches == before
+
+
+def test_wide_product_runs_in_the_fragment_program(one_commit):
+    """An aggregate the certifier rejects (wide * wide) once raised
+    NotPorted; the reference runs it through its XLA-fused program, and
+    the port through its fragment program, with the same answer."""
+    _ref, rs, port, ps_ = one_commit
+    sql = "select sum(l_extendedprice * l_extendedprice) from lineitem"
+    assert ps_.query(sql) == rs.query(sql)
+    assert port.fused_executor().last_route == "program"
