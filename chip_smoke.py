@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 42] [--rows 60000000]
                           [--ssb-rows 60000000] [--q3-sf 10]
-                          [--hits-rows 60000000] [--repeats 5]
+                          [--hits-rows 60000000]
+                          [--sf100-rows 603979776] [--repeats 5]
 
 Phases, one line each; any failure raises and exits non-zero:
 
@@ -58,7 +59,19 @@ Phases, one line each; any failure raises and exits non-zero:
    from a torch.profiler trace, kernel ms from CUDA events at the main
    path's own inputs (held against the plain version there too), the
    plain version's ms, the bytes-over-bandwidth bound and the GB/s
-   moved.
+   moved;
+7. main path, bench.py's TPC-H SF100 leg: lineitem ``--sf100-rows``
+   (603 979 776 = 2^26 * 9, SF 100.6), orders a quarter, customer a
+   fortieth, made from ``--seed`` on the host (cut to what the host can
+   check, as bench.py cuts it, and printed as ``reduced:``), registered
+   on the card as device-resident external tables in one datanode.
+   OTB_SCAN_HBM_BUDGET is 11 GB and OTB_DIMFOLD_MAX 260 M rows, as
+   bench.py sets them, so that Q6's four resident columns (9.7 GB) stay
+   on K1's route and the 151 M-row orders side folds. Q6 through K1 in
+   one launch; Q3 through the windowed gagg (16 windows under the 6 GB
+   window budget) with the orders side hoisted and both joins folded,
+   all ten rows exact against numpy; K1 held against its plain version
+   at Q6's inputs.
 
 The second-to-last lines are the kernel table as JSON and the nvidia-smi
 line; the last line is the run's verdict as JSON. The script imports
@@ -350,6 +363,112 @@ def expected_q3(lineitem, orders, customer, building) -> list:
     return [(int(ok_[o]), int(sums[o]) / 10**4,
              str(np.datetime64(int(orders["o_orderdate"][o]), "D")),
              int(orders["o_shippriority"][o])) for o in top]
+
+
+# bench.py's TPC-H SF100 leg (bench.py:1645): int-typed columns (dates
+# as day numbers, prices and discounts as integers), one datanode, the
+# three tables round robin; lineitem 2^26 * 9 rows (SF 100.6), which the
+# window budget halves evenly into 16 windows, orders a quarter of it
+# (dense keys 1..N/4), customer a fortieth
+SF100_ROWS = 603_979_776
+SF100_DDL = (
+    "create table lineitem (l_orderkey int, l_quantity int, "
+    "l_extendedprice int, l_discount int, l_shipdate int) "
+    "distribute by roundrobin",
+    "create table orders (o_orderkey int, o_custkey int, "
+    "o_orderdate int, o_shippriority int) distribute by roundrobin",
+    "create table customer (c_custkey int, c_mktsegment int) "
+    "distribute by roundrobin",
+)
+SF100_Q6 = (
+    "select sum(l_extendedprice * l_discount) from lineitem "
+    "where l_shipdate >= 8766 and l_shipdate < 9131 "
+    "and l_discount between 5 and 7 and l_quantity < 2400"
+)
+SF100_Q3 = (
+    "select l_orderkey, sum(l_extendedprice * (10 - l_discount)), "
+    "o_orderdate, o_shippriority "
+    "from customer, orders, lineitem "
+    "where c_mktsegment = 0 and c_custkey = o_custkey "
+    "and l_orderkey = o_orderkey and o_orderdate < 9204 "
+    "and l_shipdate > 9204 "
+    "group by l_orderkey, o_orderdate, o_shippriority "
+    "order by 2 desc, o_orderdate limit 10"
+)
+
+
+def sf100_domains(n: int) -> dict:
+    """Each generated column's [lo, hi) (bench.py's specs_li, specs_ord
+    and customer's segment) for ``n`` lineitem rows."""
+    no, nc = n // 4, n // 40
+    return {
+        "lineitem": {
+            "l_orderkey": (1, no + 1), "l_quantity": (100, 5100),
+            "l_extendedprice": (900, 105001), "l_discount": (0, 11),
+            "l_shipdate": (8036, 8036 + 2556)},
+        "orders": {
+            "o_custkey": (1, nc + 1), "o_orderdate": (8036, 8036 + 2405),
+            "o_shippriority": (0, 3)},
+        "customer": {"c_mktsegment": (0, 5)},
+    }
+
+
+def make_sf100(n: int, seed: int = 42) -> dict:
+    """bench.py's SF100 tables at ``n`` lineitem rows, made from
+    ``seed`` with numpy (one stream a column, so each column is the same
+    whatever else is made): {table: {column: int32 array}}."""
+    out = {"orders": {"o_orderkey": np.arange(1, n // 4 + 1,
+                                              dtype=np.int32)},
+           "customer": {"c_custkey": np.arange(1, n // 40 + 1,
+                                               dtype=np.int32)},
+           "lineitem": {}}
+    rows = {"lineitem": n, "orders": n // 4, "customer": n // 40}
+    i = 0
+    for table, cols in sf100_domains(n).items():
+        for name, (lo, hi) in cols.items():
+            rng = np.random.default_rng([seed, i])
+            out[table][name] = rng.integers(lo, hi, rows[table],
+                                            dtype=np.int32)
+            i += 1
+    return out
+
+
+def expected_sf100_q6(t) -> list:
+    li = t["lineitem"]
+    ship, disc = li["l_shipdate"], li["l_discount"]
+    keep = ((ship >= 8766) & (ship < 9131) & (disc >= 5) & (disc <= 7)
+            & (li["l_quantity"] < 2400))
+    if not keep.any():
+        return [(None,)]
+    return [(int(np.sum(li["l_extendedprice"][keep].astype(np.int64)
+                        * disc[keep])),)]
+
+
+def expected_sf100_q3(t) -> list:
+    """All ten rows of SF100_Q3 in numpy: revenue per order of the lines
+    shipped after day 9204 of orders placed before it by segment-0
+    customers; ranked by revenue descending, then order date, then order
+    key (the device keeps the lowest key on a full tie). Order and
+    customer keys are dense from 1, so a key is its row + 1."""
+    li, od, cu = t["lineitem"], t["orders"], t["customer"]
+    seg0 = np.zeros(len(cu["c_custkey"]) + 1, dtype=bool)
+    seg0[cu["c_custkey"][cu["c_mktsegment"] == 0]] = True
+    okeep = np.zeros(len(od["o_orderkey"]) + 1, dtype=bool)
+    okeep[od["o_orderkey"]] = (od["o_orderdate"] < 9204) & seg0[
+        od["o_custkey"]]
+    m = li["l_shipdate"] > 9204
+    m &= okeep[li["l_orderkey"]]
+    key = li["l_orderkey"][m]
+    rev = li["l_extendedprice"][m].astype(np.int64) * (
+        10 - li["l_discount"][m])
+    # float64 sums are exact: every order's revenue is far below 2^53
+    sums = np.rint(np.bincount(key, weights=rev, minlength=len(okeep))
+                   ).astype(np.int64)
+    g = np.nonzero(np.bincount(key, minlength=len(okeep)))[0]
+    date = od["o_orderdate"][g - 1]
+    top = np.lexsort((g, date, -sums[g]))[:10]
+    return [(int(g[i]), int(sums[g[i]]), int(date[i]),
+             int(od["o_shippriority"][g[i] - 1])) for i in top]
 
 
 # hits' columns the queries here read, typed as ClickBench's create.sql
@@ -906,6 +1025,52 @@ def bulk_append(cluster, table: str, arrays) -> None:
         cluster.stores[node][table].append_batch(batch, commit_ts)
 
 
+class ExtStore:
+    """Planner and version stub for a device-resident external table
+    (bench.py's _ExtStore): no host rows, the device cache holds the
+    data (``DeviceCache.register_external``)."""
+
+    def __init__(self, nrows: int):
+        self.nrows = nrows
+        self.version = 1
+        self.structure_version = 0
+        self.mvcc_seq = 0
+
+
+def sf100_stats(n: int) -> dict:
+    """The optimizer stats bench.py gives the SF100 tables (what ANALYZE
+    would produce) at ``n`` lineitem rows."""
+    no, nc = n // 4, n // 40
+    return {
+        "lineitem": {"rows": n,
+                     "ndv": {"l_orderkey": no, "l_shipdate": 2556}},
+        "orders": {"rows": no, "ndv": {"o_orderkey": no, "o_custkey": nc}},
+        "customer": {"rows": nc,
+                     "ndv": {"c_custkey": nc, "c_mktsegment": 5}},
+    }
+
+
+def register_sf100(cluster, tables: dict) -> None:
+    """bench.py's SF100 registration: the DDL, a stub store and the
+    stats per table, and each table's columns ({column: [n] tensor on
+    the cluster's device}) handed to the device cache as one [1, n]
+    external table."""
+    s = cluster.session()
+    for ddl in SF100_DDL:
+        s.execute(ddl)
+    fx = cluster.fused_executor()
+    stats = sf100_stats(len(tables["lineitem"]["l_orderkey"]))
+    for table, cols in tables.items():
+        meta = cluster.catalog.get(table)
+        node = meta.node_indices[0]
+        rows = len(next(iter(cols.values())))
+        cluster.stores[node][table] = ExtStore(rows)
+        meta.stats = stats[table]
+        fx.cache.register_external(
+            table, meta, (node,), {c: a.reshape(1, rows)
+                                   for c, a in cols.items()}, [rows])
+
+
 def encode_text(meta, name: str, arr):
     """A TEXT column's strings as codes into the table's dictionary,
     minted in order of first appearance, as row-by-row inserts would
@@ -1221,7 +1386,9 @@ def trace_query(session, sql: str, repeats: int) -> dict:
     traced alone: busy is the union of the device intervals (kernels,
     copies, fills) in a torch.profiler trace of one Session.query, and
     the share is taken against the host clock around that same query,
-    which the profiler's own host work lengthens."""
+    which the profiler's own host work lengthens. The run returned is
+    the median of those whose trace holds device activity (of all of
+    them where none does)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1255,6 +1422,8 @@ def trace_query(session, sql: str, repeats: int) -> dict:
             "events": sorted({e.name for e in dev}),
             "top": sorted(by_kind.items(), key=lambda kv: -kv[1])[:5],
         })
+    # the profiler sometimes records no device activity for a run
+    runs = [r for r in runs if r["events"]] or runs
     runs.sort(key=lambda r: r["wall_ms"])
     return runs[len(runs) // 2]
 
@@ -1724,6 +1893,21 @@ def run_topk_query(name: str, cluster, sql: str, want: list, mode: str,
           f"{launches['scan_agg']}, radix_probe launches "
           f"{launches['radix_probe']}; {len(got)} groups; first run incl. "
           f"upload {first_ms:.3f} ms) {got[:2]}... [{card}]", flush=True)
+    return {"launches": launches, "first_ms": first_ms,
+            **measure_warm(name, cluster, sql, want, repeats, card, True,
+                           f" (mode {runner.last_mode})")}
+
+
+def measure_warm(name: str, cluster, sql: str, want: list, repeats: int,
+                 card: str, dag: bool, note: str) -> dict:
+    """The rest of a query whose first run was checked: the median of
+    ``repeats`` warm runs (each still equal to ``want``), the resident
+    and peak device memory over them, the layers (the device path
+    through the fused DAG where ``dag``) and one traced run, each
+    printed; returned as {e2e, layers, trace, resident_gb, peak_gb}."""
+    import torch
+
+    s = cluster.session()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ts = []
@@ -1734,13 +1918,13 @@ def run_topk_query(name: str, cluster, sql: str, want: list, mode: str,
         if got != want:
             raise AssertionError(f"{name}: answer changed between runs")
     e2e = statistics.median(ts)
-    print(f"end to end: {name} median {e2e:.3f} ms over {repeats} runs "
-          f"(mode {runner.last_mode}) [{card}]", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"end to end: {name} median {e2e:.3f} ms over {repeats} "
+          f"runs{note} [{card}]", flush=True)
     print(f"memory: {name} resident {resident / 1e9:.3f} GB (the cluster's "
-          f"planes), peak over the warm runs "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]",
+          f"planes), peak over the warm runs {peak / 1e9:.3f} GB [{card}]",
           flush=True)
-    layers = layer_breakdown(cluster, sql, repeats, dag=True)
+    layers = layer_breakdown(cluster, sql, repeats, dag=dag)
     print(f"layers: {name} median ms " + ", ".join(
         f"{k} {v:.3f}" for k, v in layers.items()) + f" [{card}]", flush=True)
     tr = trace_query(s, sql, repeats)
@@ -1752,10 +1936,8 @@ def run_topk_query(name: str, cluster, sql: str, want: list, mode: str,
           f"{tr['busy_ms']:.3f} ms, idle share {idle}; device events "
           f"{len(tr['events'])} kinds, the most device time: {top} "
           f"[{card}]", flush=True)
-    return {"e2e": e2e, "launches": launches, "layers": layers,
-            "trace": tr, "first_ms": first_ms,
-            "resident_gb": resident / 1e9,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return {"e2e": e2e, "layers": layers, "trace": tr,
+            "resident_gb": resident / 1e9, "peak_gb": peak / 1e9}
 
 
 def run_q3_dense(main: dict, args, card: str) -> dict:
@@ -1923,37 +2105,9 @@ def run_fragment_query(name: str, cluster, sql: str, want: list,
           f"launches {launches['radix_probe']}; {len(got)} rows; first "
           f"run incl. upload {first_ms:.3f} ms) {got[:2]}... [{card}]",
           flush=True)
-    resident = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ts = []
-    for _ in range(repeats):
-        t1 = time.perf_counter()
-        got = s.query(sql)
-        ts.append((time.perf_counter() - t1) * 1000)
-        if got != want:
-            raise AssertionError(f"{name}: answer changed between runs")
-    e2e = statistics.median(ts)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"end to end: {name} median {e2e:.3f} ms over {repeats} runs "
-          f"({route}) [{card}]", flush=True)
-    print(f"memory: {name} resident {resident / 1e9:.3f} GB (the cluster's "
-          f"planes), peak over the warm runs {peak / 1e9:.3f} GB [{card}]",
-          flush=True)
-    layers = layer_breakdown(cluster, sql, repeats)
-    print(f"layers: {name} median ms " + ", ".join(
-        f"{k} {v:.3f}" for k, v in layers.items()) + f" [{card}]", flush=True)
-    tr = trace_query(s, sql, repeats)
-    idle = ("not measured (no device events in the trace)"
-            if tr["idle_share"] is None else f"{tr['idle_share']:.4f}")
-    top = "; ".join(f"{k} {v:.3f} ms" for k, v in tr["top"])
-    print(f"trace: {name} one query under torch.profiler, median of "
-          f"{repeats}: host {tr['wall_ms']:.3f} ms, device busy "
-          f"{tr['busy_ms']:.3f} ms, idle share {idle}; device events "
-          f"{len(tr['events'])} kinds, the most device time: {top} "
-          f"[{card}]", flush=True)
-    return {"e2e": e2e, "launches": launches, "layers": layers,
-            "trace": tr, "first_ms": first_ms, "route": seen,
-            "resident_gb": resident / 1e9, "peak_gb": peak / 1e9}
+    return {"launches": launches, "first_ms": first_ms, "route": seen,
+            **measure_warm(name, cluster, sql, want, repeats, card, False,
+                           f" ({route})")}
 
 
 def time_k1_at(cluster, queries: dict, card: str) -> list:
@@ -2007,6 +2161,138 @@ def time_k1_at(cluster, queries: dict, card: str) -> list:
               f"[{card}]", flush=True)
     kernel.launches = n0  # comparison and timing launches are not counted
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: bench.py's TPC-H SF100 leg, device-resident external tables
+# ---------------------------------------------------------------------------
+
+
+def sf100_rows(requested: int) -> int:
+    """``requested`` lineitem rows, cut as bench.py cuts them to what the
+    host can hold for the numpy check (MemAvailable / 2 at 40 bytes a
+    row), rounded down to a multiple of 2^20 so the window halving still
+    divides it; a cut is printed."""
+    avail = 0
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable"):
+                    avail = int(line.split()[1]) * 1024
+                    break
+    except OSError:
+        pass
+    cap = avail // 2 // 40
+    if avail and requested > cap:
+        n = cap >> 20 << 20
+        print(f"reduced: SF100 lineitem {requested} -> {n} rows ({avail} "
+              f"bytes of host memory available)", flush=True)
+        return n
+    return requested
+
+
+def run_sf100_query(name: str, cluster, sql: str, want: list, check,
+                    k1: int, repeats: int, card: str) -> dict:
+    """One query of phase 7: the first run exact against numpy, in the
+    state ``check`` confirms (it returns that state's description), with
+    K1 launched ``k1`` times and K2 never (counts from 0 around it); then
+    ``measure_warm``."""
+    import torch
+
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    s = cluster.session()
+    rp.radix_probe.launches = 0
+    sa.scan_agg.launches = 0
+    t1 = time.perf_counter()
+    got = s.query(sql)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1000
+    launches = {"scan_agg": sa.scan_agg.launches,
+                "radix_probe": rp.radix_probe.launches}
+    if got != want:
+        raise AssertionError(f"{name}: port {got} != numpy {want}")
+    state = check()
+    if launches != {"scan_agg": k1, "radix_probe": 0}:
+        raise AssertionError(f"{name}: launches {launches}, want "
+                             f"scan_agg {k1}, radix_probe 0")
+    print(f"main path: {name} exact ({state}; scan_agg launches "
+          f"{launches['scan_agg']}, radix_probe launches "
+          f"{launches['radix_probe']}; {len(got)} rows; first run "
+          f"{first_ms:.3f} ms) {got[:2]}... [{card}]", flush=True)
+    fx = cluster.fused_executor()
+    dag = bool(s._fused_via_dag)
+    route = ("dag", fx._dag.last_mode) if dag else (fx.last_route,
+                                                    fx.last_rung)
+    return {"launches": launches, "first_ms": first_ms, "route": route,
+            **measure_warm(name, cluster, sql, want, repeats, card, dag,
+                           "")}
+
+
+def run_sf100(args, device, card: str) -> dict:
+    """Phase 7: bench.py's SF100 leg at ``--sf100-rows`` (default its
+    603 979 776): the tables made from ``--seed`` on the host, checked
+    there in numpy, and registered on the card as external tables in one
+    datanode (``register_sf100``). Q6 through K1 in one launch; Q3
+    through the windowed gagg (16 windows at the full size) with the
+    orders side hoisted and every join folded, all ten rows exact; then
+    K1 held against its plain version at Q6's inputs."""
+    import torch
+
+    from opentenbase_tpu_torch import Cluster
+
+    n = sf100_rows(args.sf100_rows)
+    t0 = time.perf_counter()
+    tables = make_sf100(n, args.seed)
+    t1 = time.perf_counter()
+    want6 = expected_sf100_q6(tables)
+    want3 = expected_sf100_q3(tables)
+    t2 = time.perf_counter()
+    cluster = Cluster(num_datanodes=1, shard_groups=16, device=device)
+    register_sf100(cluster, {
+        t: {c: torch.from_numpy(a).to(device) for c, a in cols.items()}
+        for t, cols in tables.items()})
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"load: TPC-H SF100 (bench.py's leg): lineitem {n}, orders "
+          f"{n // 4}, customer {n // 40} rows made on the host in "
+          f"{t1 - t0:.3f} s, numpy Q6 and Q3 in {t2 - t1:.3f} s, "
+          f"registered on the card as external tables in {t3 - t2:.3f} s "
+          f"({torch.cuda.memory_allocated() / 1e9:.3f} GB); kept out of "
+          f"the query times [{card}]", flush=True)
+    del tables
+    fx = cluster.fused_executor()
+
+    def q6_state():
+        if fx.last_route != "scan_agg":
+            raise AssertionError(f"SF100 Q6: route {fx.last_route}")
+        return "route scan_agg"
+
+    def q3_state():
+        r = fx._dag
+        seen = (r.last_mode, r.last_hoisted, r.last_join_modes)
+        # joins post-order: customer into orders 0 (folded inside the
+        # prep), orders into lineitem 1 (folded in every window)
+        if seen != ("wgagg", True, ("fold",)) or r.last_folded != {1}:
+            raise AssertionError(f"SF100 Q3: mode, hoisted, join modes "
+                                 f"{seen}, folded {r.last_folded}")
+        if not any(k[0] == "prep" for k in r._programs):
+            raise AssertionError("SF100 Q3: no prep program compiled")
+        nwin, width, cap = r.last_windows
+        return (f"mode wgagg over {nwin} windows of {width} rows, final "
+                f"capacity {cap}, build side hoisted, join modes "
+                f"{r.last_join_modes}, joins folded {sorted(r.last_folded)}, "
+                f"reruns {r.last_retries}")
+
+    out = {"rows": n}
+    out["SF100 Q6"] = run_sf100_query("SF100 Q6", cluster, SF100_Q6, want6,
+                                      q6_state, 1, args.repeats, card)
+    out["SF100 Q3"] = run_sf100_query("SF100 Q3", cluster, SF100_Q3, want3,
+                                      q3_state, 0, args.repeats, card)
+    out["windows"] = fx._dag.last_windows
+    out["k1_rows"] = time_k1_at(cluster, {"SF100 Q6": SF100_Q6}, card)
+    return out
 
 
 def capture_probe_inputs(ssb: dict, sql: str):
@@ -2082,8 +2368,14 @@ def main(argv=None) -> int:
     ap.add_argument("--ssb-rows", type=int, default=60_000_000)
     ap.add_argument("--q3-sf", type=float, default=10.0)
     ap.add_argument("--hits-rows", type=int, default=60_000_000)
+    ap.add_argument("--sf100-rows", type=int, default=SF100_ROWS)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
+    # bench.py's knobs for its SF100 leg, set before the port reads them
+    # at import: the 151 M-row orders side must pass the fold gate, and
+    # Q6's four resident columns (9.7 GB) must stay on K1's route
+    os.environ.setdefault("OTB_DIMFOLD_MAX", "260000000")
+    os.environ.setdefault("OTB_SCAN_HBM_BUDGET", "11000000000")
 
     import torch
 
@@ -2141,6 +2433,9 @@ def main(argv=None) -> int:
     gc.collect()  # Q3's cluster, before hits loads
     torch.cuda.empty_cache()
     topk["ClickBench"] = run_clickbench(args, device, card)
+    gc.collect()  # hits' cluster, before the SF100 tables load
+    torch.cuda.empty_cache()
+    sf100 = run_sf100(args, device, card)
     # K1's and K2's launches in every path's run, the new queries too
     path_launches = {
         "scan_agg": {**launches_tpch, **ssb_run["k1_launches"],
@@ -2150,7 +2445,9 @@ def main(argv=None) -> int:
     # phase 6's queries ran in phase 5c's clusters
     frag = {**topk["Q3 spec"].pop("fragment"),
             **topk["ClickBench"].pop("fragment")}
-    k1_rows = topk["ClickBench"].pop("k1_rows")
+    k1_rows = topk["ClickBench"].pop("k1_rows") + sf100.pop("k1_rows")
+    sf100_rows_n, windows = sf100.pop("rows"), sf100.pop("windows")
+    frag.update(sf100)
     for q, r in {**topk, **frag}.items():
         for k, n in r["launches"].items():
             path_launches[k][q] = n
@@ -2227,6 +2524,8 @@ def main(argv=None) -> int:
                       "trace": trace,
                       "rows": args.rows, "ssb_rows": args.ssb_rows,
                       "q3_sf": args.q3_sf, "hits_rows": args.hits_rows,
+                      "sf100_rows": sf100_rows_n,
+                      "sf100_q3_windows": windows,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

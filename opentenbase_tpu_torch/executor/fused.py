@@ -19,16 +19,20 @@ aggregate over the same cached planes.
 
 Ported: the full upload of ``DeviceCache`` for any table (all shards, or
 one replica of a replicated table; compact [S, 1] MVCC planes when every
-shard is uniform), the host column stats the certifier reads, the
+shard is uniform), device-resident external tables
+(``register_external``), the host column stats the certifier reads, the
 fragment matcher, ``fragment_output`` (the kernel, then the program) and
 ``dag_output``. Not ported: delta-tail uploads, MVCC replay, zone
-windows and chunked scans. Where the reference's program declines and
-its host executor answers (min/max over TEXT, the sort mode past its
-capacity), the port raises NotPorted.
+windows and chunked scans: a scan whose resident footprint passes
+``SCAN_HBM_BUDGET``, which the reference streams in windows, raises
+NotPorted. Where the reference's program declines and its host executor
+answers (min/max over TEXT, the sort mode past its capacity), the port
+raises NotPorted.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from dataclasses import dataclass
 from typing import Optional
@@ -55,6 +59,11 @@ from opentenbase_tpu_torch.storage.table import ColumnBatch
 # DEFAULT_GROUP_CAP); the first rung takes min(64, this)
 DEFAULT_GROUP_CAP = 1024
 
+# Resident ceiling for one table's scan columns: past it the reference
+# streams fixed-width shard windows instead of caching the whole table
+# (its chunked scan, not ported: the port raises NotPorted there).
+SCAN_HBM_BUDGET = int(os.environ.get("OTB_SCAN_HBM_BUDGET", 8_000_000_000))
+
 
 # ---------------------------------------------------------------------------
 # Device table cache: stacked shards on the device
@@ -79,6 +88,9 @@ class DeviceTable:
     col_maxabs: dict[str, Optional[float]]
     # host-side [min, max] per integer column: sizes the group-key domain
     col_range: dict[str, Optional[tuple[int, int]]]
+    # registered on the device (``register_external``): no host rows
+    # back it, so no column can upload later
+    external: bool = False
 
 
 class DeviceCache:
@@ -113,6 +125,12 @@ class DeviceCache:
     ) -> DeviceTable:
         cached = self._tables.get((name, nodes))
         if cached is not None and cached.versions == versions:
+            if cached.external:
+                missing = [c for c in want if c not in cached.columns]
+                if missing:
+                    raise KeyError(f"external table {name!r} holds no "
+                                   f"column {missing[0]!r}")
+                return cached
             self._ensure_columns(cached, stores, meta, want)
             return cached
         self._tables.pop((name, nodes), None)  # free the stale planes
@@ -160,6 +178,59 @@ class DeviceCache:
         )
         self._ensure_columns(dt, stores, meta, want, totals, views)
         self._tables[(name, nodes)] = dt
+        return dt
+
+    def register_external(
+        self, name: str, meta, nodes, columns: dict, nrows, versions=None,
+    ) -> DeviceTable:
+        """Register a table whose columns already lie on the device and
+        never lived in host stores (benchmark data generated on the
+        card). ``columns``: {name: [S, rmax] tensor} covering every
+        column a query will read (nothing can upload later); ``rmax`` is
+        any row count, not bucket-padded; ``nrows`` the live rows of
+        each shard. Visibility is compact all-visible [S, 1] planes. The
+        column stats are taken over live rows only, in one transfer.
+        Pair it with stub stores exposing ``.nrows`` and ``.version`` so
+        the planner's estimates and the version checks keep working."""
+        nodes = tuple(nodes)
+        first = next(iter(columns.values()))
+        S, rmax = first.shape
+        dev = self.device
+        nr = np.zeros(S, dtype=np.int64)
+        nr[: len(nrows)] = nrows
+        nr_dev = torch.from_numpy(nr.copy()).to(dev)
+        live = torch.arange(rmax, device=dev)[None, :] < nr_dev[:, None]
+        cols = {c: a.to(dev) for c, a in columns.items()}
+        ints = [c for c, a in cols.items()
+                if not a.dtype.is_floating_point and a.dtype != torch.bool]
+        stats = []
+        for c in ints:
+            a = cols[c]
+            info = torch.iinfo(a.dtype)
+            # padding past nrows holds anything: it must not widen the
+            # range the certifier and the narrow operands read
+            stats.append(torch.where(live, a, info.max).amin().to(
+                torch.int64).reshape(1))
+            stats.append(torch.where(live, a, info.min).amax().to(
+                torch.int64).reshape(1))
+        host = _to_host([torch.cat(stats)])[0] if stats else []
+        col_range: dict = {c: None for c in cols}
+        col_maxabs: dict = {c: None for c in cols}
+        for i, c in enumerate(ints):
+            lo, hi = int(host[2 * i]), int(host[2 * i + 1])
+            col_range[c] = (lo, hi)
+            col_maxabs[c] = float(max(abs(lo), abs(hi)))
+        if versions is None:
+            versions = (1,) * len(nodes)
+        dt = DeviceTable(
+            cols, {c: None for c in cols},
+            torch.zeros((S, 1), dtype=torch.int64, device=dev),
+            torch.full((S, 1), 2**62, dtype=torch.int64, device=dev),
+            nr, nr_dev, rmax, tuple(versions), col_maxabs, col_range,
+            external=True,
+        )
+        with self._mu:
+            self._tables[(name, nodes)] = dt
         return dt
 
     def _ensure_columns(
@@ -296,6 +367,10 @@ class FusedExecutor:
         meta = self.catalog.get(m.scan.table)
         if tuple(meta.node_indices) != tuple(frag.nodes):
             return None
+        if self._resident_bytes(meta, m.scan.columns) > SCAN_HBM_BUDGET:
+            raise NotPorted(
+                "chunked scan (the scan's resident footprint passes "
+                "OTB_SCAN_HBM_BUDGET: the reference streams shard windows)")
         dtab = self.cache.get(
             m.scan.table, meta, self.node_stores, frag.nodes,
             columns=m.scan.columns,
@@ -305,6 +380,35 @@ class FusedExecutor:
             self.last_route, self.last_rung = "scan_agg", None
             return out
         return self._run_program(m, dtab, snapshot_ts)
+
+    def _scan_footprint(self, meta, columns) -> tuple[int, int, int, int]:
+        """(resident bytes, row bytes, S, largest shard's rows) of
+        caching ``columns`` of a table (with 16 bytes a row of MVCC
+        timestamps) at the padded width: the model the chunk trigger
+        reads. A table already resident with every wanted column (a
+        ``register_external`` table: exact row capacity, compact MVCC
+        planes) reports its actual bytes, which the padded estimate
+        would overstate."""
+        row_bytes = 16 + sum(
+            np.dtype(meta.schema[c].np_dtype).itemsize + 1 for c in columns
+        )
+        mx = 0
+        for n in meta.node_indices:
+            s = self.node_stores.get(n, {}).get(meta.name)
+            if s is not None:
+                mx = max(mx, s.nrows)
+        S = len(meta.node_indices)
+        dt = self.cache._tables.get((meta.name, tuple(meta.node_indices)))
+        if dt is not None and all(c in dt.columns for c in columns):
+            actual = sum(
+                _nbytes(dt.columns[c]) + _nbytes(dt.validity.get(c))
+                for c in columns
+            ) + _nbytes(dt.xmin) + _nbytes(dt.xmax)
+            return actual, row_bytes, S, mx
+        return S * bucket_size(max(mx, 1)) * row_bytes, row_bytes, S, mx
+
+    def _resident_bytes(self, meta, columns) -> int:
+        return self._scan_footprint(meta, columns)[0]
 
     # -- the fragment program (the reference's XLA-fused program) ----------
     def _run_program(self, m, dtab, snapshot_ts) -> ColumnBatch:
@@ -623,23 +727,27 @@ def _bcast(kv, n: int):
     return (d, v)
 
 
+def _nbytes(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
 def _to_host(tensors: list) -> list:
-    """numpy copies of ``tensors`` (None stays None) from one
+    """numpy arrays of ``tensors`` (None stays None) from one
     device-to-host transfer: their bytes ride one buffer, so the host
-    waits for the device once."""
+    waits for the device once. The widest elements go first, so each
+    array is an aligned view into the buffer (no copy on the host)."""
     flat = [None if t is None else t.reshape(-1).contiguous()
             for t in tensors]
-    live = [t for t in flat if t is not None]
-    if not live:
+    order = sorted((i for i, f in enumerate(flat) if f is not None),
+                   key=lambda i: -flat[i].element_size())
+    if not order:
         return flat
-    buf = torch.cat([t.view(torch.uint8) for t in live]).cpu().numpy()
-    out, off = [], 0
-    for t, f in zip(tensors, flat):
-        if t is None:
-            out.append(None)
-            continue
-        nb = f.numel() * f.element_size()
+    buf = torch.cat([flat[i].view(torch.uint8) for i in order]).cpu().numpy()
+    out, off = list(flat), 0
+    for i in order:
+        t = tensors[i]
+        nb = flat[i].numel() * flat[i].element_size()
         dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(buf[off:off + nb].view(dtype).reshape(t.shape).copy())
+        out[i] = buf[off:off + nb].view(dtype).reshape(t.shape)
         off += nb
     return out

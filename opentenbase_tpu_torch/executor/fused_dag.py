@@ -46,9 +46,17 @@ base retries with segmented add scans, and a ranking key whose range
 passes 2^62 ships every group unranked. Ties at the k-th row go to the
 lowest position, as in the reference.
 
-Ported: the scalar, grouped, gagg, gsort and grouped_topk final modes
-with their retry loops, inner joins, and the join-mode notes
-(``last_join_modes``). Where the reference would window gagg (wgagg),
+A gagg whose sort operands would pass the window budget
+(``OTB_DAG_WINDOW_BUDGET``) runs windowed (wgagg): the dominant scan leaf
+streams in shard-row windows through the same tree, each window leaves
+its compact per-group partials on the device, and one merge program
+regroups, ranks and ships the k rows. A big build side of the top join
+is hoisted: evaluated and key-sorted once, then read presorted by every
+window.
+
+Ported: the scalar, grouped, gagg, wgagg (with the hoist), gsort and
+grouped_topk final modes with their retry loops, inner joins, and the
+join-mode notes (``last_join_modes``). Where the reference would
 segment-reduce over the build rows (gseg) or ship rows (rows,
 rows_topk), and for semi/anti joins and the multi-device exchanges, the
 port raises NotPorted.
@@ -57,12 +65,14 @@ port raises NotPorted.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import torch
 
 from opentenbase_tpu_torch import types as t
 from opentenbase_tpu_torch.errors import NotPorted
+from opentenbase_tpu_torch.executor.fused import _to_host
 from opentenbase_tpu_torch.ops import join as join_ops
 from opentenbase_tpu_torch.ops import radix_probe as rp
 from opentenbase_tpu_torch.ops import agg as agg_ops
@@ -77,7 +87,7 @@ from opentenbase_tpu_torch.storage.table import ColumnBatch
 
 # Dimension fold: an inner join whose build side is this small (and at
 # most half the probe) is first tried as a dense direct-index lookup.
-DIMFOLD_MAX_BUILD = 33_554_432
+DIMFOLD_MAX_BUILD = int(os.environ.get("OTB_DIMFOLD_MAX", 33_554_432))
 
 _JOINABLE_KEY_TYPES = (
     t.TypeId.INT4, t.TypeId.INT8, t.TypeId.BOOL,
@@ -89,6 +99,15 @@ _PROGRAM_CACHE_MAX = 64
 # First group capacity of a grouped run; a run that finds more groups
 # reruns once at the bucketed count, and the count that fit is kept.
 OPTIMISTIC_GROUP_CAP = 1 << 16
+
+# A wgagg window's first capacity for its compact partials: a quarter of
+# its rows, at least this many; a window with more groups doubles it.
+WGAGG_MIN_CAP = 4096
+
+# The sentinels of wgagg's raw int64 sort keys: NULL keys sort just below
+# dead rows, and every live key must stay strictly inside (-DEADS, NULLS).
+_NULLS = 2**62 - 1
+_DEADS = 2**62
 
 
 class DagUnsupported(NotPorted):
@@ -128,12 +147,16 @@ def _walk_leaves(node: L.LogicalPlan):
         raise DagUnsupported(type(node).__name__)
 
 
-def _leaf_arrays(fx, node):
-    """Device tensors for one scan leaf, fetched fresh every run so a
-    cached program sees current data: (columns, non-None validities,
-    xmin, xmax, nrows)."""
-    if not isinstance(node, L.Scan):
-        raise DagUnsupported("remote source order")
+def _leaf_arrays(fx, node, sources: dict):
+    """Device tensors for one leaf, fetched fresh every run so a cached
+    program sees current data. A scan: (columns, non-None validities,
+    xmin, xmax, nrows). A device-resident source (the hoisted build
+    side): (columns [1, cap], validities or None, live counts [1])."""
+    if isinstance(node, RemoteSource):
+        src = sources.get(node.fragment)
+        if src is None:
+            raise DagUnsupported("remote source order")
+        return (src["cols"], src["valids"], src["counts"])
     meta = fx.catalog.get(node.table)
     nodes = _scan_nodes(meta)
     for n in nodes:
@@ -150,8 +173,8 @@ def _leaf_arrays(fx, node):
     )
 
 
-def _collect_arrays(fx, root) -> list:
-    return [_leaf_arrays(fx, n) for n in _walk_leaves(root)]
+def _collect_arrays(fx, root, sources=None) -> list:
+    return [_leaf_arrays(fx, n, sources or {}) for n in _walk_leaves(root)]
 
 
 def _inline_sources(node, producers: dict):
@@ -716,7 +739,7 @@ def _chain_leaf(node, folded_ids=None, est=None):
                 offset += nl
                 width = len(node.schema)
             continue
-        if isinstance(node, L.Scan):
+        if isinstance(node, (L.Scan, RemoteSource)):
             return node, range(offset, offset + width)
         return None
 
@@ -812,11 +835,14 @@ def _lookup_radix(pk, pmask, bk, bmask, budget, fallback):
     return matched, bidx, flag
 
 
-def _lookup_dense(pk, pmask, bk, bvis, bfull):
+def _lookup_dense(pk, pmask, bk, bvis, bfull, presorted=False):
     """Equi-join for a small dense-keyed build side: sort the build rows
     by key, then verify the VISIBLE keys form a gap-free unique range
     [base, base + cnt) (sorted position i holds key base + i). When they
     do, the sorted rows are a perfect-hash table: slot = key - base.
+    ``presorted``: a fold-prep program already key-sorted the rows; the
+    position check still verifies it (a row out of place or dead breaks
+    sk[i] == base + i).
 
     The density domain is ``bvis`` (storage visibility only); query
     predicates arrive as ``bfull`` and act as slot validity, so a
@@ -836,18 +862,19 @@ def _lookup_dense(pk, pmask, bk, bvis, bfull):
         )
     breal = bvis if bv is None else (bvis & bv)
     preal = pmask if pv is None else (pmask & pv)
-    bkey = torch.where(
-        breal, bd.to(torch.int64), torch.full_like(bd, 2**62,
-                                                    dtype=torch.int64)
-    )
-    sk, sidx = torch.sort(bkey)
+    bkey = torch.where(breal, bd.to(torch.int64), 2**62)
+    if presorted:  # position i is row i
+        sk, sidx = bkey, None
+    else:
+        sk, sidx = torch.sort(bkey)
     cnt = mask_count(breal)
     iota = torch.arange(nb, dtype=torch.int64, device=dev)
     base = sk[0]
     dense = torch.all((iota >= cnt) | (sk == base + iota))
     slot = pd.to(torch.int64) - base
     inr = (slot >= 0) & (slot < cnt)
-    bidx = sidx[slot.clamp(0, nb - 1)].to(torch.int32)
+    slot = slot.clamp(0, nb - 1)
+    bidx = (slot if sidx is None else sidx[slot]).to(torch.int32)
     matched = inr & preal & bfull[bidx]
     return matched, bidx, ~dense
 
@@ -899,7 +926,8 @@ def _gather(env, bidx):
 
 class _Builder:
     def __init__(self, fx, comp: ExprCompiler, orientation: tuple, root,
-                 runner, offs=(frozenset(), frozenset())):
+                 runner, offs=(frozenset(), frozenset()), window=None,
+                 sources=None):
         self.fx = fx
         self.comp = comp
         self.orientation = orientation
@@ -918,6 +946,11 @@ class _Builder:
         self.radix_budget = batchplan.resolve_budget(
             0, "OTB_RADIX_HBM_BUDGET", batchplan.DEFAULT_EXCHANGE_BUDGET
         )
+        # (leaf id, W): that scan leaf reads only the shard rows
+        # [wstart, wstart + W) a run, wstart appended to its block tuple
+        self.window = window
+        # device-resident sources by fragment (the hoisted build side)
+        self.sources = sources or {}
 
     def jinfo(self) -> tuple:
         """(folded, radixed) join-index sets for THIS compile: whether a
@@ -935,14 +968,27 @@ class _Builder:
         )
         idx = self.leaf_index[id(node)]
         rmax = dtab.rmax
+        win = (self.window[1] if self.window is not None
+               and self.window[0] == id(node) else None)
 
         def run(blocks, params, snap):
             # visibility planes are [k, Rmax] or compact [k, 1]: the 2-D
             # compares broadcast either form
-            cols, valids, xmin, xmax, nrows = blocks[idx]
+            if win is None:
+                cols, valids, xmin, xmax, nrows = blocks[idx]
+                rows = torch.arange(rmax, device=nrows.device)
+            else:
+                # the window's views: wstart + W never passes rmax (the
+                # width divides it)
+                cols, valids, xmin, xmax, nrows, wstart = blocks[idx]
+                cut = slice(wstart, wstart + win)
+                cols = [c[:, cut] for c in cols]
+                valids = [v[:, cut] for v in valids]
+                if xmin.shape[1] != 1:
+                    xmin, xmax = xmin[:, cut], xmax[:, cut]
+                rows = wstart + torch.arange(win, device=nrows.device)
             k = xmin.shape[0]
-            n = k * rmax
-            rows = torch.arange(rmax, device=nrows.device)
+            n = k * rows.shape[0]
             live = (
                 (rows[None, :] < nrows[:, None])
                 & (xmin <= snap) & (snap < xmax)
@@ -956,6 +1002,25 @@ class _Builder:
                     vi += 1
                 else:
                     env.append((d, None))
+            return env, live, n, []
+
+        return run
+
+    def _leaf_source(self, node: RemoteSource) -> Callable:
+        """A device-resident source: [1, cap] columns whose first
+        ``counts`` rows are live."""
+        if node.fragment not in self.sources:
+            raise DagUnsupported("remote source order")
+        idx = self.leaf_index[id(node)]
+
+        def run(blocks, params, snap):
+            cols, valids, counts = blocks[idx]
+            dsrc, cap = cols[0].shape
+            n = dsrc * cap
+            live = (torch.arange(cap, device=counts.device)[None, :]
+                    < counts[:, None]).reshape(n)
+            env = [(d.reshape(n), None if v is None else v.reshape(n))
+                   for d, v in zip(cols, valids)]
             return env, live, n, []
 
         return run
@@ -993,6 +1058,9 @@ class _Builder:
 
         if isinstance(node, L.Scan):
             return self._leaf_scan(node)
+
+        if isinstance(node, RemoteSource):
+            return self._leaf_source(node)
 
         if isinstance(node, L.Join):
             return self._build_join(node)
@@ -1032,6 +1100,7 @@ class _Builder:
         )
         use_radix = False
         bstrip_fn = None
+        presorted = False
         if fold:
             self.folded.add(ji)
             self.folded_ids[id(node)] = build_right
@@ -1040,6 +1109,8 @@ class _Builder:
             bnode = node.right if build_right else node.left
             leaf, _lp = _chain_leaf(bnode, self.folded_ids)
             bstrip_fn = self.build(leaf)
+            presorted = isinstance(leaf, RemoteSource) and bool(
+                self.sources.get(leaf.fragment, {}).get("presorted"))
         else:
             use_radix = _radix_gate(
                 self.runner, node, ji, build_right, self.radix_off
@@ -1065,7 +1136,7 @@ class _Builder:
             if fold:
                 _benv, bvis, _bn, _bf = bstrip_fn(blocks, params, snap)
                 matched, bidx, flag = _lookup_dense(
-                    pk, pmask, bk, bvis, bmask
+                    pk, pmask, bk, bvis, bmask, presorted
                 )
             elif use_radix:
                 matched, bidx, flag = _lookup_radix(
@@ -1142,6 +1213,16 @@ class DagRunner:
         # join formulations the last run compiled ('fold'/'radix'/'merge')
         self.last_join_modes: tuple = ()
         self._mode_notes: set = set()
+        # the last wgagg run: (windows, window width, final capacity),
+        # whether its build side was hoisted, and the reruns each kind of
+        # flag caused ('flag': a join's, 'cap': a window's capacity,
+        # 'robust': the cumsum run base's)
+        self.last_windows: Optional[tuple] = None
+        self.last_hoisted = False
+        self.last_retries: dict = {}
+        # sources that stand for a subtree (the hoisted build side):
+        # fragment -> the subtree, for row estimates
+        self._producers: dict = {}
 
     def run(self, dplan, snapshot_ts) -> tuple[int, ColumnBatch]:
         """Execute the whole fragment DAG on the device: (final fragment
@@ -1218,6 +1299,9 @@ class DagRunner:
                 if (st := self.fx.node_stores.get(n, {}).get(node.table))
                 is not None
             )
+        if isinstance(node, RemoteSource):
+            pr = self._producers.get(node.fragment)
+            return self._est_rows(pr) if pr is not None else 0
         kids = node.children() if isinstance(node, L.LogicalPlan) else ()
         return max((self._est_rows(c) for c in kids), default=0)
 
@@ -1300,10 +1384,10 @@ class DagRunner:
 
     def _wgagg_leaf(self, root, agg):
         """(leaf, width, rmax) when the gagg program's sort operands
-        would pass the window budget, so the reference streams the
-        dominant scan leaf in shard-row windows (wgagg); None when it
-        all fits. The port has no windowed program: the caller refuses
-        the plan where the reference would window it."""
+        would pass the window budget, so the dominant scan leaf streams
+        in shard-row windows (wgagg); None when it all fits. ``rmax`` is
+        the cache's actual capacity (an external table's is exact, not
+        bucket-padded), and the width halves it evenly."""
         budget = batchplan.resolve_budget(
             0, "OTB_DAG_WINDOW_BUDGET", batchplan.DEFAULT_WINDOW_BUDGET)
         leaves = [lf for lf in _walk_leaves(root) if isinstance(lf, L.Scan)]
@@ -1412,11 +1496,14 @@ class DagRunner:
                     gs = _detect_gsort(agg, root, orientation)
                     if gs is None:
                         ga = ga_ok
-            if ga is not None and self._wgagg_leaf(root, agg) is not None:
-                raise NotPorted(
-                    "fused DAG wgagg mode (the gagg sort operands pass the "
-                    "window budget, OTB_DAG_WINDOW_BUDGET: the reference "
-                    "streams the probe in windows)")
+            if ga is not None:
+                # bigger than the window budget: the dominant scan leaf
+                # streams through the same program in windows
+                wplan = self._wgagg_leaf(root, agg)
+                if wplan is not None:
+                    return self._run_wgagg(wplan, agg, root, tk, skey,
+                                           orientation, sig, versions,
+                                           snap, out_proj)
             bg = None
             if tk is not None and gs is None and ga is None:
                 bg = _detect_build_group(agg, root, orientation)
@@ -1432,20 +1519,12 @@ class DagRunner:
             fkey = ("final", skey, orientation, sig, fo, versions,
                     gcap if grouped else None, packing, tk,
                     gs is not None, ga is not None, narrow, robust)
-            entry = self._programs.get(fkey)
-            if entry is None:
-                entry = self._compile_final(
+            prog, comp, mode, jinfo, modes = self._cached(
+                fkey, lambda: self._compile_final(
                     agg, root, orientation, fo, gcap, packing, tk, gs,
-                    ga is not None, narrow, robust)
-                self._programs[fkey] = entry
-                while len(self._programs) > _PROGRAM_CACHE_MAX:
-                    self._programs.pop(next(iter(self._programs)))
-            prog, comp, mode, jinfo, modes = entry
+                    ga is not None, narrow, robust))
             self._mode_notes |= modes
-            host_params = [
-                resolve_param_host(s, self.fx.catalog.dictionary)
-                for s in comp.params
-            ]
+            host_params, params = self._bind(comp)
             if grouped and gcapkey is None:
                 # the capacity that fit is data-dependent: keyed by data
                 # versions and the literal values
@@ -1455,8 +1534,6 @@ class DagRunner:
                 if known is not None and known != gcap:
                     gcap = known
                     continue  # compile or look up at that capacity
-            params = tuple(torch.from_numpy(p).to(self.fx.device)
-                           for p in host_params)
             outs, flags = prog(arrays, params, snap)
             self.last_mode = mode
             self.last_folded = jinfo[0]
@@ -1489,7 +1566,7 @@ class DagRunner:
             if mode in ("gagg", "gsort"):
                 out_keys, out_vals, sel, _ok = outs
                 return self._apply_proj(
-                    self._collect_grouped(agg, out_keys, out_vals, sel),
+                    self._collect_grouped(agg, out_keys, out_vals, sel)[0],
                     out_proj)
             if not grouped:
                 return self._collect_scalar(agg, outs)
@@ -1500,9 +1577,401 @@ class DagRunner:
                 continue
             self._remember(self._caps, gcapkey, gcap)
             return self._apply_proj(
-                self._collect_grouped(agg, out_keys, out_vals, gvalid),
+                self._collect_grouped(agg, out_keys, out_vals, gvalid)[0],
                 out_proj,
             )
+
+    def _bind(self, comp) -> tuple:
+        """(host values, device tensors) of a compiler's literal params,
+        resolved for this run (TEXT constants' codes move as dictionaries
+        grow)."""
+        host = [resolve_param_host(s, self.fx.catalog.dictionary)
+                for s in comp.params]
+        return host, tuple(torch.from_numpy(p).to(self.fx.device)
+                           for p in host)
+
+    def _cached(self, key, compile_fn):
+        """The program cache: ``compile_fn()`` on a miss, the oldest
+        entry evicted past the cache's size."""
+        entry = self._programs.get(key)
+        if entry is None:
+            entry = compile_fn()
+            self._programs[key] = entry
+            while len(self._programs) > _PROGRAM_CACHE_MAX:
+                self._programs.pop(next(iter(self._programs)))
+        return entry
+
+    # -- wgagg: the windowed gagg, with its hoisted build side -------------
+    PREP_FRAG = -7  # the hoisted build side's source
+    HOIST_MIN_ROWS = 4_000_000  # smaller build sides re-sort per window
+
+    def _run_wgagg(self, wplan, agg, root, tk, skey, orientation, sig,
+                   versions, snap, out_proj) -> ColumnBatch:
+        """Windowed gagg: the dominant scan leaf streams in shard-row
+        windows through the same folded, filtered tree; each window
+        leaves its compact per-group partials on the device, and one
+        merge program regroups them, ranks, and ships the LIMIT rows in
+        one transfer. Build sides stay resident (a big one is hoisted:
+        evaluated and key-sorted once, ``_maybe_hoist``), so the
+        reference's multi-batch hash join becomes: the same program over
+        a sliding window, one sort of the partials at the end.
+
+        Every rerun runs every window: a join flag raised in any window
+        (orientation or fold off), a window whose groups pass the
+        capacity (doubled, up to the width), a cumsum run base broken by
+        negative sums (robust mode, then the ranking is given up)."""
+        leaf, width, rmax = wplan
+        nwin = rmax // width
+        cap = max(width // 4, WGAGG_MIN_CAP)
+        wcapkey = ("wcap", skey, orientation, sig, versions)
+        cap = self._caps.get(wcapkey, cap)
+        retries = {"flag": 0, "cap": 0, "robust": 0}
+        h = h_key = None
+        while True:
+            fo = self._offs(skey)
+            robust = bool(self._robust_on.get(skey))
+            root_c, src_c, ori_c, fo_c, gmap = root, {}, orientation, fo, None
+            if h_key != (orientation, fo):
+                # the prep survives capacity and robust reruns; a new
+                # orientation or fold-off set invalidates it
+                h, orientation = self._maybe_hoist(
+                    root, orientation, skey, snap, leaf, sig, versions)
+                h_key = (orientation, fo)
+            if h == "retry":  # a join of the prep raised its flag
+                retries["flag"] += 1
+                h_key = None
+                continue
+            if h is not None:
+                root_c, src_c, gmap = h
+                nj2 = _count_inner_joins(root_c)
+                # the prepped source always sits on the right
+                ori_c = tuple(
+                    orientation[gmap(i)] if gmap(i) < len(orientation)
+                    else "R" for i in range(nj2 - 1)) + ("R",)
+                fo_c = tuple(frozenset(i for i in range(nj2)
+                                       if gmap(i) in s) for s in fo)
+            ckey = ("wgagg", skey, orientation, sig, fo, cap, width, robust,
+                    h is not None, versions)
+            wprog, mprog, comp, jinfo, modes = self._cached(
+                ckey, lambda: self._compile_wgagg(
+                    agg, root_c, src_c, tk, ori_c, fo_c, leaf, width, cap,
+                    robust))
+            self._mode_notes |= modes
+            _host, params = self._bind(comp)
+            arrays = _collect_arrays(self.fx, root_c, src_c)
+            lidx = self.leaf_index_of(root_c, leaf)
+            wouts = []
+            for w in range(nwin):
+                arr_w = list(arrays)
+                arr_w[lidx] = tuple(arrays[lidx]) + (w * width,)
+                # device tensors only: nothing comes back until the merge
+                wouts.append(wprog(arr_w, params, snap))
+            out_keys, out_vals, sel, novf, ok, flags = mprog(wouts)
+            del wouts
+            batch, (novf, ok, *flags) = self._collect_grouped(
+                agg, out_keys, out_vals, sel, [novf, ok, *flags])
+            gjinfo = (jinfo if gmap is None else
+                      tuple(frozenset(gmap(x) for x in s) for s in jinfo))
+            self.last_mode = "wgagg"
+            self.last_folded = gjinfo[0]
+            self.last_hoisted = h is not None
+            self.last_windows = (nwin, width, cap)
+            self.last_retries = retries
+            flip = next((i for i, f in enumerate(flags) if f), None)
+            if flip is not None:
+                retries["flag"] += 1
+                orientation = self._on_flag(
+                    skey, orientation, flip if gmap is None else gmap(flip),
+                    gjinfo)
+                continue
+            if novf:
+                retries["cap"] += 1
+                cap *= 2  # a window held more groups than the capacity
+                if cap > width:
+                    raise DagUnsupported("wgagg partials exceed window")
+                self._remember(self._caps, wcapkey, cap)
+                continue
+            if not ok:
+                if not robust:
+                    retries["robust"] += 1
+                    self._remember(self._robust_on, skey)
+                    continue
+                self._remember(self._topk_off, (skey, tk, versions))
+                raise DagUnsupported("wgagg ranking overflow")
+            self._orientations[skey] = orientation
+            return self._apply_proj(batch, out_proj)
+
+    def leaf_index_of(self, root, leaf) -> int:
+        for i, lf in enumerate(_walk_leaves(root)):
+            if lf is leaf:
+                return i
+        raise DagUnsupported("window leaf not found")
+
+    def _maybe_hoist(self, root, orientation, skey, snap, wleaf, sig,
+                     versions):
+        """Where the top join's build side holds no windowed leaf and is
+        big, evaluate and key-sort it once in a prep program, and rewrite
+        the tree so every window reads it as a presorted device-resident
+        source behind a ``__match_ok`` filter (otherwise each window would
+        re-sort the whole build side; the multi-batch hash join keeps its
+        table across batches for the same reason). Returns (hoisted,
+        orientation): hoisted is (root2, sources, ori_map), or "retry"
+        after a prep join raised its flag (with the orientation that
+        flag leaves), or None; ``ori_map`` turns the rewritten tree's
+        join indices into the original's."""
+        top = _top_join(root)
+        if top is None or top.join_type != "inner":
+            return None, orientation
+        gji = _count_inner_joins(root) - 1
+        build_right = (
+            orientation[gji] if gji < len(orientation) else "R") == "R"
+        if build_right:
+            bnode, pnode = top.right, top.left
+        else:
+            if top.residual is not None:
+                return None, orientation  # its positions would need remapping
+            bnode, pnode = top.left, top.right
+        if any(lf is wleaf for lf in _walk_leaves(bnode)):
+            return None, orientation  # the windowed leaf is on the build side
+        if not any(lf is wleaf for lf in _walk_leaves(pnode)):
+            return None, orientation
+        if self._est_rows(bnode) < self.HOIST_MIN_ROWS:
+            # a small build side re-sorts cheaply in every window
+            return None, orientation
+        if not self._top_join_foldable(root, orientation, skey):
+            return None, orientation
+        p = _count_inner_joins(pnode)
+        b = _count_inner_joins(bnode)
+        # post-order numbering: the first-built child's joins come first,
+        # so the build side's joins are [p, p + b) when it is the right
+        # child and [0, b) when it is the left
+        boff = p if build_right else 0
+        poff = 0 if build_right else b
+        ori_local = tuple(orientation[boff:boff + b])
+        fo_local = tuple(
+            frozenset(x - boff for x in s if boff <= x < boff + b)
+            for s in self._offs(skey))
+        bkey = (top.right_keys if build_right else top.left_keys)[0]
+        prog, comp, jinfo_local, modes = self._cached(
+            ("prep", skey, orientation, fo_local, sig, versions),
+            lambda: self._compile_fold_prep(bnode, ori_local, fo_local,
+                                            bkey))
+        self._mode_notes |= modes
+        _host, params = self._bind(comp)
+        cols, valids, counts, flags = prog(_collect_arrays(self.fx, bnode),
+                                           params, snap)
+        flip = _first_true(flags)  # tiny; the build rows stay put
+        if flip is not None:
+            return "retry", self._on_flag(
+                skey, orientation, flip + boff,
+                tuple(frozenset(x + boff for x in s) for s in jinfo_local))
+        schema2 = tuple(bnode.schema) + (L.OutCol("__match_ok", t.BOOL),)
+        rs = RemoteSource(fragment=self.PREP_FRAG, schema=schema2)
+        filt = L.Filter(
+            child=rs,
+            predicate=E.Col(len(bnode.schema), t.BOOL, "__match_ok"),
+            schema=schema2,
+        )
+        if build_right:
+            repl = dataclasses.replace(top, right=filt)
+        else:
+            # swap the sides so the prepped source (with its trailing
+            # __match_ok) sits on the right, where the extra column
+            # shifts no position, and restore the column order above
+            nr0 = len(top.right.schema)
+            swapped = dataclasses.replace(
+                top, left=top.right, right=filt,
+                left_keys=top.right_keys, right_keys=top.left_keys,
+                schema=tuple(top.right.schema) + schema2,
+            )
+            repl = L.Project(
+                child=swapped,
+                exprs=tuple(E.Col(nr0 + i, c.type, c.name)
+                            for i, c in enumerate(top.left.schema))
+                + tuple(E.Col(i, c.type, c.name)
+                        for i, c in enumerate(top.right.schema)),
+                schema=top.schema,
+            )
+        sources = {self.PREP_FRAG: {"cols": cols, "valids": valids,
+                                    "counts": counts, "presorted": True}}
+        self._producers = {self.PREP_FRAG: bnode}
+
+        def ori_map(local_idx: int) -> int:
+            # the rewritten tree's probe joins are [0, p); its top join
+            # (local p) is the original's p + b
+            return poff + local_idx if local_idx < p else p + b
+
+        return (_replace_node(root, top, repl), sources, ori_map), orientation
+
+    def _compile_fold_prep(self, bnode, ori_local, fo_local, bkey):
+        """(program, compiler, jinfo, join modes) of ONE evaluation and
+        key sort of a build subtree: its rows sorted by the join key over
+        the density domain (the chain leaf's visibility), every schema
+        column and its validity riding along, and the build's full mask
+        appended as the ``__match_ok`` column. The output is [1, rows]
+        columns with their live count, the layout ``_leaf_source`` reads.
+        One sort of the key gives the permutation every column gathers
+        by (the reference's multi-operand sort)."""
+        comp = ExprCompiler(self.fx.device)
+        b = _Builder(self.fx, comp, ori_local, bnode, runner=self,
+                     offs=fo_local)
+        ev = b.build(bnode)
+        chain = _chain_leaf(bnode, folded_ids=b.folded_ids)
+        if chain is None:
+            # a nested build join was disabled at run time: the spine no
+            # longer folds
+            raise DagUnsupported("prep build side is not a fold chain")
+        bstrip = b.build(chain[0])
+        bkfn = comp.compile(bkey, _dids(bnode.schema))
+
+        def program(arrays, params, snap):
+            env, mask, n, flags = ev(arrays, params, snap)
+            _e, vis, _n, _f = bstrip(arrays, params, snap)
+            kd, kv = _bcast(bkfn(env, params), n)
+            kreal = vis if kv is None else (vis & kv)
+            _sk, perm = torch.sort(
+                torch.where(kreal, kd.to(torch.int64), _DEADS))
+            cols, valids = [], []
+            for d, v in env:
+                d, v = _bcast((d, v), n)
+                cols.append(d[perm].reshape(1, n))
+                valids.append(None if v is None else v[perm].reshape(1, n))
+            cols.append(mask[perm].reshape(1, n))  # __match_ok
+            valids.append(None)
+            return cols, valids, mask_count(kreal).reshape(1), flags
+
+        return program, comp, b.jinfo(), frozenset(b.modes)
+
+    def _compile_wgagg(self, agg, root, sources, topk, orientation, fo,
+                       leaf, width, cap, robust):
+        """(window program, merge program, compiler, jinfo, join modes).
+        After FD reduction exactly ONE bare integer group key must remain:
+        its raw int64 value is the sort key of both programs, so the
+        windows' sorts compare without a global range pass (live keys
+        stay strictly inside the NULL and dead-row sentinels, or ``ok``
+        clears).
+
+        The window program sorts its rows by key (dead rows last, NULL
+        keys just before them), reduces each run — sums and counts by
+        prefix differences, min/max by segmented scans — carries the
+        FD-dropped keys, and keeps the run ends, at most ``cap`` of them
+        (``novf`` flags more). The merge concatenates every window's
+        partials, sorts them by key, re-sums sums and counts, takes the
+        min of mins and the max of maxes, ranks by the top-k spec and
+        keeps k rows."""
+        comp = ExprCompiler(self.fx.device)
+        b = _Builder(self.fx, comp, orientation, root, runner=self, offs=fo,
+                     window=(id(leaf), width), sources=sources)
+        ev = b.build(root)
+        dids = _dids(root.schema)
+        gfns = [comp.compile(g, dids) for g in agg.group_exprs]
+        specs, afns = _agg_specs(comp, agg, dids)
+        k, sspecs, _merged = topk
+        nkeys = len(agg.group_exprs)
+        kept, dropped = _fd_reduce(root, orientation, agg)
+        if len(kept) != 1 or not isinstance(agg.group_exprs[kept[0]],
+                                             E.Col):
+            raise DagUnsupported("wgagg needs one bare group key")
+        kidx = kept[0]
+        if agg.group_exprs[kidx].type.is_text:
+            raise DagUnsupported("wgagg text group key")
+
+        def ident(spec, dtype):
+            """The min/max identity: dead and NULL values never win."""
+            if dtype.is_floating_point:
+                return float("inf") if spec == "min" else float("-inf")
+            return 2**62 if spec == "min" else -(2**62)
+
+        def window_program(arrays, params, snap):
+            env, mask, n, flags = ev(arrays, params, snap)
+            kd, kv = _bcast(gfns[kidx](env, params), n)
+            k64 = kd.to(torch.int64)
+            live_k = mask if kv is None else (mask & kv)
+            ok = torch.all(~live_k | ((k64 < _NULLS) & (k64 > -_DEADS)))
+            if kv is not None:
+                k64 = torch.where(kv, k64, _NULLS)
+            salk, perm = torch.sort(torch.where(mask, k64, _DEADS))
+            runs, live_end = _key_runs(salk)
+            out = [salk]
+            for spec, fn in zip(specs, afns):
+                if fn is None:  # count(*)
+                    c = _run_total((salk < _DEADS).to(torch.int64), runs)
+                    out += [c, c > 0]
+                    continue
+                d, v = _bcast(fn(env, params), n)
+                d = _widen(d)
+                vv = mask if v is None else (mask & v)
+                vv = vv[perm]
+                vcnt = _run_total(vv.to(torch.int64), runs)
+                if spec == "count":
+                    out += [vcnt, live_end]
+                    continue
+                vvalid = vcnt > 0
+                if spec in ("min", "max"):
+                    sval = torch.where(vv, d[perm], ident(spec, d.dtype))
+                    out += [_seg_scan(sval, runs, spec), vvalid]
+                    continue
+                sv, okbit = _run_sums(torch.where(vv, d[perm], 0), runs,
+                                      robust)
+                ok = ok & okbit
+                out += [sv, vvalid]
+            for p in dropped:
+                d, v = _bcast(gfns[p](env, params), n)
+                out += [torch.where(mask, d.to(torch.int64), 0)[perm],
+                        None if v is None else (mask & v)[perm]]
+            # the run ends, in key order: at most cap of them ship
+            ends = torch.nonzero(live_end).reshape(-1)
+            novf = torch.tensor(ends.shape[0] > cap, device=mask.device)
+            ends = ends[:cap]
+            return ([None if x is None else x[ends] for x in out],
+                    novf, ok, flags)
+
+        def merge_program(wouts):
+            ncols = len(wouts[0][0])
+            cols = [None if wouts[0][0][i] is None
+                    else torch.cat([w[0][i] for w in wouts])
+                    for i in range(ncols)]
+            novf = torch.stack([w[1] for w in wouts]).any()
+            ok = torch.stack([w[2] for w in wouts]).all()
+            flags = [torch.stack([w[3][f].reshape(()) for w in wouts]).any()
+                     for f in range(len(wouts[0][3]))]
+            if cols[0].shape[0] == 0:  # no live row: one dead row
+                cols = [None if c is None else c.new_zeros(1) for c in cols]
+                cols[0] = cols[0] + _DEADS
+            salk, perm = torch.sort(cols[0])
+            sops = [None if c is None else c[perm] for c in cols]
+            runs, live_end = _key_runs(salk)
+            vals = []  # per aggregate: (value, valid) at the run ends
+            for ai, spec in enumerate(specs):
+                sval, svld = sops[1 + 2 * ai], sops[2 + 2 * ai]
+                vvalid = _run_total(svld.to(torch.int64), runs) > 0
+                if spec in ("min", "max"):
+                    sv = torch.where(svld, sval, ident(spec, sval.dtype))
+                    vals.append((_seg_scan(sv, runs, spec), vvalid))
+                    continue
+                sv, okbit = _run_sums(torch.where(svld, sval, 0), runs,
+                                      robust)
+                ok = ok & okbit
+                vals.append((sv, vvalid))
+            coff = 1 + 2 * len(specs)
+
+            def key_col(p):
+                if p == kidx:
+                    return salk, salk != _NULLS
+                di = coff + 2 * dropped.index(p)
+                return sops[di], sops[di + 1]
+
+            packed, okr = _pack_sort_cols(
+                [vals[p - nkeys] if p >= nkeys else key_col(p)
+                 for p, _d, _nf in sspecs], sspecs, live_end)
+            idx, sel = _topk_idx(packed, live_end, k)
+            ok = ok & okr
+            out_keys = [_take(key_col(i), idx) for i in range(nkeys)]
+            out_vals = [_take(pair, idx) for pair in vals]
+            return out_keys, out_vals, sel, novf, ok, flags
+
+        return (window_program, merge_program, comp, b.jinfo(),
+                frozenset(b.modes))
 
     def _compile_final(self, agg, root, orientation, fo, gcap, packing,
                        tk=None, gs=None, ga=False, narrow=False,
@@ -1682,26 +2151,13 @@ class DagRunner:
                 carried_pos[p] = (ci, vi)
             salk, perm = torch.sort(skeyop, stable=False)
             sops = [op[perm] for op in operands]
-            boundary = torch.ones(n, dtype=torch.bool, device=dev)
-            boundary[1:] = salk[1:] != salk[:-1]
-            end = torch.ones(n, dtype=torch.bool, device=dev)
-            end[:-1] = boundary[1:]
-            is_live = salk < ksent
-            live_end = end & is_live
-            runs = _runs(boundary)
-
-            def run_from_start(cs, own):
-                # the run's value at any position: the prefix less the
-                # prefix just before the run start (the reference carries
-                # that base by a cummax, the same where cs is monotone)
-                return cs - (cs - own)[runs[1]]
-
+            runs, live_end = _key_runs(salk, ksent)
             run_cnt = []
 
             def get_run_cnt():
                 if not run_cnt:
-                    lv = is_live.to(torch.int64)
-                    run_cnt.append(run_from_start(torch.cumsum(lv, 0), lv))
+                    run_cnt.append(_run_total(
+                        (salk < ksent).to(torch.int64), runs))
                 return run_cnt[0]
 
             out_vals_pos = []
@@ -1713,8 +2169,7 @@ class DagRunner:
                 oi, vi = vp
                 sval = sops[oi]
                 if vi is not None:
-                    lv = sops[vi].to(torch.int64)
-                    vcnt = run_from_start(torch.cumsum(lv, 0), lv)
+                    vcnt = _run_total(sops[vi].to(torch.int64), runs)
                     vvalid = vcnt > 0
                 else:
                     vvalid = live_end
@@ -1726,17 +2181,8 @@ class DagRunner:
                     out_vals_pos.append(
                         (_widen(_seg_scan(sval, runs, spec)), vvalid))
                     continue
-                sval = _widen(sval)
-                if robust:
-                    sv = _seg_scan(sval, runs, "add")
-                else:
-                    # the cumsum run base needs non-negative values and a
-                    # global prefix that does not wrap
-                    ok = ok & ~(_reduce_or(sval, torch.amin, 0) < 0)
-                    cs = torch.cumsum(sval, 0)
-                    if not cs.dtype.is_floating_point:
-                        ok = ok & (cs[-1] < big) & (cs[-1] >= 0)
-                    sv = run_from_start(cs, sval)
+                sv, okbit = _run_sums(_widen(sval), runs, robust)
+                ok = ok & okbit
                 out_vals_pos.append((sv, vvalid))
 
             def decode_key(i, src):
@@ -2114,20 +2560,25 @@ class DagRunner:
     def _dic(self, oc):
         return self.fx.catalog.dictionary(oc.dict_id) if oc.dict_id else None
 
-    def _collect_grouped(self, agg, out_keys, out_vals, gvalid) -> ColumnBatch:
-        """The existing groups' rows, copied to the host; TEXT keys keep
-        their codes and decode through their dictionary."""
-        keep = torch.nonzero(gvalid).reshape(-1)
-        nkeys = len(agg.group_exprs)
+    def _collect_grouped(self, agg, out_keys, out_vals, gvalid,
+                         extra=()) -> tuple:
+        """(the existing groups' rows on the host, ``extra``'s values):
+        the rows compacted on the device, then one device-to-host
+        transfer for them and the ``extra`` tensors (flags) together.
+        TEXT keys keep their codes and decode through their
+        dictionary."""
+        keep = torch.nonzero(gvalid.reshape(-1)).reshape(-1)
+        pairs = list(out_keys) + list(out_vals)
+        host = _to_host([*extra] + [None if x is None else x.reshape(-1)[keep]
+                                    for p in pairs for x in p])
+        base = len(extra)
         cols: dict[str, Column] = {}
         for i, oc in enumerate(agg.schema):
-            d, v = out_keys[i] if i < nkeys else out_vals[i - nkeys]
-            dd = d[keep].cpu().numpy()
-            vv = None if v is None else v[keep].cpu().numpy()
+            dd, vv = host[base + 2 * i], host[base + 2 * i + 1]
             if dd.dtype != oc.type.np_dtype:
                 dd = dd.astype(oc.type.np_dtype)
             cols[oc.name] = Column(oc.type, dd, vv, self._dic(oc))
-        return ColumnBatch(cols, int(keep.shape[0]))
+        return ColumnBatch(cols, int(keep.shape[0])), host[:base]
 
     def _collect_scalar(self, agg, out_vals) -> ColumnBatch:
         cols: dict[str, Column] = {}
@@ -2162,6 +2613,61 @@ def _widen(d):
     return d.to(torch.float64 if d.dtype.is_floating_point else torch.int64)
 
 
+def _key_runs(salk, dead=_DEADS):
+    """(``_runs`` of the sorted keys, live run ends): a run is one key,
+    and its end is live unless the key is the dead-row sentinel
+    ``dead``."""
+    n = salk.shape[0]
+    boundary = torch.ones(n, dtype=torch.bool, device=salk.device)
+    boundary[1:] = salk[1:] != salk[:-1]
+    end = torch.ones(n, dtype=torch.bool, device=salk.device)
+    end[:-1] = boundary[1:]
+    return _runs(boundary), end & (salk < dead)
+
+
+def _run_total(x, runs, cs=None):
+    """Each run's running sum of ``x`` at every position (its total at
+    the run's end): the prefix ``cs`` less the prefix just before the
+    run's head (the reference carries that base by a cummax, the same
+    where the prefix is monotone)."""
+    if cs is None:
+        cs = torch.cumsum(x, 0)
+    return cs - (cs - x)[runs[1]]
+
+
+def _run_sums(x, runs, robust: bool):
+    """(each run's running sum of ``x``, ok): by segmented add scans
+    when ``robust``, else by the global prefix, which needs non-negative
+    values and a last prefix below 2^62 (``ok`` False otherwise, as in
+    the reference, whose cummax run base breaks there)."""
+    if robust:
+        return _seg_scan(x, runs, "add"), torch.ones(
+            (), dtype=torch.bool, device=x.device)
+    ok = ~(_reduce_or(x, torch.amin, 0) < 0)
+    cs = torch.cumsum(x, 0)
+    if not cs.dtype.is_floating_point:
+        ok = ok & (cs[-1] < _DEADS) & (cs[-1] >= 0)
+    return _run_total(x, runs, cs), ok
+
+
+def _replace_node(root, old, new):
+    """``root`` rebuilt with the subtree ``old`` (by identity) replaced
+    by ``new``."""
+    if root is old:
+        return new
+    if dataclasses.is_dataclass(root) and not isinstance(root, type):
+        changes = {}
+        for f in dataclasses.fields(root):
+            v = getattr(root, f.name)
+            if isinstance(v, L.LogicalPlan):
+                nv = _replace_node(v, old, new)
+                if nv is not v:
+                    changes[f.name] = nv
+        if changes:
+            return dataclasses.replace(root, **changes)
+    return root
+
+
 def _take(pair, idx):
     d, v = pair
     return d[idx], (None if v is None else v[idx])
@@ -2171,7 +2677,7 @@ def _shapes_sig(arrays) -> tuple:
     def leaves(x):
         if isinstance(x, torch.Tensor):
             yield x
-        else:
+        elif x is not None:
             for y in x:
                 yield from leaves(y)
 
