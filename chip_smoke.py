@@ -17,11 +17,13 @@ Phases, one line each; any failure raises and exits non-zero:
    the middle of a tile), shards whose nrows is no tile multiple, shards
    shorter than a tile and an empty one, a spec with no predicate, and
    the widest spec compile_spec accepts (16 columns, 16 groups, 8
-   values, stack depth 16). radix_probe: the reference test's data,
-   int32 and int64 keys, keys near +-2^62, dead and NULL probe rows, an
-   empty build, duplicate build keys, n not a multiple of a thread's
-   rows, probes starting at an offset view, and every pass of a
-   multi-pass plan;
+   values, stack depth 16), and Q6 over ``--rows`` rows with full MVCC
+   planes hiding 0.1 % of them in runs and scattered. radix_probe: the
+   reference test's data, int32 and int64 keys, keys near +-2^62, dead
+   and NULL probe rows, an empty build, duplicate build keys, n not a
+   multiple of a thread's rows, probes starting at an offset view, every
+   pass of a multi-pass plan, and DATE probed by ``--ssb-rows`` rows of
+   which 0.1 % are deleted;
 4. main path, TPC-H: Cluster(num_datanodes=2) on cuda, CREATE TABLE
    lineitem, a bulk append of ``--rows`` rows (60 M = TPC-H SF10, as
    bench.py measures it) made from ``--seed``, then Q6 and Q1 through
@@ -71,7 +73,21 @@ Phases, one line each; any failure raises and exits non-zero:
    one launch; Q3 through the windowed gagg (16 windows under the 6 GB
    window budget) with the orders side hoisted and both joins folded,
    all ten rows exact against numpy; K1 held against its plain version
-   at Q6's inputs.
+   at Q6's inputs;
+8. main path, the write path: (a) TPC-H's refresh functions in phase
+   5c's SF10 cluster after every earlier query of it (Q6 first, over
+   compact planes): RF1 inserts 15 000 orders and their lineitems
+   through INSERT ... VALUES of at most 5 000 rows in one transaction,
+   RF2 deletes 15 000 orders and their lineitems through DELETE ...
+   IN (1 000 keys) in one transaction, and Q6, Q1 and Q3 run after
+   each, exact against numpy, with the device cache's refresh counters
+   of each first run and K1 held against its plain version at Q6's
+   full-plane inputs; (b) bench.py's HTAP loop at its own parameters
+   (100 000 rows, then for 4 s a 500-row INSERT, 8 UPDATEs and the
+   top-5 query, every answer exact against numpy); (c) in phase 5's SSB
+   cluster after flights 1-4 and their timings, a DELETE of the rows of
+   lineorder's first 0.1 % of order keys, then flight 1 again, exact,
+   with K2 held against its plain version at the new inputs.
 
 The second-to-last lines are the kernel table as JSON and the nvidia-smi
 line; the last line is the run's verdict as JSON. The script imports
@@ -611,7 +627,7 @@ SSB_FULL_DDL = (
     "create table lineorder (lo_orderdate int, lo_quantity int, "
     "lo_discount int, lo_extendedprice bigint, lo_custkey int, "
     "lo_partkey int, lo_suppkey int, lo_revenue bigint, "
-    "lo_supplycost int) distribute by roundrobin",
+    "lo_supplycost int, lo_orderkey bigint) distribute by roundrobin",
     "create table date_dim (d_datekey int, d_year int, d_yearmonthnum int, "
     "d_weeknuminyear int, d_yearmonth text) distribute by replication",
     "create table part (p_partkey int, p_mfgr text, p_category text, "
@@ -859,8 +875,12 @@ def make_lineorder(n: int, date_dim, seed: int = 42, dims=None):
     supplier keys uniform over each dimension's keys (``dims``: their
     row counts, ``ssb_dim_rows`` of n's scale factor by default), the
     revenue extendedprice * (100 - discount) / 100 and the supply cost
-    6/10 of the retail price (dbgen's rules). Flight 1's columns are the
-    same for a seed whatever follows them."""
+    6/10 of the retail price (dbgen's rules), and the order key, orders
+    of 1-7 lines in key order as dbgen writes them (drawn from a stream
+    of their own, phase 8's DELETE reads them). Flight 1's columns are
+    the same for a seed whatever follows them."""
+    # a third more orders than the mean needs: their lines cover n rows
+    lines = np.random.default_rng(seed + 7).integers(1, 8, n // 3 + 8)
     rng = np.random.default_rng(seed)
     qty = rng.integers(1, 51, n).astype(np.int32)
     keys = date_dim["d_datekey"][:SSB_ORDER_DATES]
@@ -881,6 +901,7 @@ def make_lineorder(n: int, date_dim, seed: int = 42, dims=None):
             np.int32),
         "lo_revenue": price * (100 - disc) // 100,
         "lo_supplycost": (retail * 6 // 10).astype(np.int32),
+        "lo_orderkey": np.repeat(np.arange(1, len(lines) + 1), lines)[:n],
     }
 
 
@@ -1285,13 +1306,78 @@ def kernel_cases(device, seed: int):
     return out
 
 
-def check_kernel_vs_plain(device, seed: int, card: str) -> None:
+def full_plane_case(device, seed: int, rows: int):
+    """K1 at a main path's scale over full MVCC planes, as a table has
+    them after a commit: TPC-H Q6's predicate and product over ``rows``
+    rows in 2 shards (int64 price, discount and quantity, int32 dates,
+    made on the card from ``seed``), about 0.1 % of the rows hidden,
+    half in runs of 1000 deleted rows and half scattered (deleted, or
+    inserted after the snapshot)."""
+    import torch
+
+    from opentenbase_tpu_torch import types as t
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+    from opentenbase_tpu_torch.plan import texpr as E
+
+    S, n = 2, rows // 2
+    R = 1 << max(n - 1, 1).bit_length()
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(lo, hi, size, dtype=torch.int64):
+        return torch.randint(lo, hi, size, generator=g, device=device,
+                             dtype=dtype)
+
+    date = draw(8036, 8036 + 2556, (S, R), torch.int32)
+    disc = draw(0, 11, (S, R))
+    qty = draw(100, 5100, (S, R))
+    price = draw(90_000, 10_500_000, (S, R))
+    xmin = torch.full((S, R), 5, dtype=torch.int64, device=device)
+    xmax = torch.full((S, R), 2**62, dtype=torch.int64, device=device)
+    hidden = max(rows // 1000, 2)
+    run = 1000
+    for st, sh in zip(draw(0, max(n - run, 1), (hidden // 2 // run,)).tolist(),
+                      draw(0, S, (hidden // 2 // run,)).tolist()):
+        xmax[sh, st:st + run] = 1000  # deleted before the snapshot
+    k = hidden // 2
+    pos, sh = draw(0, n, (k,)), draw(0, S, (k,))
+    xmax[sh[: k // 2], pos[: k // 2]] = 900
+    xmin[sh[k // 2:], pos[k // 2:]] = 1500  # inserted after it
+    nr = torch.full((S,), n, dtype=torch.int64, device=device)
+
+    def C(i, ty=t.INT8):
+        return E.Col(i, ty)
+
+    def K(v):
+        return E.Const(v, t.INT8)
+
+    def both(a, b):
+        return E.BinE("and", a, b, t.BOOL)
+
+    pred = both(
+        both(E.BinE(">=", C(0, t.INT4), K(8766), t.BOOL),
+             E.BinE("<", C(0, t.INT4), K(9131), t.BOOL)),
+        both(both(E.BinE(">=", C(1), K(5), t.BOOL),
+                  E.BinE("<=", C(1), K(7), t.BOOL)),
+             E.BinE("<", C(2), K(2400), t.BOOL)))
+    spec = sa.compile_spec([pred], None, [E.BinE("*", C(3), C(1), t.INT8)])
+    planes = [date, disc, qty, price]
+    visible = int(((xmin <= 1000) & (1000 < xmax)).sum()) - S * (R - n)
+    return (f"G1/Q6 over {S * n} rows, full planes, "
+            f"{S * n - visible} hidden in runs and scattered",
+            [planes[i] for i in spec.cols], xmin, xmax, nr, 1000, spec)
+
+
+def check_kernel_vs_plain(device, seed: int, card: str,
+                          rows: int | None = None) -> None:
     import torch
 
     from opentenbase_tpu_torch.ops import scan_agg as sa
 
     n0 = sa.scan_agg.launches
-    for name, cols, xmin, xmax, nr, snap, spec in kernel_cases(device, seed):
+    cases = kernel_cases(device, seed)
+    if rows:
+        cases.append(full_plane_case(device, seed, rows))
+    for name, cols, xmin, xmax, nr, snap, spec in cases:
         ks, kc = sa.scan_agg(cols, xmin, xmax, nr, snap, spec)
         ps, pc = sa.scan_agg_plain(cols, xmin, xmax, nr, snap, spec)
         torch.cuda.synchronize()
@@ -1621,7 +1707,33 @@ def _radix_equal(name, table, pk, preal, P, B, card, extra=""):
     return km
 
 
-def check_radix_vs_plain(device, seed: int, card: str) -> None:
+def radix_full_plane_case(device, seed: int, rows: int):
+    """K2 at SSB flight 1's scale over a probe side with deleted rows:
+    DATE's 2556 keys built, ``rows`` lineorder order dates probed (a
+    percent of them missing from DATE), a row real where it passes a
+    filter of about half the rows and is visible, about 0.1 % of the
+    rows deleted in runs and scattered."""
+    from opentenbase_tpu_torch.plan import batchplan
+
+    rng = np.random.default_rng(seed + 2)
+    dd = make_date_dim()["d_datekey"].astype(np.int32)
+    pk = dd[rng.integers(0, SSB_ORDER_DATES, rows)]
+    pk[rng.random(rows) < 0.01] = 19_000_101
+    deleted = np.zeros(rows, dtype=bool)
+    for st in rng.integers(0, rows - 1000, rows // 2000 // 1000):
+        deleted[st:st + 1000] = True
+    deleted[rng.integers(0, rows, rows // 2000)] = True
+    preal = (rng.random(rows) < 0.5) & ~deleted
+    p = batchplan.plan_radix_join(len(dd), rows,
+                                  batchplan.DEFAULT_EXCHANGE_BUDGET)
+    P, B = (p.partitions, p.bucket) if p is not None else (1, 8)
+    return (f"DATE probed by {rows} rows, {int(deleted.sum())} deleted",
+            *[torch_from(x, device) for x in (
+                dd, np.ones(len(dd), bool), pk, preal)], P, B)
+
+
+def check_radix_vs_plain(device, seed: int, card: str,
+                         rows: int | None = None) -> None:
     """radix_probe against radix_probe_plain on the card, exactly equal
     (matched everywhere, bidx everywhere: both write 0 on a miss)."""
     import torch
@@ -1632,7 +1744,10 @@ def check_radix_vs_plain(device, seed: int, card: str) -> None:
     from opentenbase_tpu_torch.plan import batchplan
 
     n0 = rp.radix_probe.launches
-    for name, bk, breal, pk, preal, P, B in radix_cases(device, seed):
+    cases = radix_cases(device, seed)
+    if rows:
+        cases.append(radix_full_plane_case(device, seed, rows))
+    for name, bk, breal, pk, preal, P, B in cases:
         *table, dup, ovf = join_ops.build_radix_table(bk, breal, P, B)
         m = _radix_equal(name, table, pk, preal, P, B, card,
                          f", dup flag {bool(dup)}, overflow {bool(ovf)}")
@@ -1872,6 +1987,7 @@ def run_topk_query(name: str, cluster, sql: str, want: list, mode: str,
     from opentenbase_tpu_torch.ops import scan_agg as sa
 
     s = cluster.session()
+    c0 = dict(cluster.fused_executor().cache.stats)
     rp.radix_probe.launches = 0
     sa.scan_agg.launches = 0
     t1 = time.perf_counter()
@@ -1880,6 +1996,8 @@ def run_topk_query(name: str, cluster, sql: str, want: list, mode: str,
     first_ms = (time.perf_counter() - t1) * 1000
     launches = {"scan_agg": sa.scan_agg.launches,
                 "radix_probe": rp.radix_probe.launches}
+    refresh = {k: n - c0[k]
+               for k, n in cluster.fused_executor().cache.stats.items()}
     runner = cluster.fused_executor()._dag
     seen = (runner.last_mode, runner.last_join_modes,
             len(runner.last_folded))
@@ -1893,7 +2011,7 @@ def run_topk_query(name: str, cluster, sql: str, want: list, mode: str,
           f"{launches['scan_agg']}, radix_probe launches "
           f"{launches['radix_probe']}; {len(got)} groups; first run incl. "
           f"upload {first_ms:.3f} ms) {got[:2]}... [{card}]", flush=True)
-    return {"launches": launches, "first_ms": first_ms,
+    return {"launches": launches, "first_ms": first_ms, "refresh": refresh,
             **measure_warm(name, cluster, sql, want, repeats, card, True,
                            f" (mode {runner.last_mode})")}
 
@@ -1982,12 +2100,13 @@ def run_q3_spec(args, device, card: str) -> dict:
         + f" rows round robin in 2 datanodes, numpy Q3; "
         f"{time.perf_counter() - t0:.3f} s", flush=True)
     want_q1 = expected_q1_spec(tables["lineitem"])
-    del tables
     out = run_topk_query("TPC-H Q3 (spec keys)", cluster, Q3_SPEC, want,
                          "gsort", ("fold",), 1, args.repeats, card)
     # phase 6: Q1 as the spec writes it, over the same lineitem
     out["fragment"] = {"TPC-H Q1 (spec)": run_fragment_query(
         "TPC-H Q1 (spec)", cluster, Q1_SPEC, want_q1, args.repeats, card)}
+    # phase 8 (a) writes into these tables after every earlier query
+    out["phase8"] = {"cluster": cluster, "tables": tables}
     return out
 
 
@@ -2065,22 +2184,23 @@ def certified_route(cluster, sql: str) -> str:
 
 
 def run_fragment_query(name: str, cluster, sql: str, want: list,
-                       repeats: int, card: str) -> dict:
+                       repeats: int, card: str, route=None) -> dict:
     """One query of phase 6: the first run exact against numpy on the
     route and rung FRAGMENT_ROUTES names (which the certifier's verdict
-    on these arrays must confirm), K1's and K2's launches counted from 0
-    around it (K1 once on its route, never on the program's); then the
-    warm median, the memory, the layers and one traced run."""
+    on the resident arrays must confirm), K1's and K2's launches and the
+    device cache's counters counted around it (K1 once on its route,
+    never on the program's); then the
+    warm median, the memory, the layers and one traced run. ``route``
+    (route, rung) stands in for FRAGMENT_ROUTES' entry."""
     import torch
 
     from opentenbase_tpu_torch.ops import radix_probe as rp
     from opentenbase_tpu_torch.ops import scan_agg as sa
 
-    route, rung = FRAGMENT_ROUTES[name]
-    if certified_route(cluster, sql) != route:
-        raise AssertionError(f"{name}: the certifier does not route it "
-                             f"to {route}")
+    route, rung = route or FRAGMENT_ROUTES[name]
     s = cluster.session()
+    fx = cluster.fused_executor()
+    c0 = dict(fx.cache.stats)
     rp.radix_probe.launches = 0
     sa.scan_agg.launches = 0
     t1 = time.perf_counter()
@@ -2089,8 +2209,11 @@ def run_fragment_query(name: str, cluster, sql: str, want: list,
     first_ms = (time.perf_counter() - t1) * 1000
     launches = {"scan_agg": sa.scan_agg.launches,
                 "radix_probe": rp.radix_probe.launches}
-    fx = cluster.fused_executor()
+    refresh = {k: n - c0[k] for k, n in fx.cache.stats.items()}
     seen = (fx.last_route, fx.last_rung)
+    if certified_route(cluster, sql) != route:
+        raise AssertionError(f"{name}: the certifier does not route it "
+                             f"to {route}")
     if got != want:
         raise AssertionError(f"{name}: port {got} != numpy {want}")
     if seen != (route, rung) or s._fused_via_dag:
@@ -2106,6 +2229,7 @@ def run_fragment_query(name: str, cluster, sql: str, want: list,
           f"run incl. upload {first_ms:.3f} ms) {got[:2]}... [{card}]",
           flush=True)
     return {"launches": launches, "first_ms": first_ms, "route": seen,
+            "refresh": refresh,
             **measure_warm(name, cluster, sql, want, repeats, card, False,
                            f" ({route})")}
 
@@ -2295,6 +2419,372 @@ def run_sf100(args, device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the write path: TPC-H's refresh functions, bench.py's HTAP loop
+# and SSB flight 1 after a DELETE
+# ---------------------------------------------------------------------------
+
+RF_STMT_ROWS = 5000  # rows an RF1 INSERT carries
+RF_STMT_KEYS = 1000  # keys an RF2 DELETE names
+REFRESH_STATS = ("full_uploads", "delta_tail_rows", "mvcc_replays",
+                 "h2d_bytes")
+
+
+def make_rf1(tables: dict, sf: float, seed: int) -> dict:
+    """RF1's new rows (TPC-H rev. 3, section 2.5.2): SF x 1500 orders
+    whose keys take unused slots of make_q3_spec's sparse scheme (the
+    9th to 16th of a block of 32, in blocks the loaded orders use), and
+    their 1-7 lineitems, drawn in make_q3_spec's domains from ``seed``."""
+    rng = np.random.default_rng(seed + 100)
+    n_o = len(tables["orders"]["o_orderkey"])
+    n_c = len(tables["customer"]["c_custkey"])
+    n_p = max(int(200_000 * sf), 1)
+    n_new = max(int(1500 * sf), 1)
+    i = rng.choice(n_o, n_new, replace=False)
+    okey = (i // 8 * 32 + 8 + i % 8 + 1).astype(np.int64)
+    j = rng.integers(0, n_c - n_c // 3, n_new)
+    odate = rng.integers(_day("1992-01-01"), _day("1998-08-02") + 1,
+                         n_new).astype(np.int32)
+    lines = rng.integers(1, 8, n_new)
+    oi = np.repeat(np.arange(n_new), lines)
+    n_l = len(oi)
+    pk = rng.integers(1, n_p + 1, n_l)
+    retail = 90_000 + (pk // 10) % 20_001 + 100 * (pk % 1000)
+    qty = rng.integers(1, 51, n_l)
+    ship = (odate[oi] + rng.integers(1, 122, n_l)).astype(np.int32)
+    receipt = (ship + rng.integers(1, 31, n_l)).astype(np.int32)
+    current = _day("1995-06-17")
+    flag = np.where(receipt <= current,
+                    np.where(rng.random(n_l) < 0.5, 0, 2), 1)
+    return {
+        "orders": {
+            "o_orderkey": okey,
+            "o_custkey": (j + j // 2 + 1).astype(np.int64),
+            "o_orderdate": odate,
+            "o_shippriority": np.zeros(n_new, dtype=np.int32),
+        },
+        "lineitem": {
+            "l_orderkey": okey[oi],
+            "l_extendedprice": (qty * retail).astype(np.int64),
+            "l_discount": rng.integers(0, 11, n_l).astype(np.int64),
+            "l_shipdate": ship,
+            "l_quantity": (qty * 100).astype(np.int64),
+            "l_tax": rng.integers(0, 9, n_l).astype(np.int64),
+            "l_receiptdate": receipt,
+            "l_returnflag": Text(RF_VOCAB, flag.astype(np.int8)),
+            "l_linestatus": Text(LS_VOCAB, (ship > current).astype(np.int8)),
+        },
+    }
+
+
+def _cents(c: int) -> str:
+    return f"{c // 100}.{c % 100:02d}"
+
+
+def rf1_sql(rf1: dict) -> list:
+    """RF1 as SQL: INSERT ... VALUES of at most RF_STMT_ROWS rows, the
+    orders first, in Q3_SPEC_DDL's column order."""
+    o, li = rf1["orders"], rf1["lineitem"]
+    orows = [f"({k}, {c}, '{_date(d)}', {p})" for k, c, d, p in zip(
+        o["o_orderkey"].tolist(), o["o_custkey"].tolist(),
+        o["o_orderdate"].tolist(), o["o_shippriority"].tolist())]
+    rf, ls = li["l_returnflag"], li["l_linestatus"]
+    lrows = [
+        f"({k}, {_cents(p)}, {_cents(d)}, '{_date(sd)}', {_cents(q)}, "
+        f"{_cents(tx)}, '{_date(rd)}', '{RF_VOCAB[f]}', '{LS_VOCAB[s]}')"
+        for k, p, d, sd, q, tx, rd, f, s in zip(
+            li["l_orderkey"].tolist(), li["l_extendedprice"].tolist(),
+            li["l_discount"].tolist(), li["l_shipdate"].tolist(),
+            li["l_quantity"].tolist(), li["l_tax"].tolist(),
+            li["l_receiptdate"].tolist(), rf.idx.tolist(), ls.idx.tolist())
+    ]
+    return [f"insert into {table} values " + ",".join(rows[i:i + RF_STMT_ROWS])
+            for table, rows in (("orders", orows), ("lineitem", lrows))
+            for i in range(0, len(rows), RF_STMT_ROWS)]
+
+
+def _select(arrays: dict, m) -> dict:
+    return {k: Text(v.vocab, v.idx[m]) if isinstance(v, Text) else v[m]
+            for k, v in arrays.items()}
+
+
+def _concat(a: dict, b: dict) -> dict:
+    return {k: Text(v.vocab, np.concatenate([v.idx, b[k].idx]))
+            if isinstance(v, Text) else np.concatenate([v, b[k]])
+            for k, v in a.items()}
+
+
+def run_in_txn(session, stmts: list) -> tuple:
+    """``stmts`` inside one BEGIN ... COMMIT: (ms of the whole, rows
+    each statement changed)."""
+    t0 = time.perf_counter()
+    session.execute("begin")
+    counts = [session.execute(sql).rowcount for sql in stmts]
+    session.execute("commit")
+    return (time.perf_counter() - t0) * 1000, counts
+
+
+def refresh_queries(label: str, cluster, state: dict, args,
+                    card: str) -> dict:
+    """Q6, Q1 and Q3 as the spec writes them after a refresh function:
+    each first run exact against numpy over ``state`` (the generator's
+    arrays with the refresh applied) on the route or mode the earlier
+    phases fixed, with the device cache's refresh counters of that run;
+    then the warm runs, layers and a trace; K1 held to its plain version
+    at Q6's inputs."""
+    li, o, c = state["lineitem"], state["orders"], state["customer"]
+    out = {}
+    q6, q1, q3 = (f"TPC-H {q} (spec, {label})" for q in ("Q6", "Q1", "Q3"))
+    out[q6] = run_fragment_query(q6, cluster, Q6, expected_q6(li),
+                                 args.repeats, card, ("scan_agg", None))
+    out[q1] = run_fragment_query(q1, cluster, Q1_SPEC, expected_q1_spec(li),
+                                 args.repeats, card, ("program", ("hash", 64)))
+    out[q3] = run_topk_query(q3, cluster, Q3_SPEC,
+                             expected_q3(li, o, c, "BUILDING"), "gsort",
+                             ("fold",), 1, args.repeats, card)
+    for q, r in out.items():
+        print(f"refresh: {q} first run's device-cache refresh " + ", ".join(
+            f"{k} {r['refresh'][k]}" for k in REFRESH_STATS) + f" [{card}]",
+            flush=True)
+    dt = cluster.fused_executor().cache._tables[("lineitem", (0, 1))]
+    print(f"refresh: lineitem's MVCC planes {tuple(dt.xmin.shape)} int64 "
+          f"each, {2 * dt.xmin.numel() * 8 / 1e9:.3f} GB [{card}]",
+          flush=True)
+    return out
+
+
+def run_refresh(q3: dict, args, card: str) -> dict:
+    """Phase 8 (a): TPC-H's refresh functions as the power test runs
+    them (rev. 3, section 5.3.3: RF1, the queries, RF2) over phase 5c's
+    tables at ``--q3-sf``, after Q6 over the loaded rows (K1 over
+    compact planes): RF1 inserts SF x 1500 orders and their
+    lineitems through INSERT ... VALUES in one transaction, RF2 deletes
+    SF x 1500 existing orders and their lineitems through DELETE ...
+    WHERE ... IN (...) in one transaction; Q6, Q1 and Q3 after each,
+    exact against numpy over the generator's arrays so changed."""
+    cluster, tables = q3["cluster"], q3["tables"]
+    s = cluster.session()
+    # Q6 over the loaded rows first: K1 over compact MVCC planes, the
+    # shape the refreshes change
+    q6 = "TPC-H Q6 (spec)"
+    out = {"before RF1": {q6: run_fragment_query(
+        q6, cluster, Q6, expected_q6(tables["lineitem"]), args.repeats,
+        card, ("scan_agg", None))}}
+    out["k1_rows"] = time_k1_at(cluster, {q6: Q6}, card)
+    rf1 = make_rf1(tables, args.q3_sf, args.seed)
+    stmts = rf1_sql(rf1)
+    ms, counts = run_in_txn(s, stmts)
+    n_o, n_l = len(rf1["orders"]["o_orderkey"]), len(
+        rf1["lineitem"]["l_orderkey"])
+    if sum(counts) != n_o + n_l:
+        raise AssertionError(f"RF1 inserted {sum(counts)} rows, not "
+                             f"{n_o + n_l}")
+    print(f"write: RF1 {n_o} orders and {n_l} lineitems in {len(stmts)} "
+          f"INSERT statements, one transaction, {ms:.3f} ms [{card}]",
+          flush=True)
+    state = {"customer": tables["customer"],
+             "orders": _concat(tables["orders"], rf1["orders"]),
+             "lineitem": _concat(tables["lineitem"], rf1["lineitem"])}
+    out["RF1 ms"] = ms
+    out["after RF1"] = refresh_queries("after RF1", cluster, state, args,
+                                       card)
+    out["k1_rows"] += time_k1_at(cluster, {"TPC-H Q6 (spec, after RF1)": Q6},
+                                 card)
+    rng = np.random.default_rng(args.seed + 200)
+    okeys = tables["orders"]["o_orderkey"]
+    gone = np.sort(okeys[rng.choice(len(okeys), n_o, replace=False)])
+    stmts = []
+    for i in range(0, len(gone), RF_STMT_KEYS):
+        keys = ", ".join(map(str, gone[i:i + RF_STMT_KEYS].tolist()))
+        stmts.append(f"delete from orders where o_orderkey in ({keys})")
+        stmts.append(f"delete from lineitem where l_orderkey in ({keys})")
+    ms, counts = run_in_txn(s, stmts)
+    lkeep = ~np.isin(state["lineitem"]["l_orderkey"], gone)
+    if sum(counts) != len(gone) + int((~lkeep).sum()):
+        raise AssertionError(f"RF2 deleted {sum(counts)} rows, not "
+                             f"{len(gone) + int((~lkeep).sum())}")
+    print(f"write: RF2 {len(gone)} orders and {int((~lkeep).sum())} "
+          f"lineitems in {len(stmts)} DELETE statements, one transaction, "
+          f"{ms:.3f} ms [{card}]", flush=True)
+    state["orders"] = _select(state["orders"],
+                              ~np.isin(state["orders"]["o_orderkey"], gone))
+    state["lineitem"] = _select(state["lineitem"], lkeep)
+    out["RF2 ms"] = ms
+    out["after RF2"] = refresh_queries("after RF2", cluster, state, args,
+                                       card)
+    out["k1_rows"] += time_k1_at(cluster, {"TPC-H Q6 (spec, after RF2)": Q6},
+                                 card)
+    return out
+
+
+HTAP_TOPK = ("select g, count(*), sum(v) from ht "
+             "group by g order by 3 desc, g limit 5")
+
+
+def expected_htap(v: np.ndarray) -> list:
+    """The top five groups g = k mod 64 by sum(v) descending, then g,
+    over the loop's own record of every row's v (row k at index k)."""
+    g = np.arange(len(v)) % 64
+    cnt = np.bincount(g, minlength=64)
+    tot = np.bincount(g, weights=v, minlength=64)  # exact below 2^53
+    top = np.lexsort((np.arange(64), -tot))[:5]
+    return [(int(x), int(cnt[x]), int(tot[x])) for x in top]
+
+
+def htap_rmax(fx) -> int:
+    """The resident ``ht`` planes' padded rows a shard (``rmax``)."""
+    (dt,) = [d for (name, _), d in fx.cache._tables.items() if name == "ht"]
+    return dt.rmax
+
+
+def run_htap(args, device, card: str) -> dict:
+    """Phase 8 (b): bench.py's HTAP leg (bench.py:1210) at its own
+    parameters on the card: ``ht (k, g, v)`` sharded by k over 2
+    datanodes with 100 000 rows loaded by INSERT and compacted, then
+    for 4 s: a 500-row INSERT, 8 UPDATEs of 10 consecutive keys (v + 1),
+    and the top-5 query, each answer exact against numpy over the
+    loop's record of the writes. The device cache's counters stand for
+    the reference's pg_stat_fused and pg_stat_wal."""
+    import random
+
+    import torch
+
+    from opentenbase_tpu_torch import Cluster
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    secs, preload, ins_rows, upd_stmts = 4.0, 100_000, 500, 8
+    cluster = Cluster(num_datanodes=2, shard_groups=64, device=device)
+    s = cluster.session()
+    s.execute("create table ht (k bigint, g bigint, v bigint) "
+              "distribute by shard(k)")
+
+    def rows(lo, n):
+        return ",".join(f"({k}, {k % 64}, {k % 9973})"
+                        for k in range(lo, lo + n))
+
+    for lo in range(0, preload, 8000):
+        s.execute("insert into ht values "
+                  + rows(lo, min(8000, preload - lo)))
+    cluster.compact_deltas()
+    v = np.arange(preload, dtype=np.int64) % 9973
+    if s.query(HTAP_TOPK) != expected_htap(v):
+        raise AssertionError("HTAP warm top-5 != numpy")
+    fx = cluster.fused_executor()
+    c0 = dict(fx.cache.stats)
+    rmax0 = htap_rmax(fx)
+    rp.radix_probe.launches = 0
+    sa.scan_agg.launches = 0
+    rng = random.Random(11)
+    k_next, written, scans, checking = preload, 0, 0, 0.0
+    stop_at = time.monotonic() + secs
+    t0 = time.perf_counter()
+    while time.monotonic() < stop_at:
+        s.execute("insert into ht values " + rows(k_next, ins_rows))
+        v = np.concatenate([v, np.arange(k_next, k_next + ins_rows) % 9973])
+        k_next += ins_rows
+        written += ins_rows
+        for _ in range(upd_stmts):
+            lo = rng.randrange(0, k_next - 10)
+            s.execute(f"update ht set v = v + 1 where k >= {lo} "
+                      f"and k < {lo + 10}")
+            v[lo:lo + 10] += 1
+            written += 10
+        got = s.query(HTAP_TOPK)
+        scans += 1
+        t1 = time.perf_counter()
+        if got != expected_htap(v):
+            raise AssertionError(f"HTAP scan {scans}: port {got} != numpy")
+        checking += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0 - checking
+    moved = {k: fx.cache.stats[k] - c0[k] for k in fx.cache.stats}
+    runner = fx._dag
+    print(f"main path: HTAP loop {scans} top-5 scans exact (mode "
+          f"{runner.last_mode}, scan_agg launches {sa.scan_agg.launches}, "
+          f"radix_probe launches {rp.radix_probe.launches}); "
+          f"{written / elapsed:.1f} rows/s written over {elapsed:.3f} s "
+          f"({k_next} rows at the end; programs cached "
+          f"{len(runner._programs)}) [{card}]", flush=True)
+    print("refresh: HTAP loop device cache " + ", ".join(
+        f"{k} {n}" for k, n in moved.items())
+        + f"; rows a shard can hold {rmax0} -> {htap_rmax(fx)} [{card}]",
+        flush=True)
+    # the one full upload the reference also makes here: a shard's rows
+    # outgrow the padded capacity (how many scans the loop fits decides
+    # whether it does); any other rebuild means a refresh went wrong
+    if moved["full_uploads"] != moved["rmax_rebuilds"]:
+        raise AssertionError(
+            f"HTAP loop: {moved['full_uploads']} full uploads after warm-up, "
+            f"only {moved['rmax_rebuilds']} of them by a shard past rmax")
+    if moved["rmax_rebuilds"] and htap_rmax(fx) <= rmax0:
+        raise AssertionError("HTAP loop: rebuilt past rmax without growing it")
+    return {"rows_per_sec": written / elapsed, "scans": scans,
+            "cache": moved, "launches": {
+                "scan_agg": sa.scan_agg.launches,
+                "radix_probe": rp.radix_probe.launches}}
+
+
+def run_ssb_delete(ssb: dict, args, card: str) -> dict:
+    """Phase 8 (c): in phase 5's SSB cluster, after flights 1-4 and their
+    kernel timings: DELETE the rows of the first 0.1 % of lo_orderkeys,
+    then flight 1 again, each exact against numpy over the remaining
+    rows, K2 launched in each run over the now full MVCC planes."""
+    import torch
+
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+
+    cluster, s = ssb["cluster"], ssb["session"]
+    lo, dd = ssb["tables"]["lineorder"], ssb["tables"]["date_dim"]
+    cut = max(int(lo["lo_orderkey"].max()) // 1000, 1)
+    fx = cluster.fused_executor()
+    t0 = time.perf_counter()
+    n = s.execute(f"delete from lineorder where lo_orderkey <= {cut}"
+                  ).rowcount
+    ms = (time.perf_counter() - t0) * 1000
+    keep = lo["lo_orderkey"] > cut
+    if n != int((~keep).sum()):
+        raise AssertionError(f"SSB delete: {n} rows, not {(~keep).sum()}")
+    print(f"write: SSB DELETE of lineorder's first {cut} order keys: {n} "
+          f"rows, {ms:.3f} ms [{card}]", flush=True)
+    rest = {c: lo[c][keep] for c in ("lo_orderdate", "lo_quantity",
+                                     "lo_discount", "lo_extendedprice")}
+    queries, launches, e2e = {}, {}, {}
+    for q, sql in SSB_Q.items():
+        name = f"{q} after delete"
+        queries[name] = sql
+        want = expected_ssb(rest, dd, q)
+        c0 = dict(fx.cache.stats)
+        rp.radix_probe.launches = 0
+        got = s.query(sql)
+        torch.cuda.synchronize()
+        launches[name] = rp.radix_probe.launches
+        moved = {k: fx.cache.stats[k] - c0[k] for k in REFRESH_STATS}
+        modes = fx._dag.last_join_modes
+        if got != want:
+            raise AssertionError(f"SSB {name}: port {got} != numpy {want}")
+        if launches[name] < 1 or "radix" not in modes:
+            raise AssertionError(f"SSB {name}: radix_probe launches "
+                                 f"{launches[name]}, join modes {modes}")
+        ts = []
+        for _ in range(args.repeats):
+            t1 = time.perf_counter()
+            if s.query(sql) != want:
+                raise AssertionError(f"SSB {name}: answer changed")
+            ts.append((time.perf_counter() - t1) * 1000)
+        e2e[name] = statistics.median(ts)
+        print(f"main path: SSB {name} exact through the fused DAG (join "
+              f"modes {modes}, radix_probe launches {launches[name]}; the "
+              f"first run's refresh " + ", ".join(
+                  f"{k} {v}" for k, v in moved.items())
+              + f"; warm median {e2e[name]:.3f} ms) {got} [{card}]",
+              flush=True)
+    dt = fx.cache._tables[("lineorder", (0, 1))]
+    if dt.xmin.shape[1] == 1:
+        raise AssertionError("SSB delete: lineorder's planes stayed compact")
+    return {"queries": queries, "launches": launches, "e2e": e2e}
+
+
 def capture_probe_inputs(ssb: dict, sql: str):
     """The arguments the fused DAG hands radix_probe for ``sql``: one more
     warm run with the DAG's handle on the wrapper swapped for a recorder
@@ -2410,8 +2900,8 @@ def main(argv=None) -> int:
         report = ptxas_summary(cuda_build.ptxas_logs.get(src))
         print(f"build: csrc/{src}: {report}", flush=True)
 
-    check_kernel_vs_plain(device, args.seed, card)
-    check_radix_vs_plain(device, args.seed, card)
+    check_kernel_vs_plain(device, args.seed, card, args.rows)
+    check_radix_vs_plain(device, args.seed, card, args.ssb_rows)
     main_run = run_main_path(args, device, card)
     rows = time_kernels(main_run, card, rate)
     topk = {"Q3 dense": run_q3_dense(main_run, args, card)}
@@ -2425,12 +2915,23 @@ def main(argv=None) -> int:
     grouped_run = run_ssb_grouped(ssb_run, args, card)
     radix_rows = time_radix(ssb_run, card, rate,
                             {**SSB_Q, **SSB_GROUPED_Q})
-    ssb_launches = {**ssb_run["launches"], **grouped_run["launches"]}
+    # phase 8 (c): flight 1 again after a DELETE, in the same cluster,
+    # after every earlier query and timing of its tables
+    ssb_del = run_ssb_delete(ssb_run, args, card)
+    radix_rows += time_radix(ssb_run, card, rate, ssb_del["queries"])
+    ssb_launches = {**ssb_run["launches"], **grouped_run["launches"],
+                    **ssb_del["launches"]}
     del ssb_run["cluster"], ssb_run["session"]  # free SSB's planes
     gc.collect()
     torch.cuda.empty_cache()
     topk["Q3 spec"] = run_q3_spec(args, device, card)
-    gc.collect()  # Q3's cluster, before hits loads
+    # phase 8 (a): TPC-H's refresh functions into Q3's tables, after
+    # every earlier query of them; (b) bench.py's HTAP loop
+    refresh = run_refresh(topk["Q3 spec"].pop("phase8"), args, card)
+    gc.collect()  # Q3's cluster, before the next cluster loads
+    torch.cuda.empty_cache()
+    htap = run_htap(args, device, card)
+    gc.collect()
     torch.cuda.empty_cache()
     topk["ClickBench"] = run_clickbench(args, device, card)
     gc.collect()  # hits' cluster, before the SF100 tables load
@@ -2445,9 +2946,16 @@ def main(argv=None) -> int:
     # phase 6's queries ran in phase 5c's clusters
     frag = {**topk["Q3 spec"].pop("fragment"),
             **topk["ClickBench"].pop("fragment")}
-    k1_rows = topk["ClickBench"].pop("k1_rows") + sf100.pop("k1_rows")
+    k1_rows = (topk["ClickBench"].pop("k1_rows") + refresh.pop("k1_rows")
+               + sf100.pop("k1_rows"))
     sf100_rows_n, windows = sf100.pop("rows"), sf100.pop("windows")
     frag.update(sf100)
+    for label in ("before RF1", "after RF1", "after RF2"):
+        for q, r in refresh[label].items():
+            (topk if "Q3" in q else frag)[q] = r
+    path_launches["scan_agg"]["HTAP loop"] = htap["launches"]["scan_agg"]
+    path_launches["radix_probe"]["HTAP loop"] = htap["launches"][
+        "radix_probe"]
     for q, r in {**topk, **frag}.items():
         for k, n in r["launches"].items():
             path_launches[k][q] = n
@@ -2512,7 +3020,7 @@ def main(argv=None) -> int:
                            **{q: r["trace"] for q, r in late.items()}}.items()}
     print(json.dumps({"kernels": kernels,
                       "e2e_ms": {**e2e_tpch, **ssb_run["e2e"],
-                                 **grouped_run["e2e"],
+                                 **grouped_run["e2e"], **ssb_del["e2e"],
                                  **{q: r["e2e"] for q, r in late.items()}},
                       "layers_ms": {**layers_tpch, **ssb_run["breakdown"],
                                     **grouped_run["breakdown"],
@@ -2526,6 +3034,10 @@ def main(argv=None) -> int:
                       "q3_sf": args.q3_sf, "hits_rows": args.hits_rows,
                       "sf100_rows": sf100_rows_n,
                       "sf100_q3_windows": windows,
+                      "write_ms": {"RF1": refresh["RF1 ms"],
+                                   "RF2": refresh["RF2 ms"]},
+                      "htap": {k: htap[k] for k in
+                               ("rows_per_sec", "scans", "cache")},
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,23 +2,36 @@
 reference's opentenbase_tpu/engine.py).
 
 Statements: ``create table ... distribute by
-roundrobin|shard(...)|replication``, ``insert ... values`` of literals,
-and ``select`` through analyze -> optimize -> distribute -> the device
-(a single fragment through the scan-aggregate kernel or the fragment
-program, joins through the fused DAG) -> the coordinator merge.
-Anything else raises NotPorted.
+roundrobin|shard(...)|replication``; ``insert ... values`` of literals,
+``delete`` and ``update`` (no FROM/USING, no RETURNING), each in an
+implicit transaction or inside ``begin ... commit|rollback``;
+``vacuum``; and ``select`` through analyze -> optimize -> distribute ->
+the device (a single fragment through the scan-aggregate kernel or the
+fragment program, joins through the fused DAG) -> the coordinator
+merge. Anything else raises NotPorted.
+
+Transactions run under snapshot isolation, single process (no 2PC, no
+WAL): a write parks its rows as delta batches at PENDING_TS and records
+its deleted positions; commit stamps every insert range's xmin and
+every deleted position's xmax at one commit timestamp. UPDATE and
+DELETE take row locks keyed by stable row ids and fail with SQLSTATE
+40001 when a concurrent transaction committed a change to a row first.
 
 Commit timestamps come from ``cluster.gts``, a monotone in-process
-counter in place of the reference's GTS: a write commits at the next
-timestamp, a read takes the last one as its snapshot.
-``cluster.stores[node][table]`` and ``cluster.gts.get_gts()`` keep the
-reference's names, so a loader that appends straight into the stores
-(bench.py's ``_bulk_append``) works unchanged.
+counter in place of the reference's GTS, with the reference's stamping
+fence: a snapshot never lands on a commit timestamp whose stamps have
+not all landed. ``cluster.stores[node][table]`` and
+``cluster.gts.get_gts()`` keep the reference's names, so a loader that
+appends straight into the stores (bench.py's ``_bulk_append``) works
+unchanged.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -36,7 +49,17 @@ from opentenbase_tpu_torch.catalog.shardmap import ShardMap
 from opentenbase_tpu_torch.errors import NotPorted
 from opentenbase_tpu_torch.executor.fused import FusedExecutor
 from opentenbase_tpu_torch.executor.fused_dag import DagUnsupported
-from opentenbase_tpu_torch.executor.local import LocalExecutor
+from opentenbase_tpu_torch.executor.local import (
+    LocalExecutor,
+    np_expr_eval,
+    predicate_rows,
+)
+from opentenbase_tpu_torch.lmgr import (
+    ROW_UPDATE,
+    TABLE_SHARED,
+    DeadlockError,
+    LockManager,
+)
 from opentenbase_tpu_torch.plan import analyze_statement
 from opentenbase_tpu_torch.plan import logical as L
 from opentenbase_tpu_torch.plan.distribute import distribute_statement
@@ -44,7 +67,12 @@ from opentenbase_tpu_torch.plan.optimize import optimize_statement
 from opentenbase_tpu_torch.sql import ast as A
 from opentenbase_tpu_torch.sql import parse
 from opentenbase_tpu_torch.storage.column import Column, column_from_python
-from opentenbase_tpu_torch.storage.table import ColumnBatch, ShardStore
+from opentenbase_tpu_torch.storage.table import (
+    INF_TS,
+    PENDING_TS,
+    ColumnBatch,
+    ShardStore,
+)
 
 
 @dataclass
@@ -63,7 +91,15 @@ class Result:
 
 
 class SQLError(RuntimeError):
-    """Statement error (a user mistake, not a shape outside the port)."""
+    """Statement error (a user mistake or a serialization failure, not a
+    shape outside the port). ``sqlstate`` is the PG error code."""
+
+    sqlstate = "XX000"
+
+    def __init__(self, msg: str, sqlstate: Optional[str] = None):
+        super().__init__(msg)
+        if sqlstate is not None:
+            self.sqlstate = sqlstate
 
 
 def resolve_device(device) -> torch.device:
@@ -80,13 +116,30 @@ def resolve_device(device) -> torch.device:
 
 
 class CommitClock:
-    """Monotone in-process commit-timestamp source (takes the place of
-    the reference's GTS service): a write commits at ``get_gts()``, a
-    read's snapshot is ``snapshot_ts()`` and sees every commit so far."""
+    """Monotone in-process timestamp source (the reference's GTS) with
+    the reference's commit-stamp fence (``Cluster.commit_ts_begin_
+    stamping`` / ``clamped_snapshot``).
+
+    A commit takes its timestamp with ``commit_ts_begin_stamping`` and
+    stamps its rows store by store; until it calls ``stamping_done``, a
+    new snapshot at or above that timestamp WAITS for the stamps to
+    land (read-your-writes: clamping below it would hide a session's
+    own earlier commit behind an unrelated one still stamping), and
+    past a 10 s stall clamps below it instead. The timestamp is issued
+    and registered under one mutex, so there is no window in which a
+    commit holds a timestamp the fence does not know (the reference's
+    pending counter covers its GTS round trip, which this clock has
+    not). ``get_gts`` issues a timestamp outside the fence, for bulk
+    loaders that write committed rows directly."""
+
+    STALL_S = 10.0
 
     def __init__(self):
         self._ts = 0
+        self._gxid = 0
         self._mu = threading.Lock()
+        self._cond = threading.Condition(self._mu)
+        self._stamping: set[int] = set()
 
     def get_gts(self) -> int:
         """A fresh commit timestamp, greater than every earlier one."""
@@ -95,8 +148,46 @@ class CommitClock:
             return self._ts
 
     def snapshot_ts(self) -> int:
+        """The last issued timestamp, unfenced (VACUUM's horizon)."""
         with self._mu:
             return self._ts
+
+    def begin(self) -> tuple[int, int]:
+        """(transaction id, snapshot): the snapshot a fresh timestamp,
+        fenced."""
+        with self._cond:
+            self._gxid += 1
+            self._ts += 1
+            return self._gxid, self._fence(self._ts)
+
+    def commit_ts_begin_stamping(self) -> int:
+        """A commit timestamp, registered as stamping until
+        ``stamping_done``."""
+        with self._cond:
+            self._ts += 1
+            self._stamping.add(self._ts)
+            return self._ts
+
+    def stamping_done(self, cts: int) -> None:
+        with self._cond:
+            self._stamping.discard(cts)
+            self._cond.notify_all()
+
+    def clamped_snapshot(self) -> int:
+        """A read snapshot that no commit still stamping straddles."""
+        with self._cond:
+            return self._fence(self._ts)
+
+    def _fence(self, ts: int) -> int:
+        """Caller holds ``_cond``."""
+        deadline = time.monotonic() + self.STALL_S
+        while self._stamping and min(self._stamping) <= ts:
+            left = deadline - time.monotonic()
+            if left <= 0 or not self._cond.wait(timeout=left):
+                break
+        if self._stamping:
+            ts = min(ts, min(self._stamping) - 1)
+        return ts
 
     def advance_to(self, ts: int) -> None:
         """Move the clock to at least ``ts`` (rows carried in from another
@@ -105,9 +196,96 @@ class CommitClock:
             self._ts = max(self._ts, int(ts))
 
 
+# ---------------------------------------------------------------------------
+# Transaction
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _TableWrites:
+    ins_ranges: list[tuple[int, int]] = field(default_factory=list)
+    del_idx: list[int] = field(default_factory=list)
+
+
+class Transaction:
+    """A transaction's write sets: per node and table, the position
+    ranges it appended (at PENDING_TS) and the positions it deletes
+    (an UPDATE deletes the old row and appends the new one)."""
+
+    def __init__(self, gxid: int, snapshot_ts: int):
+        self.gxid = gxid
+        self.snapshot_ts = snapshot_ts
+        # node index -> table -> writes
+        self.writes: dict[int, dict[str, _TableWrites]] = {}
+        self.pinned: list[ShardStore] = []
+
+    def w(self, node: int, table: str) -> _TableWrites:
+        return self.writes.setdefault(node, {}).setdefault(
+            table, _TableWrites())
+
+    def mark(self) -> dict:
+        """Write-set positions now: a failed statement inside an explicit
+        transaction rolls back to them (PG's implicit per-statement
+        subtransaction; the reference's ``__stmt__`` savepoint)."""
+        return {
+            (node, table): (len(tw.ins_ranges), len(tw.del_idx))
+            for node, tabs in self.writes.items()
+            for table, tw in tabs.items()
+        }
+
+    def rollback_to(self, mark: dict, stores) -> None:
+        for node, tabs in self.writes.items():
+            for table, tw in tabs.items():
+                n_ins, n_del = mark.get((node, table), (0, 0))
+                for s, e in tw.ins_ranges[n_ins:]:
+                    stores[node][table].truncate_range(s, e)
+                del tw.ins_ranges[n_ins:]
+                del tw.del_idx[n_del:]
+
+    def touched_nodes(self) -> list[int]:
+        return [
+            n for n, tabs in self.writes.items()
+            if any(tw.ins_ranges or tw.del_idx for tw in tabs.values())
+        ]
+
+    def own_writes_view(self) -> dict[int, dict[str, tuple]]:
+        return {
+            n: {
+                tb: (tw.ins_ranges, np.asarray(tw.del_idx, dtype=np.int64))
+                for tb, tw in tabs.items()
+            }
+            for n, tabs in self.writes.items()
+        }
+
+    def pin(self, store: ShardStore) -> None:
+        """Fence VACUUM out of ``store``: row positions are the write
+        set's identifiers until commit or abort."""
+        if store not in self.pinned:
+            store.pin()
+            self.pinned.append(store)
+
+    def unpin_all(self) -> None:
+        for s in self.pinned:
+            s.unpin()
+        self.pinned.clear()
+
+
+def _assemble_assigned_column(d, v, nrows: int, ty, dictionary) -> Column:
+    """One UPDATE SET result column: a scalar result broadcast to
+    ``nrows``, dtype coerced, validity kept (shared by the numpy fast
+    path and the compiled path, which must agree)."""
+    d = np.asarray(d)
+    d = np.broadcast_to(d, (nrows,)).copy() if d.ndim == 0 else d[:nrows]
+    vv = None
+    if v is not None:
+        v = np.asarray(v)
+        vv = np.broadcast_to(v, (nrows,)).copy() if v.ndim == 0 else v[:nrows]
+    return Column(ty, d.astype(ty.np_dtype), vv, dictionary)
+
+
 class Cluster:
-    """One deployment: topology, catalog, per-datanode stores, and the
-    device the fused fragments run on."""
+    """One deployment: topology, catalog, per-datanode stores, the lock
+    table, and the device the fused fragments run on."""
 
     def __init__(
         self,
@@ -129,6 +307,8 @@ class Cluster:
             i: {} for i in self.nodes.datanode_indices()
         }
         self.gts = CommitClock()
+        self.locks = LockManager()
+        self._session_ids = itertools.count(1)
         self._fused: Optional[FusedExecutor] = None
 
     def fused_executor(self) -> FusedExecutor:
@@ -142,6 +322,18 @@ class Cluster:
                 meta.schema, meta.dictionaries
             )
 
+    def compact_deltas(self) -> int:
+        """Fold every store's pending delta batches into its base arrays
+        (positions kept, so the device cache stays valid). Returns the
+        batches folded."""
+        folded = 0
+        for stores in list(self.stores.values()):
+            for store in list(stores.values()):
+                compact = getattr(store, "compact", None)
+                if compact is not None and store.pending_delta_rows:
+                    folded += compact()
+        return folded
+
     def session(self) -> "Session":
         return Session(self)
 
@@ -149,6 +341,8 @@ class Cluster:
 class Session:
     def __init__(self, cluster: Cluster):
         self.cluster = cluster
+        self.session_id = next(cluster._session_ids)
+        self.txn: Optional[Transaction] = None
         # whether the last SELECT's device output came from the fused DAG
         # (else from K1's route), the reference's attribute
         self._fused_via_dag = False
@@ -160,15 +354,198 @@ class Session:
     def query(self, sql: str) -> list[tuple]:
         return self.execute(sql).rows
 
+    _REFUSED = {
+        A.SavepointStmt: "SAVEPOINT",
+        A.RollbackToSavepoint: "ROLLBACK TO SAVEPOINT",
+        A.ReleaseSavepoint: "RELEASE SAVEPOINT",
+        A.PrepareTransaction: "PREPARE TRANSACTION",
+        A.CommitPrepared: "COMMIT PREPARED",
+        A.RollbackPrepared: "ROLLBACK PREPARED",
+    }
+
     def _execute_one(self, stmt: A.Statement) -> Result:
         fn = {
             A.CreateTable: self._x_createtable,
             A.Insert: self._x_insert,
+            A.Update: self._x_update,
+            A.Delete: self._x_delete,
             A.Select: self._x_select,
+            A.BeginStmt: self._x_beginstmt,
+            A.CommitStmt: self._x_commitstmt,
+            A.RollbackStmt: self._x_rollbackstmt,
+            A.VacuumStmt: self._x_vacuumstmt,
         }.get(type(stmt))
         if fn is None:
-            raise NotPorted(f"statement {type(stmt).__name__}")
-        return fn(stmt)
+            raise NotPorted(self._REFUSED.get(
+                type(stmt), f"statement {type(stmt).__name__}"))
+        try:
+            txn = self.txn
+            if txn is None or not isinstance(
+                stmt, (A.Insert, A.Update, A.Delete)
+            ):
+                return fn(stmt)
+            # a failed statement inside an explicit transaction leaves
+            # no partial writes for COMMIT to persist
+            mark = txn.mark()
+            try:
+                return fn(stmt)
+            except Exception:
+                if self.txn is txn:
+                    txn.rollback_to(mark, self.cluster.stores)
+                raise
+        except DeadlockError as e:
+            # the victim's whole transaction dies, or its locks keep the
+            # cycle standing
+            if self.txn is not None:
+                self._abort_txn(self.txn)
+                self.txn = None
+            self.cluster.locks.release_all(self.session_id)
+            raise SQLError(str(e), "40P01")
+
+    # -- transactions ---------------------------------------------------
+    def _begin_implicit(self) -> tuple[Transaction, bool]:
+        if self.txn is not None:
+            return self.txn, False
+        return Transaction(*self.cluster.gts.begin()), True
+
+    def _snapshot(self) -> int:
+        if self.txn is not None:
+            return self.txn.snapshot_ts
+        return self.cluster.gts.clamped_snapshot()
+
+    def _x_beginstmt(self, stmt: A.BeginStmt) -> Result:
+        if self.txn is not None:
+            raise SQLError("there is already a transaction in progress")
+        self.txn = Transaction(*self.cluster.gts.begin())
+        return Result("BEGIN")
+
+    def _x_commitstmt(self, stmt: A.CommitStmt) -> Result:
+        if self.txn is None:
+            raise SQLError("there is no transaction in progress")
+        txn, self.txn = self.txn, None
+        try:
+            self._commit_txn(txn)
+        except SQLError:
+            raise  # serialization failure: _commit_txn already aborted
+        except Exception:
+            self._abort_txn(txn)
+            raise
+        return Result("COMMIT")
+
+    def _x_rollbackstmt(self, stmt: A.RollbackStmt) -> Result:
+        if self.txn is None:
+            raise SQLError("there is no transaction in progress")
+        self._abort_txn(self.txn)
+        self.txn = None
+        return Result("ROLLBACK")
+
+    def _acquire_row_locks(
+        self, txn: Transaction, table: str, node: int, idx, mode: str,
+    ) -> None:
+        """Row locks on store positions ``idx``, keyed by the stable row
+        ids (VACUUM is fenced out by the store pin, taken BEFORE the
+        wait). Then the lock targets are checked again for a committed
+        concurrent change: the wait may have ended because a conflicting
+        writer committed (PG's heap_lock_tuple HeapTupleUpdated)."""
+        if len(idx) == 0:
+            return
+        store = self.cluster.stores[node][table]
+        keys = [(node, table, int(rid))
+                for rid in store.peek_row_id_at(np.asarray(idx))]
+        newly_pinned = store not in txn.pinned
+        txn.pin(store)
+        try:
+            self.cluster.locks.acquire(self.session_id, txn.gxid, keys,
+                                       mode)
+        except Exception:
+            if newly_pinned:
+                store.unpin()
+                txn.pinned.remove(store)
+            raise
+        if (store.peek_xmax_at(idx) != INF_TS).any():
+            raise SQLError(
+                "could not serialize access due to concurrent update",
+                "40001",
+            )
+
+    def _check_write_conflicts(self, txn: Transaction) -> None:
+        """First committer wins: a row this transaction deletes that
+        another already stamped would be changed twice."""
+        for node, tabs in txn.writes.items():
+            for table, tw in tabs.items():
+                if not tw.del_idx:
+                    continue
+                store = self.cluster.stores[node][table]
+                idx = np.asarray(tw.del_idx, dtype=np.int64)
+                if (store.peek_xmax_at(idx) != INF_TS).any():
+                    self._abort_txn(txn)
+                    raise SQLError(
+                        "could not serialize access due to concurrent "
+                        "update", "40001",
+                    )
+
+    def _commit_txn(self, txn: Transaction) -> None:
+        self._check_write_conflicts(txn)
+        if txn.touched_nodes():
+            gts = self.cluster.gts
+            cts = gts.commit_ts_begin_stamping()
+            try:
+                try:
+                    self._stamp_commit(txn, cts)
+                except Exception:
+                    self._abort_txn(txn, failed_commit_ts=cts)
+                    raise
+            finally:
+                gts.stamping_done(cts)
+        txn.unpin_all()
+        self.cluster.locks.release_all(self.session_id)
+
+    def _stamp_commit(self, txn: Transaction, commit_ts: int) -> None:
+        """Every insert range's xmin and every deleted position's xmax at
+        one commit timestamp, store by store (the fence keeps snapshots
+        off ``commit_ts`` until the last store is stamped)."""
+        for node, tabs in txn.writes.items():
+            for table, tw in tabs.items():
+                store = self.cluster.stores[node][table]
+                for s, e in tw.ins_ranges:
+                    store.stamp_xmin(s, e, commit_ts)
+                if tw.del_idx:
+                    store.stamp_xmax(
+                        np.asarray(tw.del_idx, dtype=np.int64), commit_ts)
+
+    def _abort_txn(
+        self, txn: Transaction, failed_commit_ts: Optional[int] = None
+    ) -> None:
+        for node, tabs in txn.writes.items():
+            for table, tw in tabs.items():
+                store = self.cluster.stores[node][table]
+                for s, e in tw.ins_ranges:
+                    store.truncate_range(s, e)
+                if tw.del_idx and failed_commit_ts is not None:
+                    # undo only OUR stamps of a half-applied commit: rows
+                    # another transaction deleted stay deleted
+                    idx = np.asarray(tw.del_idx, dtype=np.int64)
+                    mine = store.peek_xmax_at(idx) == failed_commit_ts
+                    if mine.any():
+                        store.unstamp_xmax(idx[mine])
+        txn.unpin_all()
+        self.cluster.locks.release_all(self.session_id)
+
+    def _finish(self, txn: Transaction, implicit: bool, fn):
+        """Run the write ``fn`` inside ``txn``: an implicit transaction
+        commits after it and aborts on its failure; an explicit one
+        stays open on the session."""
+        try:
+            out = fn()
+        except Exception:
+            if implicit:
+                self._abort_txn(txn)
+            raise
+        if implicit:
+            self._commit_txn(txn)
+        else:
+            self.txn = txn
+        return out
 
     # -- DDL ---------------------------------------------------------------
     def _x_createtable(self, stmt: A.CreateTable) -> Result:
@@ -211,6 +588,24 @@ class Session:
             )
         raise NotPorted(f"distribute by {s}")
 
+    def _x_vacuumstmt(self, stmt: A.VacuumStmt) -> Result:
+        """Reclaim rows deleted before the newest timestamp, store by
+        store; a store a transaction pins is skipped (its positions are
+        that transaction's identifiers). Row positions are rewritten, so
+        the device cache rebuilds the table on its next read."""
+        oldest = self.cluster.gts.snapshot_ts()
+        cat = self.cluster.catalog
+        names = [stmt.table] if stmt.table else cat.table_names()
+        removed = 0
+        for name in names:
+            if not cat.has(name):
+                raise SQLError(f'relation "{name}" does not exist')
+            for n in cat.get(name).node_indices:
+                store = self.cluster.stores[n].get(name)
+                if store is not None and hasattr(store, "vacuum"):
+                    removed += store.vacuum(oldest)
+        return Result("VACUUM", rowcount=removed)
+
     # -- INSERT ... VALUES ---------------------------------------------------
     _LITERAL_OK = {
         t.TypeId.BOOL: (bool,),
@@ -224,19 +619,22 @@ class Session:
         t.TypeId.TEXT: (str,),
     }
 
+    def _table_meta(self, name: str) -> TableMeta:
+        cat = self.cluster.catalog
+        if not cat.has(name):
+            raise SQLError(f'relation "{name}" does not exist')
+        return cat.get(name)
+
     def _x_insert(self, stmt: A.Insert) -> Result:
         """VALUES rows of plain literals build per-column arrays directly
         (the reference's bulk-insert rewrite, engine.py
-        _bulk_insert_batch), route by the table's locator, and commit at
-        one fresh timestamp."""
+        _bulk_insert_batch), route by the table's locator and park as
+        delta batches at PENDING_TS; the commit stamps them."""
         if stmt.query is not None or not stmt.values:
             raise NotPorted("INSERT ... SELECT")
         if stmt.returning or stmt.on_conflict is not None:
             raise NotPorted("INSERT ... RETURNING / ON CONFLICT")
-        cat = self.cluster.catalog
-        if not cat.has(stmt.table):
-            raise SQLError(f'relation "{stmt.table}" does not exist')
-        meta = cat.get(stmt.table)
+        meta = self._table_meta(stmt.table)
         columns = list(stmt.columns) if stmt.columns else list(meta.schema)
         arity = len(stmt.values[0])
         if not stmt.columns and arity < len(columns):
@@ -276,28 +674,226 @@ class Session:
                     [None] * n, ty, meta.dictionaries.get(name)
                 )
         batch = ColumnBatch({k: cols[k] for k in meta.schema}, n)
-        ts = self.cluster.gts.get_gts()
-        if meta.dist.is_replicated:  # every replica holds every row
+        txn, implicit = self._begin_implicit()
+
+        def write():
+            # a shared table lock: coexists with other writers
+            self.cluster.locks.acquire(
+                self.session_id, txn.gxid,
+                [(node, meta.name) for node in meta.node_indices],
+                TABLE_SHARED,
+            )
+            return self._route_and_append(meta, batch, txn)
+
+        return Result("INSERT",
+                      rowcount=self._finish(txn, implicit, write))
+
+    def _route_and_append(
+        self, meta: TableMeta, batch: ColumnBatch, txn: Transaction
+    ) -> int:
+        """Append ``batch`` where the locator puts each row (every
+        replica of a replicated table), as pending delta batches."""
+        if batch.nrows == 0:
+            return 0
+        if meta.dist.is_replicated:
             for node in meta.node_indices:
-                self.cluster.stores[node][meta.name].append_batch(batch, ts)
-            return Result("INSERT", rowcount=n)
+                self._append_one(meta, node, batch, txn)
+            return batch.nrows
         key_cols = {k: batch.columns[k] for k in meta.dist.key_columns}
-        routes = meta.locator.route_insert(key_cols, n)
+        routes = meta.locator.route_insert(key_cols, batch.nrows)
         for node in np.unique(routes):
             sub = batch.take(np.nonzero(routes == node)[0])
-            self.cluster.stores[int(node)][meta.name].append_batch(sub, ts)
-        return Result("INSERT", rowcount=n)
+            self._append_one(meta, int(node), sub, txn)
+        return batch.nrows
+
+    def _append_one(self, meta, node: int, batch: ColumnBatch,
+                    txn: Transaction) -> None:
+        store = self.cluster.stores[node][meta.name]
+        txn.pin(store)
+        s, e = store.append_delta(batch, PENDING_TS)
+        txn.w(node, meta.name).ins_ranges.append((s, e))
+
+    # -- UPDATE / DELETE -------------------------------------------------
+    @staticmethod
+    def _fold_dml_alias(stmt) -> None:
+        """A target alias: qualified references to it rewrite to the
+        table name, so the plain analyzer resolves them."""
+        alias = getattr(stmt, "alias", None)
+        if not alias or alias == stmt.table:
+            return
+
+        def walk(e):
+            if isinstance(e, (A.ColumnRef, A.Star)) and e.table == alias:
+                return dataclasses.replace(e, table=stmt.table)
+            if dataclasses.is_dataclass(e) and not isinstance(e, type):
+                ch = {}
+                for f in dataclasses.fields(e):
+                    v = getattr(e, f.name)
+                    if isinstance(v, A.Expr):
+                        nv = walk(v)
+                        if nv is not v:
+                            ch[f.name] = nv
+                    elif isinstance(v, (list, tuple)):
+                        nv = [walk(x) if isinstance(x, A.Expr) else x
+                              for x in v]
+                        if any(a is not b for a, b in zip(nv, v)):
+                            ch[f.name] = type(v)(nv)
+                if ch:
+                    try:
+                        return dataclasses.replace(e, **ch)
+                    except TypeError:
+                        for k, v in ch.items():
+                            setattr(e, k, v)
+            return e
+
+        if stmt.where is not None:
+            stmt.where = walk(stmt.where)
+        for i, (c, e) in enumerate(getattr(stmt, "assignments", []) or []):
+            stmt.assignments[i] = (c, walk(e))
+
+    def _dml_plan(self, stmt, what: str):
+        """(the analyzed UpdatePlan/DeletePlan, the table's meta)."""
+        if stmt.from_table is not None:
+            join = "FROM" if what == "UPDATE" else "USING"
+            raise NotPorted(f"{what} ... {join}")
+        if stmt.returning:
+            raise NotPorted(f"{what} ... RETURNING")
+        self._fold_dml_alias(stmt)
+        self._table_meta(stmt.table)
+        splan = analyze_statement(stmt, self.cluster.catalog)
+        if splan.subplans:
+            raise NotPorted("scalar subqueries")
+        return splan.root, self.cluster.catalog.get(splan.root.table)
+
+    def _target_rows(self, txn, meta, node, predicate) -> np.ndarray:
+        """This node's rows the statement changes, locked."""
+        idx = predicate_rows(
+            self.cluster.catalog, self.cluster.stores[node][meta.name],
+            meta.name, predicate, txn.snapshot_ts,
+            txn.own_writes_view().get(node, {}).get(meta.name),
+            self.cluster.device,
+        )
+        if len(idx):
+            self._acquire_row_locks(txn, meta.name, node, idx, ROW_UPDATE)
+        return idx
+
+    def _x_delete(self, stmt: A.Delete) -> Result:
+        dplan, meta = self._dml_plan(stmt, "DELETE")
+        txn, implicit = self._begin_implicit()
+
+        def write():
+            total = 0
+            for node in meta.node_indices:
+                idx = self._target_rows(txn, meta, node, dplan.predicate)
+                if len(idx):
+                    txn.pin(self.cluster.stores[node][meta.name])
+                    txn.w(node, meta.name).del_idx.extend(idx.tolist())
+                    total += len(idx)
+            if meta.dist.is_replicated and meta.node_indices:
+                total //= len(meta.node_indices)
+            return total
+
+        return Result("DELETE", rowcount=self._finish(txn, implicit, write))
+
+    def _x_update(self, stmt: A.Update) -> Result:
+        """Each changed row is deleted and its new image appended, routed
+        by the locator: a row whose distribution key changes moves to
+        its new node."""
+        uplan, meta = self._dml_plan(stmt, "UPDATE")
+        assigned = dict(uplan.assignments)
+        txn, implicit = self._begin_implicit()
+
+        def write():
+            total = 0
+            new_batches: list[ColumnBatch] = []
+            for node in meta.node_indices:
+                idx = self._target_rows(txn, meta, node, uplan.predicate)
+                if not len(idx):
+                    continue
+                store = self.cluster.stores[node][meta.name]
+                new_batches.append(self._apply_assignments(
+                    meta, store.take_batch(idx), assigned))
+                txn.pin(store)
+                txn.w(node, meta.name).del_idx.extend(idx.tolist())
+                total += len(idx)
+                if meta.dist.is_replicated:
+                    # one copy's new image; the append fans out again
+                    new_batches = new_batches[:1]
+            for nb in new_batches:
+                self._route_and_append(meta, nb, txn)
+            if meta.dist.is_replicated and meta.node_indices:
+                total //= len(meta.node_indices)
+            return total
+
+        return Result("UPDATE", rowcount=self._finish(txn, implicit, write))
+
+    def _apply_assignments(self, meta: TableMeta, old: ColumnBatch,
+                           assigned) -> ColumnBatch:
+        """The SET expressions over the changed rows: in numpy where
+        every one is simple (``np_expr_eval``), else all through the
+        port's ExprCompiler over CPU tensors (the coordinator's
+        ``_bind``), which alone defines the semantics. A TEXT result is
+        encoded into the column's dictionary (a new value grows it)."""
+        oldcols = list(old.columns.values())
+        out = dict(old.columns)
+
+        def getcol(idx):
+            col = oldcols[idx]
+            if col.type.is_text or col.type.id == t.TypeId.DECIMAL:
+                return None
+            return (np.asarray(col.data),
+                    None if col.validity is None
+                    else np.asarray(col.validity))
+
+        fast = {}
+        for name, expr in assigned.items():
+            ty = meta.schema[name]
+            r = (None if ty.is_text or ty.id == t.TypeId.DECIMAL
+                 else np_expr_eval(expr, getcol))
+            if r is None:
+                fast = None
+                break
+            fast[name] = r
+        if fast is None:
+            schema = tuple(
+                L.OutCol(name, ty, f"{meta.name}.{name}"
+                         if ty.id == t.TypeId.TEXT else None)
+                for name, ty in meta.schema.items()
+            )
+            ex = LocalExecutor(self.cluster.catalog, {})
+            names = list(assigned)
+            fns, params = ex._bind(
+                [assigned[n] for n in names], schema,
+                want_dids=[f"{meta.name}.{n}" for n in names])
+            env = [(torch.from_numpy(np.ascontiguousarray(c.data)),
+                    None if c.validity is None else torch.from_numpy(
+                        np.ascontiguousarray(c.validity)))
+                   for c in oldcols]
+            fast = {}
+            for n, fn in zip(names, fns):
+                d, v = fn(env, params)
+                fast[n] = (d.numpy(), None if v is None else v.numpy())
+        for name, (d, v) in fast.items():
+            out[name] = _assemble_assigned_column(
+                d, v, old.nrows, meta.schema[name],
+                meta.dictionaries.get(name))
+        return ColumnBatch(out, old.nrows)
 
     # -- SELECT ----------------------------------------------------------------
     def _x_select(self, stmt: A.Select) -> Result:
         if stmt.for_update is not None:
             raise NotPorted("SELECT ... FOR UPDATE")
+        if self.txn is not None and self.txn.writes:
+            # the reference never takes the device route here (the
+            # cache holds no own-write overlay): its host executor
+            # answers, which the port has not yet
+            raise NotPorted("read inside a writing transaction")
         catalog = self.cluster.catalog
         splan = optimize_statement(analyze_statement(stmt, catalog), catalog)
         dplan = distribute_statement(splan, catalog)
         if dplan.subplans:
             raise NotPorted("scalar subqueries")
-        snapshot = self.cluster.gts.snapshot_ts()
+        snapshot = self._snapshot()
         fx = self.cluster.fused_executor()
         # the reference's route order (engine.py _try_fused_inner): a
         # Limit(Sort(...)) coordinator plan tries the fused DAG first,

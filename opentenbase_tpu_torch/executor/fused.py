@@ -17,17 +17,18 @@ grouping, the reference's ladder. Any other plan goes to ``dag_output``,
 the fused DAG (executor/fused_dag.py), which runs joins under an
 aggregate over the same cached planes.
 
-Ported: the full upload of ``DeviceCache`` for any table (all shards, or
-one replica of a replicated table; compact [S, 1] MVCC planes when every
-shard is uniform), device-resident external tables
+Ported: ``DeviceCache`` for any table (all shards, or one replica of a
+replicated table; compact [S, 1] MVCC planes when every shard is
+uniform, expanded on the device at the first per-row write), with the
+reference's incremental refresh (delta-tail uploads, the coalesced MVCC
+replay, both as in-place writes), device-resident external tables
 (``register_external``), the host column stats the certifier reads, the
 fragment matcher, ``fragment_output`` (the kernel, then the program) and
-``dag_output``. Not ported: delta-tail uploads, MVCC replay, zone
-windows and chunked scans: a scan whose resident footprint passes
-``SCAN_HBM_BUDGET``, which the reference streams in windows, raises
-NotPorted. Where the reference's program declines and its host executor
-answers (min/max over TEXT, the sort mode past its capacity), the port
-raises NotPorted.
+``dag_output``. Not ported: zone windows and chunked scans: a scan
+whose resident footprint passes ``SCAN_HBM_BUDGET``, which the
+reference streams in windows, raises NotPorted. Where the reference's
+program declines and its host executor answers (min/max over TEXT, the
+sort mode past its capacity), the port raises NotPorted.
 """
 
 from __future__ import annotations
@@ -91,20 +92,59 @@ class DeviceTable:
     # registered on the device (``register_external``): no host rows
     # back it, so no column can upload later
     external: bool = False
+    # per-shard sync record for the incremental refresh: {nrows,
+    # structure, mvcc_seq} of the store state the planes hold
+    sync: Optional[list] = None
 
 
 class DeviceCache:
-    """Uploads stacked shard columns, keyed by store versions. Any
-    version change rebuilds the table (full upload only); columns upload
-    lazily on first use."""
+    """Uploads and refreshes stacked shard columns, keyed by store
+    versions; columns upload lazily on first use.
+
+    Incremental, as the reference's: an append uploads only the new row
+    tail of each resident column (served straight from the store's
+    pending delta batches, never folding them), and MVCC stamps replay
+    from the store's stamp log as one de-duplicated scatter per plane,
+    sized by the rows touched. Both are in-place writes into the
+    resident planes. A full upload happens only where row positions
+    were rewritten (VACUUM, a schema change: ``structure_version``),
+    the padded row capacity is outgrown, or a column's first NULL needs
+    a validity plane. ``stats`` counts each kind of refresh and the
+    bytes sent to the device."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self._tables: dict = {}
         self._mu = threading.RLock()
+        self.stats = {
+            "hits": 0,
+            "full_uploads": 0,
+            "column_uploads": 0,
+            "delta_uploads": 0,
+            "delta_rows": 0,
+            "mvcc_replays": 0,
+            # refreshes whose tail was served from pending delta batches,
+            # and the delta-resident rows those tails carried
+            "delta_tail_uploads": 0,
+            "delta_tail_rows": 0,
+            # every byte this cache sent host -> device
+            "h2d_bytes": 0,
+            # the full uploads forced by a shard outgrowing ``rmax``
+            # (counted in ``full_uploads`` too)
+            "rmax_rebuilds": 0,
+        }
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
+        self.stats["h2d_bytes"] += arr.nbytes
         return torch.from_numpy(arr).to(self.device)
+
+    def _write(self, buf: torch.Tensor, i: int, start: int,
+               arr: np.ndarray) -> None:
+        """``buf[i, start:start + len(arr)] = arr`` in place."""
+        if len(arr):
+            self.stats["h2d_bytes"] += arr.nbytes
+            buf[i, start:start + len(arr)].copy_(
+                torch.from_numpy(np.ascontiguousarray(arr)))
 
     def get(
         self, name: str, meta, node_stores: dict[int, dict], nodes,
@@ -125,6 +165,7 @@ class DeviceCache:
     ) -> DeviceTable:
         cached = self._tables.get((name, nodes))
         if cached is not None and cached.versions == versions:
+            self.stats["hits"] += 1
             if cached.external:
                 missing = [c for c in want if c not in cached.columns]
                 if missing:
@@ -133,10 +174,17 @@ class DeviceCache:
                 return cached
             self._ensure_columns(cached, stores, meta, want)
             return cached
+        if cached is not None and not cached.external:
+            updated = self._try_delta(cached, stores, meta, versions)
+            if updated is not None:
+                self._ensure_columns(updated, stores, meta, want)
+                return updated
         self._tables.pop((name, nodes), None)  # free the stale planes
+        self.stats["full_uploads"] += 1
         S = len(stores)
-        # one coherent capture per store: nrows and the planes are read
-        # at one moment, so every plane slices the same prefix
+        # one coherent capture per store: nrows, the planes, mvcc_seq and
+        # structure are read at one moment, so every plane slices the
+        # same prefix and the sync record claims no stamp it did not read
         views = [s.scan_view() for s in stores]
         for s, v in zip(stores, views):
             s.note_delta_read(v.delta_rows())
@@ -175,10 +223,144 @@ class DeviceCache:
         dt = DeviceTable(
             {}, {}, self._put(xmin), self._put(xmax), nrows,
             self._put(nrows.copy()), rmax, versions, {}, {},
+            sync=[{"nrows": v.nrows, "structure": v.structure_version,
+                   "mvcc_seq": v.mvcc_seq} for v in views],
         )
         self._ensure_columns(dt, stores, meta, want, totals, views)
         self._tables[(name, nodes)] = dt
         return dt
+
+    def _try_delta(
+        self, dt: DeviceTable, stores, meta, versions
+    ) -> Optional[DeviceTable]:
+        """Refresh ``dt`` in place: upload each shard's appended tail of
+        every resident column (absent columns upload later, lazily,
+        with current data) and replay the MVCC stamps since the sync
+        point. Returns None where only a full rebuild is sound: row
+        positions rewritten, the tail past ``rmax``, rows gone, or a
+        first NULL in a column without a validity plane."""
+        present = list(dt.columns)
+        if not set(present) <= set(meta.schema):
+            return None
+        # one coherent capture per store: a concurrent append could
+        # otherwise cross rmax between the checks and the tail write,
+        # and a stamp landing between the plane read and the sync
+        # record would count as synced without reaching the device
+        views = [s.scan_view() for s in stores]
+        for v, sy in zip(views, dt.sync):
+            if v.structure_version != sy["structure"]:
+                return None
+            if v.nrows > dt.rmax:
+                self.stats["rmax_rebuilds"] += 1
+                return None
+            if v.nrows < sy["nrows"]:
+                return None
+            for c in present:
+                if v.has_validity(c) and dt.validity[c] is None:
+                    return None  # the first NULL needs a validity plane
+        if dt.xmin.shape[1] == 1:
+            # compact planes take no per-row writes: expand them on the
+            # device (no host transfer) before tails and stamps land
+            S = dt.xmin.shape[0]
+            dt.xmin = dt.xmin.expand(S, dt.rmax).contiguous()
+            dt.xmax = dt.xmax.expand(S, dt.rmax).contiguous()
+        delta_rows = tail_delta_rows = replays = 0
+        for i, (v, sy) in enumerate(zip(views, dt.sync)):
+            old_n, new_n = sy["nrows"], v.nrows
+            if new_n > old_n:
+                delta_rows += new_n - old_n
+                served = v.delta_rows(old_n, new_n)
+                tail_delta_rows += served
+                stores[i].note_delta_read(served)
+                for c in present:
+                    tail = v.col(c, old_n, new_n)
+                    self._write(dt.columns[c], i, old_n, tail)
+                    if dt.validity[c] is not None:
+                        vm = v.validity(c, old_n, new_n)
+                        self._write(dt.validity[c], i, old_n,
+                                    np.ones(new_n - old_n, dtype=np.bool_)
+                                    if vm is None else vm)
+                    if tail.size and np.issubdtype(tail.dtype, np.integer):
+                        # the certifier's bounds and the group-key
+                        # domain must cover the new rows
+                        lo, hi = int(tail.min()), int(tail.max())
+                        rng = dt.col_range.get(c)
+                        dt.col_range[c] = ((lo, hi) if rng is None else
+                                           (min(rng[0], lo), max(rng[1], hi)))
+                        dt.col_maxabs[c] = max(dt.col_maxabs[c] or 0.0,
+                                               float(max(abs(lo), abs(hi))))
+                self._write(dt.xmin, i, old_n, v.xmin(old_n, new_n))
+                self._write(dt.xmax, i, old_n, v.xmax(old_n, new_n))
+                dt.nrows[i] = new_n
+            # bounded by this capture: stamps after it replay next time
+            if v.mvcc_seq != sy["mvcc_seq"]:
+                replays += self._replay_mvcc(dt, i, v, sy, old_n)
+            dt.sync[i] = {"nrows": new_n, "structure": v.structure_version,
+                          "mvcc_seq": v.mvcc_seq}
+        dt.nrows_dev.copy_(torch.from_numpy(dt.nrows))
+        dt.versions = versions
+        self.stats["delta_uploads"] += 1
+        self.stats["delta_rows"] += delta_rows
+        if tail_delta_rows:
+            self.stats["delta_tail_uploads"] += 1
+            self.stats["delta_tail_rows"] += tail_delta_rows
+        self.stats["mvcc_replays"] += replays
+        return dt
+
+    def _replay_mvcc(self, dt, i, view, sy, old_n) -> int:
+        """Bring shard ``i``'s MVCC planes up to ``view.mvcc_seq``;
+        returns the plane writes made. Rows at or past ``old_n`` came
+        with the fresh tail, stamps and all, so only the synced prefix
+        takes writes: the stamp log's entries since the sync point,
+        coalesced into ONE last-write-wins scatter per plane (the cost
+        follows the rows touched, not the plane). Where the log was
+        trimmed past the sync point (``_MVCC_LOG_CAP``), or the touched
+        rows rival the prefix, the prefix is rewritten in one copy."""
+        seq = view.mvcc_seq
+        pending = [e for e in view.mvcc_log if sy["mvcc_seq"] < e[0] <= seq]
+        synced = old_n
+        spans = 0
+        for _seq, kind, a, b, _ts in pending:
+            if kind == "xmax":
+                spans += int((np.asarray(a) < synced).sum())
+            else:
+                spans += max(0, min(b, synced) - a)
+        trimmed = len(pending) != seq - sy["mvcc_seq"]
+        if not trimmed and spans == 0:
+            return 0
+        if trimmed or spans >= max(synced, 1):
+            if synced:
+                self._write(dt.xmin, i, 0, view.xmin(0, synced))
+                self._write(dt.xmax, i, 0, view.xmax(0, synced))
+            return 1
+        planes = {"xmin": ([], []), "xmax": ([], [])}
+        for _seq, kind, a, b, ts in pending:
+            if kind == "xmax":
+                pos = np.asarray(a, dtype=np.int64)
+                pos = pos[pos < synced]
+            else:
+                pos = np.arange(a, max(a, min(b, synced)), dtype=np.int64)
+            if len(pos):
+                plane = planes["xmin" if kind == "xmin" else "xmax"]
+                plane[0].append(pos)
+                plane[1].append(np.full(len(pos), ts, dtype=np.int64))
+        n = 0
+        for plane, (poss, valss) in planes.items():
+            if not poss:
+                continue
+            pos = np.concatenate(poss)
+            vals = np.concatenate(valss)
+            # last write wins: a scatter's order over duplicate indices
+            # is undefined on the card, the log's order is the law
+            uniq, last = np.unique(pos[::-1], return_index=True)
+            vals = vals[::-1][last]
+            self.stats["h2d_bytes"] += uniq.nbytes + vals.nbytes
+            buf = dt.xmin if plane == "xmin" else dt.xmax
+            buf[i].index_put_(
+                (torch.from_numpy(uniq).to(self.device),),
+                torch.from_numpy(vals).to(self.device))
+            n += 1
+        return n
 
     def register_external(
         self, name: str, meta, nodes, columns: dict, nrows, versions=None,
@@ -287,6 +469,7 @@ class DeviceCache:
                 dt.col_range[cname] = None
             dt.columns[cname] = self._put(stack)
             dt.validity[cname] = None if vstack is None else self._put(vstack)
+            self.stats["column_uploads"] += 1
 
 
 # ---------------------------------------------------------------------------

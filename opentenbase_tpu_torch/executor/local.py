@@ -17,6 +17,11 @@ follow insertion order, not collation). Float group keys group by the
 reference's ``float_key_parts`` (every NaN one group, -0.0 with 0.0);
 ORDER BY puts NaN last in both directions, as the reference's stable
 argsort passes do. Operators outside this subset raise NotPorted.
+
+The write path's row location lives here too (``predicate_rows``, the
+reference's ``LocalExecutor.predicate_rows``): simple predicates in
+numpy over a store's base rows and delta tail, the rest through the
+ExprCompiler on the cluster's device.
 """
 
 from __future__ import annotations
@@ -285,6 +290,181 @@ class LocalExecutor:
             (d[lo:hi], None if v is None else v[lo:hi]) for d, v in child.cols
         ]
         return HostBatch(plan.schema, cols, hi - lo)
+
+
+# -- DML row location (the reference's LocalExecutor.predicate_rows) --------
+
+
+def predicate_rows(catalog, store, table: str, predicate, snapshot_ts,
+                   own_writes=None, device="cpu") -> np.ndarray:
+    """Positions in ``store`` (one node's shard of ``table``) of the rows
+    matching ``predicate`` under ``snapshot_ts``, with the transaction's
+    own writes (``own_writes``: (insert ranges, deleted positions))
+    overriding visibility: UPDATE/DELETE target selection.
+
+    Simple predicates over non-text, non-decimal columns evaluate in
+    numpy (``_np_pred_eval``), segment by segment over the store's base
+    rows and its delta tail, so DML on fresh rows never folds the store.
+    Anything else (TEXT, IN lists, CASE, decimals, / and %) runs through
+    the port's ExprCompiler over the columns it reads, on ``device``:
+    that path alone defines the semantics."""
+    view = store.scan_view()
+    store.note_delta_read(view.delta_rows())  # a whole-table read
+    n0 = view.nrows
+    cols = list(catalog.get(table).schema)
+    pred = None
+    if predicate is None:
+        pred = np.ones(n0, dtype=np.bool_)
+    else:
+        b = min(view.base_rows, n0)
+        pred = np.empty(n0, dtype=np.bool_)
+        for s0, e0 in ((0, b), (b, n0)):
+            if s0 >= e0:
+                continue
+            res = _np_pred_eval(predicate, view, cols, s0, e0)
+            if res is None:
+                pred = _device_pred(catalog, view, table, predicate,
+                                    n0, device)
+                break
+            d, v = res
+            keep = d if v is None else (d & v)
+            pred[s0:e0] = np.broadcast_to(keep, (e0 - s0,))
+    vis = np.ones(n0, dtype=np.bool_)
+    if snapshot_ts is not None:
+        snap = np.int64(snapshot_ts)
+        vis = (view.xmin(0, n0) <= snap) & (snap < view.xmax(0, n0))
+    if own_writes is not None:
+        ins_ranges, del_idx = own_writes
+        for s, e in ins_ranges:  # own inserts: visible, predicate holds
+            vis[s:min(e, n0)] = True
+        if len(del_idx):
+            vis[np.asarray(del_idx)] = False
+    return np.nonzero(pred & vis)[0]
+
+
+def _device_pred(catalog, view, table, predicate, n0, device) -> np.ndarray:
+    """The predicate's verdict over rows [0, n0) of ``view`` through the
+    ExprCompiler on ``device``: only the columns it reads upload."""
+    meta = catalog.get(table)
+    names = list(meta.schema)
+    dids = [f"{table}.{c}" if meta.schema[c].is_text else None
+            for c in names]
+    used = {x.index for x in E.walk(predicate) if isinstance(x, E.Col)}
+    env = [None] * len(names)
+    for i in used:
+        vm = view.validity(names[i], 0, n0)
+        env[i] = (_tensor(view.col(names[i], 0, n0)).to(device),
+                  None if vm is None else _tensor(vm).to(device))
+    comp = ExprCompiler(device)
+    fn = comp.compile(predicate, dids)
+    params = tuple(resolve_param(s, device, catalog.dictionary)
+                   for s in comp.params)
+    d, v = fn(env, params)
+    keep = d if v is None else (d & v)
+    return keep.expand(n0).cpu().numpy().astype(np.bool_, copy=False)
+
+
+_NP_CMP = {
+    "=": np.equal, "<>": np.not_equal, "<": np.less,
+    "<=": np.less_equal, ">": np.greater, ">=": np.greater_equal,
+}
+
+
+def _np_and_valid(lv, rv):
+    if lv is None:
+        return rv
+    if rv is None:
+        return lv
+    return lv & rv
+
+
+def _np_pred_eval(e, view, cols, s, n):
+    """(data, validity) for a SIMPLE predicate over rows [s, n) of a
+    store's ScanView in numpy, or None when the expression needs the
+    compiled path (see ``np_expr_eval``)."""
+    def getcol(idx):
+        if idx >= len(cols):
+            return None
+        name = cols[idx]
+        if name not in view.schema:
+            return None
+        return (view.col(name, s, n), view.validity(name, s, n))
+
+    return np_expr_eval(e, getcol)
+
+
+def np_expr_eval(e, getcol):
+    """(data, validity) for a SIMPLE expression evaluated in numpy, or
+    None when it needs the compiled path. ``getcol(index)`` resolves a
+    column reference to (data, validity) host arrays (or None).
+    Supported: Col/Const of non-text non-decimal types, comparisons,
+    and/or (three-valued, as the ExprCompiler's), + - *, unary - and
+    not. Shared by DML row location and UPDATE's SET evaluation."""
+    if isinstance(e, E.Col):
+        if e.type.is_text or e.type.id == t.TypeId.DECIMAL:
+            return None
+        return getcol(e.index)
+    if isinstance(e, E.Const):
+        if e.type.is_text or e.type.id == t.TypeId.DECIMAL:
+            return None
+        if e.value is None:
+            return (
+                np.zeros((), dtype=e.type.np_dtype),
+                np.zeros((), dtype=np.bool_),
+            )
+        try:
+            return (np.asarray(e.value, dtype=e.type.np_dtype), None)
+        except (TypeError, ValueError, OverflowError):
+            return None
+    if isinstance(e, E.UnaryE):
+        r = np_expr_eval(e.operand, getcol)
+        if r is None:
+            return None
+        d, v = r
+        if e.op == "-":
+            return (-d, v)
+        if e.op == "not":
+            return (~d, v)
+        return None
+    if isinstance(e, E.BinE):
+        if e.left.type.is_text or e.right.type.is_text:
+            return None
+        if t.TypeId.DECIMAL in (e.type.id, e.left.type.id, e.right.type.id):
+            return None
+        lr = np_expr_eval(e.left, getcol)
+        rr = np_expr_eval(e.right, getcol)
+        if lr is None or rr is None:
+            return None
+        ld, lv = lr
+        rd, rv = rr
+        if e.op == "and":
+            if lv is None and rv is None:
+                return (ld & rd, None)
+            lF = ~ld if lv is None else (lv & ~ld)
+            rF = ~rd if rv is None else (rv & ~rd)
+            valid = _np_and_valid(lv, rv)
+            defl = lF | rF
+            valid = defl if valid is None else (valid | defl)
+            return (np.where(defl, False, ld & rd), valid)
+        if e.op == "or":
+            if lv is None and rv is None:
+                return (ld | rd, None)
+            lT = ld if lv is None else (lv & ld)
+            rT = rd if rv is None else (rv & rd)
+            valid = _np_and_valid(lv, rv)
+            deft = lT | rT
+            valid = deft if valid is None else (valid | deft)
+            return (np.where(deft, True, ld | rd), valid)
+        if e.op in _NP_CMP:
+            return (_NP_CMP[e.op](ld, rd), _np_and_valid(lv, rv))
+        if e.op == "+":
+            return (ld + rd, _np_and_valid(lv, rv))
+        if e.op == "-":
+            return (ld - rd, _np_and_valid(lv, rv))
+        if e.op == "*":
+            return (ld * rd, _np_and_valid(lv, rv))
+        return None  # / and % have division-by-zero semantics
+    return None
 
 
 def _tensor(a) -> torch.Tensor:

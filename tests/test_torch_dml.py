@@ -1,0 +1,369 @@
+"""The port's write path (DELETE, UPDATE, transactions, VACUUM) against
+the reference ``Session`` on the CPU.
+
+A reference ``Cluster(num_datanodes=2)`` and a port
+``Cluster(num_datanodes=2, device="cpu")`` take the same DDL and
+statements; after each step ``Session.query`` must return identical
+tuples and each write the same row count. Row location runs through the
+numpy path or the ExprCompiler path (TEXT, IN lists, decimals, %); an
+UPDATE of the distribution key moves its row to the node the locator
+names; isolation is snapshot isolation with first-committer-wins
+(SQLSTATE 40001 in both packages), and the commit clock's stamping
+fence keeps a reader off a half-stamped two-table commit.
+"""
+
+import threading
+import time
+
+import numpy as np
+import pytest
+
+from opentenbase_tpu.engine import Cluster as RefCluster
+from opentenbase_tpu.engine import SQLError as RefSQLError
+from opentenbase_tpu_torch import Cluster, NotPorted, SQLError
+from opentenbase_tpu_torch.storage.table import INF_TS, ShardStore
+
+DDL = ("create table t (k bigint, g int, v bigint, s text, "
+       "d numeric(10,2)) distribute by shard(k)")
+ROWS = 240
+CHECKS = (
+    "select count(*), sum(k), sum(v), count(v), sum(d) from t",
+    "select g, count(*), sum(v) from t group by g order by g",
+    "select s, count(*), sum(k) from t group by s order by s",
+)
+
+
+class Pair:
+    def __init__(self, ddl=DDL, rows=ROWS):
+        self.rc = RefCluster(num_datanodes=2)
+        self.pc = Cluster(num_datanodes=2, device="cpu")
+        self.rs, self.ps = self.rc.session(), self.pc.session()
+        self.both(ddl)
+        if rows:
+            self.both("insert into t values " + ",".join(
+                f"({i}, {i % 5}, {i * 3}, 'w{i % 4}', {i}.25)"
+                for i in range(rows)))
+
+    def both(self, sql: str) -> int:
+        a, b = self.rs.execute(sql), self.ps.execute(sql)
+        assert a.command == b.command and a.rowcount == b.rowcount, sql
+        return b.rowcount
+
+    def check(self, queries=CHECKS) -> None:
+        for q in queries:
+            assert self.ps.query(q) == self.rs.query(q), q
+
+    def close(self):
+        self.rc.close()
+
+
+@pytest.fixture()
+def pair():
+    p = Pair()
+    yield p
+    p.close()
+
+
+NUMPY_PREDICATES = [
+    "k < 10",
+    "k >= 50 and v < 300",
+    "not (k > 5) or v = 33",
+    "g = 2 and k - 7 > 100",
+]
+COMPILED_PREDICATES = [
+    "s = 'w1'",
+    "k in (3, 4, 5, 77, 1000)",
+    "d > 100.5",
+    "k % 7 = 0",
+    "s like 'w%' and k between 20 and 40",
+]
+
+
+@pytest.mark.parametrize("pred", NUMPY_PREDICATES + COMPILED_PREDICATES)
+def test_delete(pair, pred):
+    n = pair.both(f"delete from t where {pred}")
+    assert n > 0
+    pair.check()
+
+
+@pytest.mark.parametrize("stmt", [
+    "update t set v = v + 1 where k < 20",
+    "update t set v = v * 2, g = g + 10 where k >= 100 and k < 130",
+    "update t set d = d * 2 where s = 'w2'",
+    "update t set v = k % 11 where k in (1, 2, 3)",
+    "update t set s = 'w0' where d < 30.5",
+    "update t x set v = x.v - 1 where x.k > 200",
+])
+def test_update(pair, stmt):
+    assert pair.both(stmt) > 0
+    pair.check()
+
+
+def test_update_of_the_distribution_key_moves_the_row(pair):
+    meta_p = pair.pc.catalog.get("t")
+    old = int(meta_p.locator.route_insert(
+        {"k": _col(7)}, 1)[0])
+    new_k = next(k for k in range(1000, 2000)
+                 if int(meta_p.locator.route_insert({"k": _col(k)}, 1)[0])
+                 != old)
+    assert pair.both(f"update t set k = {new_k} where k = 7") == 1
+    pair.check()
+    snap = pair.pc.gts.clamped_snapshot()
+    for node, stores in pair.pc.stores.items():
+        st = stores["t"]
+        live = st.live_index(snap)
+        ks = st.scan_view().col("k")[live]
+        assert (7 in ks) is False
+        assert (new_k in ks) == (node != old)
+
+
+def _col(k):
+    from opentenbase_tpu_torch import types as tt
+    from opentenbase_tpu_torch.storage.column import Column
+    return Column(tt.INT8, np.array([k], dtype=np.int64))
+
+
+def test_update_to_a_new_text_value(pair):
+    assert pair.both("update t set s = 'brand new' where k < 12") == 12
+    pair.both("insert into t values (900, 1, 1, 'another', 1.00)")
+    pair.check()
+    assert pair.ps.query(
+        "select count(*) from t where s = 'brand new'") == [(12,)]
+
+
+def test_update_writes_the_first_null(pair):
+    pair.check()  # warm the device cache
+    assert pair.both("update t set v = null where g = 3") > 0
+    pair.check()
+    assert pair.both("update t set d = null where k = 5") == 1
+    pair.check()
+
+
+def test_begin_commit(pair):
+    pair.both("begin")
+    pair.both("insert into t values (5000, 1, 7, 'z', 2.50)")
+    pair.both("update t set v = 0 where k < 5")
+    pair.both("delete from t where k = 10")
+    pair.both("commit")
+    pair.check()
+
+
+def test_begin_rollback_truncates_inserted_rows(pair):
+    pair.check()
+    pair.both("begin")
+    pair.both("insert into t values " + ",".join(
+        f"({5000 + i}, 1, 1, 'z', 1.00)" for i in range(30)))
+    pair.both("delete from t where k < 50")
+    pair.both("rollback")
+    pair.check()
+    for stores in pair.pc.stores.values():
+        v = stores["t"].scan_view()
+        xmin, xmax = v.xmin(), v.xmax()
+        dead = xmin == INF_TS
+        assert dead.sum() > 0 and (xmax[dead] == 0).all()
+        assert (xmax[~dead] == INF_TS).all()
+    assert pair.pc.locks._held == {}
+
+
+def test_a_read_only_transaction_reads_at_its_snapshot(pair):
+    other_r, other_p = pair.rc.session(), pair.pc.session()
+    pair.both("begin")
+    before = pair.ps.query(CHECKS[0])
+    assert before == pair.rs.query(CHECKS[0])
+    other_r.execute("delete from t where k < 100")
+    other_p.execute("delete from t where k < 100")
+    assert pair.ps.query(CHECKS[0]) == before == pair.rs.query(CHECKS[0])
+    pair.both("commit")
+    pair.check()
+    assert pair.ps.query(CHECKS[0]) != before
+
+
+def _both_raise(fr, fp, sqlstate):
+    with pytest.raises(RefSQLError) as er:
+        fr()
+    with pytest.raises(SQLError) as ep:
+        fp()
+    assert er.value.sqlstate == ep.value.sqlstate == sqlstate
+
+
+def test_second_writer_of_a_row_fails_40001(pair):
+    """B's snapshot predates A's committed change of the row: B's lock
+    recheck raises 40001 in both packages."""
+    a_r, a_p = pair.rc.session(), pair.pc.session()
+    pair.both("begin")
+    pair.ps.query(CHECKS[0])
+    pair.rs.query(CHECKS[0])
+    a_r.execute("update t set v = -1 where k = 42")
+    a_p.execute("update t set v = -1 where k = 42")
+    _both_raise(lambda: pair.rs.execute("update t set v = -2 where k = 42"),
+                lambda: pair.ps.execute("update t set v = -2 where k = 42"),
+                "40001")
+    pair.both("rollback")
+    pair.check()
+
+
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+def test_a_waiting_writer_fails_40001_when_the_holder_commits(pkg):
+    """B blocks on A's row lock; A commits; B's recheck raises 40001."""
+    p = Pair(rows=20)
+    c = p.rc if pkg == "reference" else p.pc
+    err = RefSQLError if pkg == "reference" else SQLError
+    a, b = c.session(), c.session()
+    a.execute("begin")
+    b.execute("begin")
+    b.query(CHECKS[0])
+    a.execute("update t set v = 100 where k = 3")
+    out = {}
+
+    def second():
+        try:
+            b.execute("update t set v = 200 where k = 3")
+            out["ok"] = True
+        except err as e:
+            out["state"] = e.sqlstate
+
+    th = threading.Thread(target=second)
+    th.start()
+    time.sleep(0.3)
+    assert th.is_alive()  # parked on A's row lock
+    a.execute("commit")
+    th.join(10)
+    assert out == {"state": "40001"}
+    b.execute("rollback")
+    assert b.query("select sum(v) from t where k = 3") == [(100,)]
+    p.close()
+
+
+def test_reader_never_sees_half_of_a_two_table_commit(monkeypatch):
+    """A writer commits one row into each of two tables per transaction,
+    stamping store by store with a pause between the stamps; a reader's
+    snapshots must always count as many committed rows in one table as
+    in the other (the clock's stamping fence)."""
+    c = Cluster(num_datanodes=1, device="cpu")
+    s = c.session()
+    s.execute("create table a (x bigint) distribute by roundrobin")
+    s.execute("create table b (x bigint) distribute by roundrobin")
+    sa, sb = c.stores[0]["a"], c.stores[0]["b"]
+    real = ShardStore.stamp_xmin
+
+    def slow(self, start, end, ts):
+        real(self, start, end, ts)
+        if self is sa:
+            time.sleep(0.002)  # a's stamp landed, b's not yet
+
+    monkeypatch.setattr(ShardStore, "stamp_xmin", slow)
+    stop = threading.Event()
+    seen = []
+
+    def reader():
+        while not stop.is_set():
+            snap = c.gts.clamped_snapshot()
+            seen.append((len(sa.live_index(snap)), len(sb.live_index(snap))))
+
+    th = threading.Thread(target=reader)
+    th.start()
+    w = c.session()
+    for i in range(60):
+        w.execute("begin")
+        w.execute(f"insert into a values ({i})")
+        w.execute(f"insert into b values ({i})")
+        w.execute("commit")
+    stop.set()
+    th.join()
+    assert len(seen) > 10
+    assert all(x == y for x, y in seen), [p for p in seen if p[0] != p[1]][:3]
+    assert s.query("select count(*) from a") == [(60,)]
+
+
+def test_vacuum(pair):
+    pair.both("delete from t where k % 3 = 0")
+    pair.check()
+    assert pair.both("vacuum t") == 80
+    pair.check()
+    pair.both("update t set v = 1 where k < 30")
+    pair.both("vacuum")
+    pair.check()
+
+
+def test_a_pinned_store_fences_vacuum(pair):
+    """An open transaction's write pins the stores it touched: VACUUM
+    skips them (their positions are its identifiers) and reclaims the
+    rest."""
+    pair.both("delete from t where k < 40")
+    pair.ps.execute("begin")
+    pair.ps.execute("update t set v = 5 where k = 100")
+    stores = [pair.pc.stores[n]["t"] for n in (0, 1)]
+    pinned = [st._pins > 0 for st in stores]
+    assert pinned.count(True) == 1
+    dead = [int((st.scan_view().xmax() != INF_TS).sum()) for st in stores]
+    removed = pair.pc.session().execute("vacuum t").rowcount
+    assert removed == sum(d for d, p in zip(dead, pinned) if not p)
+    pair.ps.execute("commit")
+    pair.rs.execute("update t set v = 5 where k = 100")
+    pair.rs.execute("vacuum")
+    pair.ps.execute("vacuum")
+    pair.check()
+
+
+def test_a_failed_statement_leaves_no_writes_in_the_transaction(pair):
+    """B's UPDATE marks its row on one node, then fails 40001 on the
+    other: the statement's marks go, the transaction's earlier insert
+    stays and commits."""
+    meta = pair.pc.catalog.get("t")
+    node_of = {k: int(meta.locator.route_insert({"k": _col(k)}, 1)[0])
+               for k in range(40)}
+    k0 = next(k for k in range(40) if node_of[k] == 0)
+    k1 = next(k for k in range(40) if node_of[k] == 1)
+    pair.both("begin")
+    pair.both("insert into t values (7000, 1, 1, 'q', 1.00)")
+    pair.rc.session().execute(f"update t set v = -5 where k = {k1}")
+    pair.pc.session().execute(f"update t set v = -5 where k = {k1}")
+    _both_raise(
+        lambda: pair.rs.execute(f"update t set v = 0 where k in ({k0}, {k1})"),
+        lambda: pair.ps.execute(f"update t set v = 0 where k in ({k0}, {k1})"),
+        "40001")
+    pair.both("commit")
+    pair.check()
+    assert pair.ps.query(f"select sum(v) from t where k = {k0}") == [
+        (3 * k0,)]
+
+
+@pytest.mark.parametrize("sql,shape", [
+    ("select count(*) from t", "read inside a writing transaction"),
+    ("update t set v = 1 where k = 1 returning k", "UPDATE ... RETURNING"),
+    ("delete from t where k = 1 returning k", "DELETE ... RETURNING"),
+    ("savepoint sp", "SAVEPOINT"),
+    ("rollback to savepoint sp", "ROLLBACK TO SAVEPOINT"),
+    ("release savepoint sp", "RELEASE SAVEPOINT"),
+    ("prepare transaction 'g1'", "PREPARE TRANSACTION"),
+])
+def test_named_refusals_inside_a_writing_transaction(pair, sql, shape):
+    pair.ps.execute("begin")
+    pair.ps.execute("update t set v = 0 where k = 2")
+    with pytest.raises(NotPorted, match=shape):
+        pair.ps.execute(sql)
+    pair.ps.execute("rollback")
+
+
+@pytest.mark.parametrize("sql,shape", [
+    ("update t set v = 1 from t2 where t.k = t2.k", "UPDATE ... FROM"),
+    ("delete from t using t2 where t.k = t2.k", "DELETE ... USING"),
+])
+def test_joins_in_dml_are_refused(pair, sql, shape):
+    pair.both("create table t2 (k bigint) distribute by shard(k)")
+    with pytest.raises(NotPorted, match=shape):
+        pair.ps.execute(sql)
+
+
+def test_replicated_table_writes_every_replica():
+    p = Pair(ddl="create table t (k bigint, g int, v bigint, s text, "
+             "d numeric(10,2)) distribute by replication", rows=50)
+    assert p.both("update t set v = v + 5 where k < 10") == 10
+    assert p.both("delete from t where k >= 40") == 10
+    # a scalar aggregate over a replicated table is the DAG's rows mode,
+    # not ported: the grouped checks only
+    p.check(CHECKS[1:])
+    live = [len(p.pc.stores[n]["t"].live_index(p.pc.gts.clamped_snapshot()))
+            for n in (0, 1)]
+    assert live == [40, 40]
+    p.close()

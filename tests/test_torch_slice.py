@@ -235,8 +235,12 @@ def test_topk_plan_tries_the_dag_first(one_commit):
         "where l_quantity < (select avg(l_quantity) from lineitem)",
         # a non-aggregate scan
         "select l_orderkey from lineitem where l_quantity < 2",
-        # a statement outside the slice
-        "update lineitem set l_quantity = 1",
+        # a statement outside the slice: UPDATE runs since the write
+        # path was ported, its RETURNING form does not (the case keeps
+        # its earlier name)
+        pytest.param("update lineitem set l_quantity = 1 "
+                     "returning l_orderkey",
+                     id="update lineitem set l_quantity = 1"),
     ],
 )
 def test_outside_the_slice_raises_not_ported(one_commit, sql):
