@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed 42] [--rows 60000000]
                           [--ssb-rows 60000000] [--q3-sf 10]
                           [--hits-rows 60000000]
-                          [--sf100-rows 603979776] [--repeats 5]
+                          [--sf100-rows 603979776] [--chunk-sf 30]
+                          [--repeats 5]
 
 Phases, one line each; any failure raises and exits non-zero:
 
@@ -92,6 +93,29 @@ Phases, one line each; any failure raises and exits non-zero:
 The second-to-last lines are the kernel table as JSON and the nvidia-smi
 line; the last line is the run's verdict as JSON. The script imports
 neither jax nor the reference package.
+
+9. main path, the rest of both fused executors: (a) in phase 5c's SF10
+   cluster, after its Q3 and Q1 and before phase 8's writes, TPC-H Q4
+   (rev. 3, section 2.4.4: a grouped count over a semi join) and its NOT
+   EXISTS complement (a scalar count over an anti join), over the
+   columns make_q3_spec draws for them from streams of their own
+   (o_orderpriority, l_commitdate); (b) join rows: one customer's order
+   lines (TPC-C's Order-Status read) and one month of order lines (rows
+   mode, the row capacity regrown), the month's 100 largest lines
+   (rows_topk); (c) a query grouped by the orders key and o_weight, a
+   FLOAT8 column added to orders for it (gseg); (e) CREATE INDEX on
+   lineitem (l_orderkey), then Q1's select list over the first 1 % of
+   order keys through the fragment program's zone window, timed beside
+   the same query before the index (before the refreshes: RF1 appends
+   keys from the whole range at every shard's tail). Each exact against
+   numpy in the mode the CPU tests fixed, K2 launched wherever the
+   radix table answers a join and held against its plain version at
+   two of these queries' inputs. (d) After phase 7: TPC-H Q1 as the spec
+   writes it and Q6 over make_q3_spec's lineitem at ``--chunk-sf``
+   (default 30: 180 M rows, 2 datanodes) under the default 8 GB
+   OTB_SCAN_HBM_BUDGET: each scan streams shard-row windows through the
+   fragment program (Q1 in 3 windows, Q6 in 2), one resident at a time,
+   K1 never launched, each exact against numpy.
 """
 
 from __future__ import annotations
@@ -193,12 +217,13 @@ Q3_SPEC_DDL = (
     "create table customer (c_custkey bigint, c_mktsegment text) "
     "distribute by roundrobin",
     "create table orders (o_orderkey bigint, o_custkey bigint, "
-    "o_orderdate date, o_shippriority int) distribute by roundrobin",
+    "o_orderdate date, o_shippriority int, o_orderpriority text, "
+    "o_weight double precision) distribute by roundrobin",
     "create table lineitem (l_orderkey bigint, "
     "l_extendedprice numeric(12,2), l_discount numeric(4,2), "
     "l_shipdate date, l_quantity numeric(10,2), l_tax numeric(4,2), "
-    "l_receiptdate date, l_returnflag text, l_linestatus text) "
-    "distribute by roundrobin",
+    "l_receiptdate date, l_returnflag text, l_linestatus text, "
+    "l_commitdate date) distribute by roundrobin",
 )
 Q3_SPEC = (
     "select l_orderkey, sum(l_extendedprice*(1-l_discount)) as revenue, "
@@ -242,7 +267,12 @@ def make_q3_spec(sf: float, seed: int = 42) -> dict:
     ship date, the return flag 'R' or 'A' at random where the receipt
     date is on or before 1995-06-17 (dbgen's CURRENTDATE) and 'N'
     after it, the line status 'O' where the ship date is after
-    1995-06-17 and 'F' otherwise."""
+    1995-06-17 and 'F' otherwise. TPC-H Q4's columns come from streams
+    of their own (so every column above keeps its values): the order
+    priority uniform over PRIORITIES, the commit date 30-90 days after
+    the order date; and ``o_weight``, a FLOAT8 score of three decimals
+    in [0, 1000) that no TPC-H table has, the build-side key of the
+    gseg query (phase 9c)."""
     rng = np.random.default_rng(seed)
     n_c = max(int(150_000 * sf), 3)
     n_o = max(int(1_500_000 * sf), 1)
@@ -270,6 +300,7 @@ def make_q3_spec(sf: float, seed: int = 42) -> dict:
     # 'A' or 'R' where received by CURRENTDATE, else 'N' (RF_VOCAB)
     flag = np.where(receipt <= current,
                     np.where(rng.random(n_l) < 0.5, 0, 2), 1)
+    q4 = q4_columns(odate, oi, seed)
     return {
         "customer": {
             "c_custkey": np.arange(1, n_c + 1, dtype=np.int64),
@@ -280,6 +311,8 @@ def make_q3_spec(sf: float, seed: int = 42) -> dict:
             "o_custkey": (j + j // 2 + 1).astype(np.int64),
             "o_orderdate": odate,
             "o_shippriority": np.zeros(n_o, dtype=np.int32),
+            "o_orderpriority": q4["o_orderpriority"],
+            "o_weight": q4["o_weight"],
         },
         "lineitem": {
             "l_orderkey": okey[oi],
@@ -291,7 +324,28 @@ def make_q3_spec(sf: float, seed: int = 42) -> dict:
             "l_receiptdate": receipt,
             "l_returnflag": Text(RF_VOCAB, flag.astype(np.int8)),
             "l_linestatus": Text(LS_VOCAB, (ship > current).astype(np.int8)),
+            "l_commitdate": q4["l_commitdate"],
         },
+    }
+
+
+PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
+
+
+def q4_columns(odate, oi, seed: int) -> dict:
+    """The columns make_q3_spec and make_rf1 add for phase 9, each from
+    a stream of its own: o_orderpriority (TEXT, uniform over
+    PRIORITIES), o_weight (FLOAT8, k / 1000 for k uniform in [0, 10^6))
+    and l_commitdate (the order date plus 30-90 days; ``oi`` is each
+    line's order)."""
+    n_o = len(odate)
+    prio = np.random.default_rng(seed + 301).integers(0, 5, n_o)
+    weight = np.random.default_rng(seed + 302).integers(0, 10**6, n_o)
+    commit = np.random.default_rng(seed + 303).integers(30, 91, len(oi))
+    return {
+        "o_orderpriority": Text(PRIORITIES, prio.astype(np.int8)),
+        "o_weight": weight / 1000.0,
+        "l_commitdate": (odate[oi] + commit).astype(np.int32),
     }
 
 
@@ -314,6 +368,39 @@ Q1_SPEC = (
 )
 
 
+# TPC-H rev. 3 Q4 (section 2.4.4) with its validation DATE: the spec's
+# `date '1993-07-01' + interval '3' month` written as the date it names
+# (neither parser takes a month interval)
+Q4 = (
+    "select o_orderpriority, count(*) as order_count from orders "
+    "where o_orderdate >= date '1993-07-01' "
+    "and o_orderdate < date '1993-10-01' "
+    "and exists (select * from lineitem where l_orderkey = o_orderkey "
+    "and l_commitdate < l_receiptdate) "
+    "group by o_orderpriority order by o_orderpriority"
+)
+# its complement: the quarter's orders with no late line (an anti join)
+Q4_ANTI = (
+    "select count(*) from orders "
+    "where o_orderdate >= date '1993-07-01' "
+    "and o_orderdate < date '1993-10-01' "
+    "and not exists (select * from lineitem where l_orderkey = o_orderkey "
+    "and l_commitdate < l_receiptdate)"
+)
+
+
+def expected_q4(orders, lineitem) -> tuple:
+    """(Q4's rows, Q4_ANTI's rows) in numpy over the same arrays."""
+    late = lineitem["l_commitdate"] < lineitem["l_receiptdate"]
+    has = np.isin(orders["o_orderkey"], lineitem["l_orderkey"][late])
+    od = orders["o_orderdate"]
+    q = (od >= _day("1993-07-01")) & (od < _day("1993-10-01"))
+    prio = orders["o_orderpriority"].idx
+    rows = [(PRIORITIES[i], int((q & has & (prio == i)).sum()))
+            for i in range(len(PRIORITIES))]
+    return [r for r in rows if r[1]], [(int((q & ~has).sum()),)]
+
+
 def _avg32(total: int, scale: int, n: int) -> float:
     """The reference's avg: CAST(sum AS FLOAT8) / CAST(count AS FLOAT8),
     computed FLOAT8 being float32 on its device (a decimal sum divided
@@ -321,11 +408,13 @@ def _avg32(total: int, scale: int, n: int) -> float:
     return float(np.float32(np.float64(total) / scale) / np.float32(n))
 
 
-def expected_q1_spec(li) -> list:
+def expected_q1_spec(li, m=None) -> list:
     """TPC-H Q1 in numpy over the same arrays: exact scaled-integer sums
     per (return flag, line status) in string order, the averages as the
-    reference computes them (``_avg32``)."""
-    m = li["l_shipdate"] <= _day("1998-09-02")
+    reference computes them (``_avg32``). ``m``: the rows that pass, in
+    place of Q1's ship-date predicate."""
+    if m is None:
+        m = li["l_shipdate"] <= _day("1998-09-02")
     rf, ls = li["l_returnflag"].idx, li["l_linestatus"].idx
     rows = []
     for fi in sorted(range(len(RF_VOCAB)), key=RF_VOCAB.__getitem__):
@@ -2456,12 +2545,15 @@ def make_rf1(tables: dict, sf: float, seed: int) -> dict:
     current = _day("1995-06-17")
     flag = np.where(receipt <= current,
                     np.where(rng.random(n_l) < 0.5, 0, 2), 1)
+    q4 = q4_columns(odate, oi, seed + 100)
     return {
         "orders": {
             "o_orderkey": okey,
             "o_custkey": (j + j // 2 + 1).astype(np.int64),
             "o_orderdate": odate,
             "o_shippriority": np.zeros(n_new, dtype=np.int32),
+            "o_orderpriority": q4["o_orderpriority"],
+            "o_weight": q4["o_weight"],
         },
         "lineitem": {
             "l_orderkey": okey[oi],
@@ -2473,6 +2565,7 @@ def make_rf1(tables: dict, sf: float, seed: int) -> dict:
             "l_receiptdate": receipt,
             "l_returnflag": Text(RF_VOCAB, flag.astype(np.int8)),
             "l_linestatus": Text(LS_VOCAB, (ship > current).astype(np.int8)),
+            "l_commitdate": q4["l_commitdate"],
         },
     }
 
@@ -2485,18 +2578,22 @@ def rf1_sql(rf1: dict) -> list:
     """RF1 as SQL: INSERT ... VALUES of at most RF_STMT_ROWS rows, the
     orders first, in Q3_SPEC_DDL's column order."""
     o, li = rf1["orders"], rf1["lineitem"]
-    orows = [f"({k}, {c}, '{_date(d)}', {p})" for k, c, d, p in zip(
-        o["o_orderkey"].tolist(), o["o_custkey"].tolist(),
-        o["o_orderdate"].tolist(), o["o_shippriority"].tolist())]
+    orows = [f"({k}, {c}, '{_date(d)}', {p}, '{PRIORITIES[op]}', {w!r})"
+             for k, c, d, p, op, w in zip(
+                 o["o_orderkey"].tolist(), o["o_custkey"].tolist(),
+                 o["o_orderdate"].tolist(), o["o_shippriority"].tolist(),
+                 o["o_orderpriority"].idx.tolist(), o["o_weight"].tolist())]
     rf, ls = li["l_returnflag"], li["l_linestatus"]
     lrows = [
         f"({k}, {_cents(p)}, {_cents(d)}, '{_date(sd)}', {_cents(q)}, "
-        f"{_cents(tx)}, '{_date(rd)}', '{RF_VOCAB[f]}', '{LS_VOCAB[s]}')"
-        for k, p, d, sd, q, tx, rd, f, s in zip(
+        f"{_cents(tx)}, '{_date(rd)}', '{RF_VOCAB[f]}', '{LS_VOCAB[s]}', "
+        f"'{_date(cd)}')"
+        for k, p, d, sd, q, tx, rd, f, s, cd in zip(
             li["l_orderkey"].tolist(), li["l_extendedprice"].tolist(),
             li["l_discount"].tolist(), li["l_shipdate"].tolist(),
             li["l_quantity"].tolist(), li["l_tax"].tolist(),
-            li["l_receiptdate"].tolist(), rf.idx.tolist(), ls.idx.tolist())
+            li["l_receiptdate"].tolist(), rf.idx.tolist(), ls.idx.tolist(),
+            li["l_commitdate"].tolist())
     ]
     return [f"insert into {table} values " + ",".join(rows[i:i + RF_STMT_ROWS])
             for table, rows in (("orders", orows), ("lineitem", lrows))
@@ -2811,7 +2908,8 @@ def capture_probe_inputs(ssb: dict, sql: str):
     return calls[0]
 
 
-def time_radix(ssb: dict, card: str, rate: float, queries) -> list:
+def time_radix(ssb: dict, card: str, rate: float, queries,
+               label: str = "SSB") -> list:
     """radix_probe's kernel, plain-version and bound times at the main
     path's own inputs (the SF10 shapes), held equal to the plain version
     there too. Bound: the bytes the probe must move (ops/radix_probe
@@ -2841,7 +2939,7 @@ def time_radix(ssb: dict, card: str, rate: float, queries) -> list:
             "query": q, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes", "bytes": nbytes, "max_abs_err": float(err),
         })
-        print(f"kernel: radix_probe SSB {q} {ms:.4f} ms, "
+        print(f"kernel: radix_probe {label} {q} {ms:.4f} ms, "
               f"{nbytes / ms / 1e6:.1f} GB/s, plain {plain_ms:.4f} ms, "
               f"bound {bound:.4f} ms "
               f"({nbytes} bytes at {rate / 1e12:.2f} TB/s; P={P}, B={B}, "
@@ -2849,6 +2947,380 @@ def time_radix(ssb: dict, card: str, rate: float, queries) -> list:
               f"{int(km.sum())} matched) [{card}]", flush=True)
     rp.radix_probe.launches = n0  # timing launches are not counted
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 9: semi and anti joins, join rows, gseg, the zone window, the
+# chunked scan
+# ---------------------------------------------------------------------------
+
+ORDER_STATUS = (
+    "select o_orderkey, o_orderdate, l_extendedprice, l_quantity, "
+    "l_shipdate from orders, lineitem where o_orderkey = l_orderkey "
+    "and o_custkey = {c} "
+    "order by o_orderkey, l_extendedprice, l_quantity, l_shipdate"
+)
+_MONTH = ("from orders, lineitem where o_orderkey = l_orderkey "
+          "and o_orderdate >= date '1995-01-01' "
+          "and o_orderdate < date '1995-02-01' ")
+MONTH_LINES = ("select l_orderkey, l_extendedprice, l_quantity, o_orderdate "
+               + _MONTH + "order by l_orderkey, l_extendedprice, l_quantity")
+MONTH_TOP = ("select l_orderkey, l_extendedprice, o_orderdate " + _MONTH
+             + "order by l_extendedprice desc, l_orderkey limit 100")
+# grouped by the build key of the top join and a FLOAT8 build column
+# (gagg takes integer and TEXT keys only), with an aggregate over the
+# build side (gsort reads the probe side only): gseg
+GSEG_Q = (
+    "select o_orderkey, o_weight, count(*), sum(l_extendedprice), "
+    "max(o_orderdate) from orders, lineitem "
+    "where l_orderkey = o_orderkey and o_orderdate < date '1995-03-15' "
+    "group by o_orderkey, o_weight order by 4 desc, 1 limit 10"
+)
+
+
+def _lines_of(orders, lineitem, omask):
+    """(order row, line row) of every line whose order ``omask`` marks,
+    in line order."""
+    opos = _key_pos(orders["o_orderkey"], lineitem["l_orderkey"])
+    lm = (opos >= 0) & omask[np.maximum(opos, 0)]
+    return opos[lm], np.nonzero(lm)[0]
+
+
+def expected_order_status(orders, li, cust: int) -> list:
+    o, ln = _lines_of(orders, li, orders["o_custkey"] == cust)
+    ok, p, q = orders["o_orderkey"][o], li["l_extendedprice"][ln], \
+        li["l_quantity"][ln]
+    sd = li["l_shipdate"][ln]
+    order = np.lexsort((sd, q, p, ok))
+    return [(int(ok[i]), _date(orders["o_orderdate"][o[i]]),
+             int(p[i]) / 100, int(q[i]) / 100, _date(sd[i])) for i in order]
+
+
+def expected_month(orders, li, top: bool) -> list:
+    """MONTH_LINES' rows, or MONTH_TOP's (``top``), in numpy."""
+    od = orders["o_orderdate"]
+    o, ln = _lines_of(orders, li, (od >= _day("1995-01-01"))
+                      & (od < _day("1995-02-01")))
+    ok, p = li["l_orderkey"][ln], li["l_extendedprice"][ln]
+    if top:
+        order = np.lexsort((ok, -p))[:100]
+        return [(int(ok[i]), int(p[i]) / 100, _date(od[o[i]]))
+                for i in order]
+    q = li["l_quantity"][ln]
+    order = np.lexsort((q, p, ok))
+    return [(int(ok[i]), int(p[i]) / 100, int(q[i]) / 100, _date(od[o[i]]))
+            for i in order]
+
+
+def expected_gseg(orders, li) -> list:
+    o, ln = _lines_of(orders, li, orders["o_orderdate"] < _day("1995-03-15"))
+    n_o = len(orders["o_orderkey"])
+    cnt = np.bincount(o, minlength=n_o)
+    # float64 sums are exact here: every order's sum is far below 2^53
+    sums = np.rint(np.bincount(o, weights=li["l_extendedprice"][ln],
+                               minlength=n_o)).astype(np.int64)
+    ok = orders["o_orderkey"]
+    g = np.nonzero(cnt)[0]
+    top = g[np.lexsort((ok[g], -sums[g]))[:10]]
+    return [(int(ok[i]), float(orders["o_weight"][i]), int(cnt[i]),
+             int(sums[i]) / 100, _date(orders["o_orderdate"][i]))
+            for i in top]
+
+
+def run_dag_query(name: str, cluster, sql: str, want: list, mode: str,
+                  join_modes: tuple, repeats: int, card: str) -> dict:
+    """One DAG query of phase 9: the first run exact against numpy in
+    ``mode`` with ``join_modes`` (the reference's one-device runner's on
+    the same shape, tests/test_torch_semi_anti.py, test_torch_rows.py,
+    test_torch_dag_topk.py), K1's and K2's launches counted from 0 around
+    it (K2 at least once where the join modes name the radix table, else
+    never; K1 never); then the warm median, the layers and a trace."""
+    import torch
+
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    s = cluster.session()
+    rp.radix_probe.launches = 0
+    sa.scan_agg.launches = 0
+    t1 = time.perf_counter()
+    got = s.query(sql)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1000
+    launches = {"scan_agg": sa.scan_agg.launches,
+                "radix_probe": rp.radix_probe.launches}
+    r = cluster.fused_executor()._dag
+    seen = (r.last_mode, r.last_join_modes)
+    if got != want:
+        raise AssertionError(f"{name}: port {got[:3]}... ({len(got)} rows) "
+                             f"!= numpy {want[:3]}... ({len(want)} rows)")
+    if seen != (mode, join_modes) or not s._fused_via_dag:
+        raise AssertionError(f"{name}: mode and join modes {seen}, want "
+                             f"{(mode, join_modes)}")
+    k2 = "radix" in join_modes
+    if launches["scan_agg"] or bool(launches["radix_probe"]) != k2:
+        raise AssertionError(f"{name}: launches {launches}")
+    print(f"main path: {name} exact through the fused DAG (mode {mode}, "
+          f"join modes {join_modes}; scan_agg launches "
+          f"{launches['scan_agg']}, radix_probe launches "
+          f"{launches['radix_probe']}; {len(got)} rows; first run incl. "
+          f"upload {first_ms:.3f} ms) {got[:2]}... [{card}]", flush=True)
+    return {"launches": launches, "first_ms": first_ms,
+            **measure_warm(name, cluster, sql, want, repeats, card, True,
+                           f" (mode {mode})")}
+
+
+def run_phase9(q3: dict, args, card: str) -> dict:
+    """Phase 9 (a, b, c, e) in phase 5c's SF10 cluster, after its Q3 and
+    Q1 and before phase 8 writes into it: TPC-H Q4 (grouped over a semi
+    join) and its NOT EXISTS complement (scalar over an anti join); an
+    order-status lookup (TPC-C's Order-Status read, clause 2.6: one
+    customer's order lines) and one month of order lines (rows), the
+    month's 100 largest lines (rows_topk); GSEG_Q (gseg); then CREATE
+    INDEX on lineitem (l_orderkey) and Q1's select list over the first
+    1 % of order keys through the fragment program's zone window, timed
+    beside the same query before the index. The zone window comes before
+    the refreshes because RF1 appends keys from the whole range at every
+    shard's tail, after which no contiguous window can leave a block
+    out."""
+    import torch
+
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+
+    cluster, tables = q3["cluster"], q3["tables"]
+    o, li = tables["orders"], tables["lineitem"]
+    print("load: o_weight (FLOAT8, k / 1000 for k uniform in [0, 10^6)) "
+          "is an addition to TPC-H's orders, the build-side key of the "
+          f"gseg query [{card}]", flush=True)
+    q4, q4_anti = expected_q4(o, li)
+    cust = int(o["o_custkey"][len(o["o_custkey"]) // 2])
+    status = ORDER_STATUS.format(c=cust)
+    rf = ("fold", "radix")
+    queries = {
+        "TPC-H Q4": (Q4, q4, "grouped", ()),
+        "TPC-H Q4 NOT EXISTS": (Q4_ANTI, q4_anti, "scalar", ()),
+        "Order-Status lines": (status, expected_order_status(o, li, cust),
+                               "rows", rf),
+        "month of lines": (MONTH_LINES, expected_month(o, li, False),
+                           "rows", rf),
+        "month top 100": (MONTH_TOP, expected_month(o, li, True),
+                          "rows_topk", rf),
+        "gseg": (GSEG_Q, expected_gseg(o, li), "gseg", rf),
+    }
+    out = {"dag": {}, "fragment": {}}
+    for name, (sql, want, mode, jm) in queries.items():
+        out["dag"][name] = run_dag_query(name, cluster, sql, want, mode, jm,
+                                         args.repeats, card)
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    probes = {q: queries[q][0] for q in ("month of lines", "gseg")}
+    out["radix_rows"] = time_radix({"session": cluster.session()}, card,
+                                   rate, probes, label="TPC-H SF10")
+    out["k2_launches"] = {q: out["dag"][q]["launches"]["radix_probe"]
+                          for q in queries}
+    rp.radix_probe.launches = 0
+    out["fragment"] = run_zone(cluster, li, args, card)
+    return out
+
+
+def run_zone(cluster, li, args, card: str) -> dict:
+    """Phase 9e: Q1's select list over the first 1 % of order keys,
+    before and after CREATE INDEX on lineitem (l_orderkey); lineitem is
+    in order-key order on every shard (make_q3_spec's lines follow their
+    orders, bulk_append cuts contiguous halves)."""
+    keys = li["l_orderkey"]
+    n = len(keys)
+    for a, b in ((0, n // 2), (n // 2, n)):
+        if np.any(np.diff(keys[a:b]) < 0):
+            raise AssertionError("lineitem is not in order-key order")
+    cut = int(np.unique(keys)[len(np.unique(keys)) // 100])
+    sql = Q1_SPEC.replace(
+        "where l_shipdate <= date '1998-12-01' - interval '90 days'",
+        f"where l_orderkey < {cut}")
+    want = expected_q1_spec(li, keys < cut)
+    fx = cluster.fused_executor()
+    out = {}
+    name = "Q1 over 1 % of order keys"
+    route = ("program", ("hash", 64))
+    out[f"{name}, no index"] = run_fragment_query(
+        f"{name}, no index", cluster, sql, want, args.repeats, card, route)
+    t0 = time.perf_counter()
+    cluster.session().execute(
+        "create index li_orderkey on lineitem (l_orderkey)")
+    print(f"write: CREATE INDEX li_orderkey on lineitem (l_orderkey): zone "
+          f"maps of {n} rows in {(time.perf_counter() - t0) * 1000:.3f} ms "
+          f"[{card}]", flush=True)
+    out[f"{name}, zone window"] = run_fragment_query(
+        f"{name}, zone window", cluster, sql, want, args.repeats, card,
+        route)
+    z0 = dict(fx.zone_stats)
+    if cluster.session().query(sql) != want:
+        raise AssertionError(f"{name}: answer changed")
+    moved = {k: fx.zone_stats[k] - z0[k] for k in z0}
+    if moved["pruned_blocks"] <= 0:
+        raise AssertionError(f"{name}: no block pruned ({moved})")
+    print(f"zone: {name} (l_orderkey < {cut}): {moved['pruned_blocks']}"
+          f" of {moved['total_blocks']} blocks pruned a query; "
+          f"median {out[f'{name}, zone window']['e2e']:.3f} ms against "
+          f"{out[f'{name}, no index']['e2e']:.3f} ms without the index "
+          f"[{card}]", flush=True)
+    return out
+
+
+# the lineitem columns Q1 as the spec writes it and Q6 read
+Q1_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+              "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+Q6_COLUMNS = ("l_extendedprice", "l_discount", "l_shipdate", "l_quantity")
+# Q1 and Q6's columns of lineitem: the chunked scan's table
+CHUNKED_DDL = (
+    "create table lineitem (l_extendedprice numeric(12,2), "
+    "l_discount numeric(4,2), l_shipdate date, l_quantity numeric(10,2), "
+    "l_tax numeric(4,2), l_returnflag text, l_linestatus text) "
+    "distribute by roundrobin"
+)
+
+
+def run_chunked(args, device, card: str) -> dict:
+    """Phase 9d: TPC-H Q1 as the spec writes it and Q6 over make_q3_spec's
+    lineitem at ``--chunk-sf`` (default 30: 180 M rows, 2 datanodes round
+    robin; cut where the host cannot hold it) under the default
+    OTB_SCAN_HBM_BUDGET (8 GB): both scans' resident footprints pass it,
+    so each streams shard-row windows through the fragment program, one
+    window resident at a time, K1 never launched. Each exact against
+    numpy, its windows equal to the footprint model's count."""
+    import torch
+
+    from opentenbase_tpu_torch import Cluster
+    from opentenbase_tpu_torch.executor import fused
+
+    sf = chunk_sf(args.chunk_sf)
+    t0 = time.perf_counter()
+    li = make_q3_spec(sf, args.seed)["lineitem"]
+    want = {"Q1": expected_q1_spec(li), "Q6": expected_q6(li)}
+    t1 = time.perf_counter()
+    cluster = Cluster(num_datanodes=2, device=device)
+    cluster.session().execute(CHUNKED_DDL)
+    bulk_append(cluster, "lineitem", li)
+    n = len(li["l_shipdate"])
+    del li
+    gc.collect()
+    print(f"load: TPC-H SF{sf:g} lineitem (Q1's and Q6's columns), {n} rows "
+          f"round robin in 2 datanodes, made on the host with numpy's Q1 "
+          f"and Q6 in {t1 - t0:.3f} s, stored in "
+          f"{time.perf_counter() - t1:.3f} s [{card}]", flush=True)
+    budget = fused.SCAN_HBM_BUDGET
+    fused.SCAN_HBM_BUDGET = fused.DEFAULT_SCAN_HBM_BUDGET
+    out = {"sf": sf}
+    fx = cluster.fused_executor()
+    meta = cluster.catalog.get("lineitem")
+    try:
+        for q, sql, cols in (("Q1", Q1_SPEC, Q1_COLUMNS),
+                             ("Q6", Q6, Q6_COLUMNS)):
+            name = f"TPC-H {q} (spec, SF{sf:g}, chunked)"
+            foot = fx._scan_footprint(meta, cols)[0]
+            if foot <= fused.SCAN_HBM_BUDGET:  # a reduced scale
+                print(f"reduced: {name} not run: its footprint "
+                      f"{foot / 1e9:.3f} GB stays under the budget at "
+                      f"SF{sf:g}", flush=True)
+                continue
+            out[name] = run_chunked_query(name, cluster, sql, want[q],
+                                          min(args.repeats, 2), card)
+    finally:
+        fused.SCAN_HBM_BUDGET = budget
+    return out
+
+
+def chunk_sf(requested: float) -> float:
+    """The scale factor 9d runs at: ``requested``, cut to what the host
+    can hold, printed as ``reduced:``. The generator, numpy's answers
+    and the stores peak near 0.7 GB of host memory a scale factor (1.18
+    GB of resident set at SF 1, the interpreter and torch included); the
+    cut leaves half again as much. Below about SF 23 Q6's footprint no
+    longer passes the budget, and below SF 12 Q1's does not either."""
+    try:
+        with open("/proc/meminfo") as f:
+            avail = next(int(ln.split()[1]) * 1024 for ln in f
+                         if ln.startswith("MemAvailable"))
+    except (OSError, StopIteration):
+        return requested
+    fit = avail / 1.05e9
+    if fit >= requested:
+        return requested
+    sf = max(float(int(fit)), 12.0)
+    print(f"reduced: the chunked scan at SF{sf:g}, not SF{requested:g} "
+          f"(MemAvailable {avail / 1e9:.1f} GB)", flush=True)
+    return sf
+
+
+def run_chunked_query(name: str, cluster, sql: str, want: list,
+                      repeats: int, card: str) -> dict:
+    """One chunked query of phase 9d: the first run exact against numpy,
+    one chunked scan of exactly the windows the footprint model gives
+    (the budget's rows a shard, bucketed and halved where the bucket
+    overshoots), K1 and K2 never launched, only the last window
+    resident; then the warm median, the peak device memory, the layers
+    and a trace."""
+    import torch
+
+    from opentenbase_tpu_torch.executor import fused
+    from opentenbase_tpu_torch.executor.fused import _match_partial_fragment
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+    from opentenbase_tpu_torch.plan import analyze_statement
+    from opentenbase_tpu_torch.plan.distribute import distribute_statement
+    from opentenbase_tpu_torch.plan.optimize import optimize_statement
+    from opentenbase_tpu_torch.sql import parse_one
+
+    fx = cluster.fused_executor()
+    cat = cluster.catalog
+    (frag,) = distribute_statement(optimize_statement(
+        analyze_statement(parse_one(sql), cat), cat), cat).fragments
+    m = _match_partial_fragment(frag.root)
+    meta = cat.get("lineitem")
+    foot, row_bytes, S, mx = fx._scan_footprint(meta, m.scan.columns)
+    budget_rows = max(fused.SCAN_HBM_BUDGET // (S * row_bytes), 4096)
+    width = 1 << (budget_rows - 1).bit_length()
+    if width > budget_rows:
+        width //= 2
+    windows = -(-mx // width)
+    s = cluster.session()
+    st = fx.cache.stats
+    c0 = dict(st)
+    rp.radix_probe.launches = 0
+    sa.scan_agg.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    got = s.query(sql)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1000
+    launches = {"scan_agg": sa.scan_agg.launches,
+                "radix_probe": rp.radix_probe.launches}
+    moved = {k: st[k] - c0[k] for k in ("chunked_scans", "scan_chunks",
+                                        "window_uploads")}
+    if got != want:
+        raise AssertionError(f"{name}: port {got} != numpy {want}")
+    if moved != {"chunked_scans": 1, "scan_chunks": windows,
+                 "window_uploads": windows}:
+        raise AssertionError(f"{name}: {moved}, want {windows} windows")
+    if launches != {"scan_agg": 0, "radix_probe": 0} \
+            or fx.last_route != "program":
+        raise AssertionError(f"{name}: launches {launches}, route "
+                             f"{fx.last_route}")
+    resident = [k for k in fx.cache._tables if k[0] == "lineitem"]
+    if len(resident) != 1 or resident[0][2] != "win":
+        raise AssertionError(f"{name}: resident {resident}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"main path: {name} exact through the chunked scan (footprint "
+          f"{foot / 1e9:.3f} GB at {row_bytes} bytes a row over {S} shards "
+          f"of up to {mx} rows, budget {fused.SCAN_HBM_BUDGET / 1e9:.3f} "
+          f"GB; chunked_scans {moved['chunked_scans']}, scan_chunks "
+          f"{moved['scan_chunks']} of {width} shard rows, window_uploads "
+          f"{moved['window_uploads']}; scan_agg launches 0, radix_probe "
+          f"launches 0; first run {first_ms:.3f} ms, peak device "
+          f"{peak / 1e9:.3f} GB) {got[:1]}... [{card}]", flush=True)
+    return {"launches": launches, "first_ms": first_ms, "route":
+            (fx.last_route, fx.last_rung), "windows": moved,
+            **measure_warm(name, cluster, sql, want, repeats, card, False,
+                           " (chunked)")}
 
 
 def main(argv=None) -> int:
@@ -2859,6 +3331,7 @@ def main(argv=None) -> int:
     ap.add_argument("--q3-sf", type=float, default=10.0)
     ap.add_argument("--hits-rows", type=int, default=60_000_000)
     ap.add_argument("--sf100-rows", type=int, default=SF100_ROWS)
+    ap.add_argument("--chunk-sf", type=float, default=30.0)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
     # bench.py's knobs for its SF100 leg, set before the port reads them
@@ -2925,6 +3398,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     topk["Q3 spec"] = run_q3_spec(args, device, card)
+    # phase 9 (a-c, e): Q4, join rows, gseg and the zone window in Q3's
+    # cluster, before phase 8 writes into it
+    phase9 = run_phase9(topk["Q3 spec"]["phase8"], args, card)
+    topk.update(phase9["dag"])
+    radix_rows += phase9["radix_rows"]
+    ssb_launches.update(phase9["k2_launches"])
     # phase 8 (a): TPC-H's refresh functions into Q3's tables, after
     # every earlier query of them; (b) bench.py's HTAP loop
     refresh = run_refresh(topk["Q3 spec"].pop("phase8"), args, card)
@@ -2937,6 +3416,12 @@ def main(argv=None) -> int:
     gc.collect()  # hits' cluster, before the SF100 tables load
     torch.cuda.empty_cache()
     sf100 = run_sf100(args, device, card)
+    gc.collect()  # SF100's tables, before phase 9d loads SF30's lineitem
+    torch.cuda.empty_cache()
+    chunked = run_chunked(args, device, card)
+    chunk_sf_used = chunked.pop("sf")
+    gc.collect()
+    torch.cuda.empty_cache()
     # K1's and K2's launches in every path's run, the new queries too
     path_launches = {
         "scan_agg": {**launches_tpch, **ssb_run["k1_launches"],
@@ -2945,7 +3430,8 @@ def main(argv=None) -> int:
     }
     # phase 6's queries ran in phase 5c's clusters
     frag = {**topk["Q3 spec"].pop("fragment"),
-            **topk["ClickBench"].pop("fragment")}
+            **topk["ClickBench"].pop("fragment"), **phase9["fragment"],
+            **chunked}
     k1_rows = (topk["ClickBench"].pop("k1_rows") + refresh.pop("k1_rows")
                + sf100.pop("k1_rows"))
     sf100_rows_n, windows = sf100.pop("rows"), sf100.pop("windows")
@@ -3034,6 +3520,9 @@ def main(argv=None) -> int:
                       "q3_sf": args.q3_sf, "hits_rows": args.hits_rows,
                       "sf100_rows": sf100_rows_n,
                       "sf100_q3_windows": windows,
+                      "chunk_sf": chunk_sf_used,
+                      "chunk_windows": {q: r["windows"]
+                                        for q, r in chunked.items()},
                       "write_ms": {"RF1": refresh["RF1 ms"],
                                    "RF2": refresh["RF2 ms"]},
                       "htap": {k: htap[k] for k in

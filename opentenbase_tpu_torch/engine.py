@@ -5,10 +5,11 @@ Statements: ``create table ... distribute by
 roundrobin|shard(...)|replication``; ``insert ... values`` of literals,
 ``delete`` and ``update`` (no FROM/USING, no RETURNING), each in an
 implicit transaction or inside ``begin ... commit|rollback``;
-``vacuum``; and ``select`` through analyze -> optimize -> distribute ->
-the device (a single fragment through the scan-aggregate kernel or the
-fragment program, joins through the fused DAG) -> the coordinator
-merge. Anything else raises NotPorted.
+``vacuum``; ``create index`` (zone maps: the columns register for the
+fragment program's block pruning); and ``select`` through analyze ->
+optimize -> distribute -> the device (a single fragment through the
+scan-aggregate kernel or the fragment program, joins through the fused
+DAG) -> the coordinator merge. Anything else raises NotPorted.
 
 Transactions run under snapshot isolation, single process (no 2PC, no
 WAL): a write parks its rows as delta batches at PENDING_TS and records
@@ -374,6 +375,7 @@ class Session:
             A.CommitStmt: self._x_commitstmt,
             A.RollbackStmt: self._x_rollbackstmt,
             A.VacuumStmt: self._x_vacuumstmt,
+            A.CreateIndex: self._x_createindex,
         }.get(type(stmt))
         if fn is None:
             raise NotPorted(self._REFUSED.get(
@@ -567,6 +569,24 @@ class Session:
         meta = cat.create_table(stmt.name, schema, self._dist_spec(stmt))
         self.cluster.create_table_stores(meta)
         return Result("CREATE TABLE")
+
+    def _x_createindex(self, stmt: A.CreateIndex) -> Result:
+        """A columnar engine's index: zone maps (block min and max, as
+        BRIN keeps them). CREATE INDEX registers the columns for pruning
+        and builds every shard's summaries now (the reference's, without
+        its persistence log)."""
+        meta = self._table_meta(stmt.table)
+        for col in stmt.columns:  # validate everything before mutating
+            if col not in meta.schema:
+                raise SQLError(f'column "{col}" of relation '
+                               f'"{stmt.table}" does not exist')
+        for col in stmt.columns:
+            meta.zone_cols.add(col)
+            for n in meta.node_indices:
+                store = self.cluster.stores.get(n, {}).get(stmt.table)
+                if store is not None:
+                    store.zone_map(col)
+        return Result("CREATE INDEX")
 
     @staticmethod
     def _dist_spec(stmt: A.CreateTable) -> DistributionSpec:

@@ -24,9 +24,11 @@ reference's incremental refresh (delta-tail uploads, the coalesced MVCC
 replay, both as in-place writes), device-resident external tables
 (``register_external``), the host column stats the certifier reads, the
 fragment matcher, ``fragment_output`` (the kernel, then the program) and
-``dag_output``. Not ported: zone windows and chunked scans: a scan
-whose resident footprint passes ``SCAN_HBM_BUDGET``, which the
-reference streams in windows, raises NotPorted. Where the reference's
+``dag_output``, with the reference's zone windows (a program whose
+predicate bounds a CREATE INDEX column reads only each shard's window of
+candidate zone-map blocks) and its chunked scan (a scan whose resident
+footprint passes ``SCAN_HBM_BUDGET`` streams shard-row windows through
+the program, one resident at a time, ``get_window``). Where the reference's
 program declines and its host executor answers (min/max over TEXT, the
 sort mode past its capacity), the port raises NotPorted.
 """
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from opentenbase_tpu_torch.errors import NotPorted
+from opentenbase_tpu_torch.executor.local import _predicate_bounds
 from opentenbase_tpu_torch.ops import agg as agg_ops
 from opentenbase_tpu_torch.ops import scan_agg as sa
 from opentenbase_tpu_torch.ops.expr import ExprCompiler, resolve_param
@@ -54,16 +57,22 @@ from opentenbase_tpu_torch.plan import logical as L
 from opentenbase_tpu_torch.plan import texpr as E
 from opentenbase_tpu_torch.plan.distribute import Fragment
 from opentenbase_tpu_torch.storage.column import Column
-from opentenbase_tpu_torch.storage.table import ColumnBatch
+from opentenbase_tpu_torch.storage.table import (
+    ColumnBatch,
+    zone_candidate_blocks,
+    zone_usable_bounds,
+)
 
 # slots of the fragment program's largest hash rung (the reference's
 # DEFAULT_GROUP_CAP); the first rung takes min(64, this)
 DEFAULT_GROUP_CAP = 1024
 
-# Resident ceiling for one table's scan columns: past it the reference
+# Resident ceiling for one table's scan columns: past it the scan
 # streams fixed-width shard windows instead of caching the whole table
-# (its chunked scan, not ported: the port raises NotPorted there).
-SCAN_HBM_BUDGET = int(os.environ.get("OTB_SCAN_HBM_BUDGET", 8_000_000_000))
+# (``_fragment_chunked``).
+DEFAULT_SCAN_HBM_BUDGET = 8_000_000_000
+SCAN_HBM_BUDGET = int(os.environ.get("OTB_SCAN_HBM_BUDGET",
+                                     DEFAULT_SCAN_HBM_BUDGET))
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +141,11 @@ class DeviceCache:
             # the full uploads forced by a shard outgrowing ``rmax``
             # (counted in ``full_uploads`` too)
             "rmax_rebuilds": 0,
+            # the chunked scan: shard-row windows uploaded
+            # (``get_window``), scans streamed and the windows they ran
+            "window_uploads": 0,
+            "chunked_scans": 0,
+            "scan_chunks": 0,
         }
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
@@ -362,6 +376,82 @@ class DeviceCache:
             n += 1
         return n
 
+    def get_window(
+        self, name: str, meta, node_stores: dict[int, dict], nodes,
+        columns, start: int, length: int,
+    ) -> DeviceTable:
+        """A DeviceTable over the row window [start, start + length) of
+        every shard: the streaming unit of a scan past the budget. Only
+        the latest window of a table stays resident (a scan visits its
+        windows in order, and keeping more would defeat the chunking):
+        every other residency of the table, whole or windowed, is
+        evicted first. The planes are per row and exact: ``rmax`` is the
+        bucketed window width, ``nrows`` each shard's rows in it."""
+        nodes = tuple(nodes)
+        want = tuple(sorted(columns))
+        stores = [node_stores[n][name] for n in nodes]
+        if not all(hasattr(s, "scan_view") for s in stores):
+            # an external table: its rows live on the device only
+            raise KeyError(f"external table {name!r} has no host rows to "
+                           "stream in windows")
+        versions = tuple(s.version for s in stores)
+        wkey = (name, nodes, "win", start, length, want)
+        with self._mu:
+            return self._get_window_locked(wkey, name, meta, stores, nodes,
+                                           want, versions, start, length)
+
+    def _get_window_locked(self, wkey, name, meta, stores, nodes, want,
+                           versions, start, length) -> DeviceTable:
+        cached = self._tables.get(wkey)
+        if cached is not None and cached.versions == versions:
+            self.stats["hits"] += 1
+            return cached
+        for k in [k for k in self._tables
+                  if k[0] == name and k[1] == nodes and k != wkey]:
+            del self._tables[k]
+        self.stats["window_uploads"] += 1
+        S = len(stores)
+        W = bucket_size(max(length, 1))
+        xmin = np.full((S, W), 2**62, dtype=np.int64)
+        xmax = np.zeros((S, W), dtype=np.int64)
+        nrows = np.zeros(S, dtype=np.int64)
+        # one coherent capture per store: every plane and column slices
+        # the same prefix, and the sync record claims no stamp it did
+        # not read
+        views = [s.scan_view() for s in stores]
+        for i, v in enumerate(views):
+            n = max(min(v.nrows - start, length), 0)
+            if n:
+                xmin[i, :n] = v.xmin(start, start + n)
+                xmax[i, :n] = v.xmax(start, start + n)
+                stores[i].note_delta_read(v.delta_rows(start, start + n))
+            nrows[i] = n
+        cols: dict = {}
+        valids: dict = {}
+        for cname in want:
+            stack = np.zeros((S, W), dtype=meta.schema[cname].np_dtype)
+            vstack = None
+            for i, v in enumerate(views):
+                n = int(nrows[i])
+                if not n:
+                    continue
+                stack[i, :n] = v.col(cname, start, start + n)
+                vm = v.validity(cname, start, start + n)
+                if vm is not None:
+                    if vstack is None:
+                        vstack = np.ones((S, W), dtype=np.bool_)
+                    vstack[i, :n] = vm
+            cols[cname] = self._put(stack)
+            valids[cname] = None if vstack is None else self._put(vstack)
+        dt = DeviceTable(
+            cols, valids, self._put(xmin), self._put(xmax), nrows,
+            self._put(nrows.copy()), W, versions, {}, {},
+            sync=[{"nrows": v.nrows, "structure": v.structure_version,
+                   "mvcc_seq": v.mvcc_seq} for v in views],
+        )
+        self._tables[wkey] = dt
+        return dt
+
     def register_external(
         self, name: str, meta, nodes, columns: dict, nrows, versions=None,
     ) -> DeviceTable:
@@ -520,6 +610,9 @@ class FusedExecutor:
         self._dag = None
         self.last_route: Optional[str] = None
         self.last_rung: Optional[tuple] = None
+        # zone-map pruning of the fragment program: blocks left out of
+        # the scanned window, and blocks considered, over every query
+        self.zone_stats = {"pruned_blocks": 0, "total_blocks": 0}
 
     def dag_output(self, dplan, snapshot_ts) -> tuple[int, ColumnBatch]:
         """Run a whole plan — joins under an aggregate — through the
@@ -550,10 +643,13 @@ class FusedExecutor:
         meta = self.catalog.get(m.scan.table)
         if tuple(meta.node_indices) != tuple(frag.nodes):
             return None
+        for n in frag.nodes:
+            if m.scan.table not in self.node_stores.get(n, {}):
+                return None
+        # a scan past the budget streams shard-row windows through the
+        # fragment program, before and instead of the kernel's route
         if self._resident_bytes(meta, m.scan.columns) > SCAN_HBM_BUDGET:
-            raise NotPorted(
-                "chunked scan (the scan's resident footprint passes "
-                "OTB_SCAN_HBM_BUDGET: the reference streams shard windows)")
+            return self._fragment_chunked(m, meta, snapshot_ts)
         dtab = self.cache.get(
             m.scan.table, meta, self.node_stores, frag.nodes,
             columns=m.scan.columns,
@@ -562,7 +658,88 @@ class FusedExecutor:
         if out is not None:
             self.last_route, self.last_rung = "scan_agg", None
             return out
-        return self._run_program(m, dtab, snapshot_ts)
+        # zone-map pruning: the program reads only each shard's window
+        # of candidate blocks
+        return self._run_program(m, dtab, snapshot_ts,
+                                 self._zone_window(m, meta, dtab))
+
+    def _fragment_chunked(self, m, meta, snapshot_ts) -> ColumnBatch:
+        """Stream a scan past the budget: fixed-width shard-row windows
+        upload one at a time (``DeviceCache.get_window``) and each runs
+        the fragment program; the windows' partial rows concatenate, and
+        the coordinator's merge combines them as any partials. The
+        kernel and zone windows are skipped here, as in the reference:
+        the upload dominates. The width is the budget's rows a shard,
+        bucketed and halved where the bucket overshoots it."""
+        _bytes, row_bytes, S, mx = self._scan_footprint(meta, m.scan.columns)
+        budget_rows = max(SCAN_HBM_BUDGET // max(S * row_bytes, 1), 4096)
+        W = bucket_size(budget_rows)
+        if W > budget_rows:
+            W //= 2
+        nodes = tuple(meta.node_indices)
+        parts: list = []
+        start = 0
+        while start < mx:
+            # no reference to a window outlives its run: the cache evicts
+            # it as the next uploads, so one window is resident at a time
+            parts.append(self._run_program(m, self.cache.get_window(
+                meta.name, meta, self.node_stores, nodes, m.scan.columns,
+                start, W), snapshot_ts))
+            start += W
+        self.cache.stats["chunked_scans"] += 1
+        self.cache.stats["scan_chunks"] += len(parts)
+        if not parts:  # no rows at all: one empty window answers
+            return self._run_program(m, self.cache.get_window(
+                meta.name, meta, self.node_stores, nodes, m.scan.columns,
+                0, 1), snapshot_ts)
+        return concat_batches(parts)
+
+    def _zone_window(self, m, meta, dtab) -> Optional[tuple]:
+        """(starts [S] int64, W): per shard, a window of W rows covering
+        every zone-map block the scan's predicate may match, W bucketed
+        and below ``rmax``; None where pruning saves nothing. The answer
+        never depends on the window: its rows still pass the predicate,
+        and the rows outside it are proven not to by the blocks' min and
+        max. ``zone_stats`` counts the blocks considered and pruned."""
+        if not meta.zone_cols:
+            return None
+        if not m.steps or not isinstance(m.steps[0], L.Filter):
+            return None
+        bounds = _predicate_bounds(m.steps[0].predicate, m.scan)
+        usable = zone_usable_bounds(bounds, meta, m.scan)
+        if not usable:
+            return None
+        starts: list[int] = []
+        lens: list[int] = []
+        total = pruned = 0
+        for node in meta.node_indices:
+            store = self.node_stores.get(node, {}).get(m.scan.table)
+            if store is None:
+                return None
+            B = store.ZONE_BLOCK
+            nb = -(-store.nrows // B) if store.nrows else 0
+            idx = np.nonzero(zone_candidate_blocks(store, usable))[0]
+            total += nb
+            if len(idx) == 0:
+                starts.append(0)
+                lens.append(0)
+                pruned += nb
+            else:
+                lo_b, hi_b = int(idx[0]), int(idx[-1]) + 1
+                starts.append(lo_b * B)
+                lens.append(min(hi_b * B, store.nrows) - lo_b * B)
+                pruned += nb - (hi_b - lo_b)
+        W = bucket_size(max(max(lens, default=1), 1))
+        if W >= dtab.rmax:
+            return None  # as wide as the scan: nothing saved
+        self.zone_stats["total_blocks"] += total
+        self.zone_stats["pruned_blocks"] += pruned
+        arr = np.zeros(len(dtab.nrows), dtype=np.int64)
+        # clamped so each window stays inside its shard's planes: it only
+        # widens leftward, and the extra rows fail the predicate
+        arr[: len(starts)] = np.minimum(np.asarray(starts, dtype=np.int64),
+                                        max(dtab.rmax - W, 0))
+        return arr, W
 
     def _scan_footprint(self, meta, columns) -> tuple[int, int, int, int]:
         """(resident bytes, row bytes, S, largest shard's rows) of
@@ -594,12 +771,14 @@ class FusedExecutor:
         return self._scan_footprint(meta, columns)[0]
 
     # -- the fragment program (the reference's XLA-fused program) ----------
-    def _run_program(self, m, dtab, snapshot_ts) -> ColumnBatch:
+    def _run_program(self, m, dtab, snapshot_ts, zone=None) -> ColumnBatch:
         """The reference's ``_run_xla_fragment``: the fragment's visible
         rows, then its grouping ladder — hash at min(64, cap) slots, hash
         at ``cap``, then sort-based grouping — where a rung whose slots
         collide hands over to the next. The rows are computed once: only
-        the slots and the reduction depend on the rung."""
+        the slots and the reduction depend on the rung. ``zone``: (starts,
+        W) from ``_zone_window``, each shard read over [start, start + W)
+        only."""
         rows, specs, param_specs = self._compile(m)
         # compiled on every call, so this query's literals (and the codes
         # of its TEXT constants, which move as dictionaries grow) are the
@@ -610,7 +789,7 @@ class FusedExecutor:
             for s in param_specs
         )
         snap = snapshot_ts if snapshot_ts is not None else 2**61
-        keys, vals, k = rows(dtab, m.scan.columns, snap, params)
+        keys, vals, k = rows(dtab, m.scan.columns, snap, params, zone)
         if not keys:
             outs = agg_ops.scalar_reduce(
                 vals, torch.ones(k, dtype=torch.bool, device=self.device),
@@ -693,19 +872,36 @@ class FusedExecutor:
             for x in E.walk(e) if isinstance(x, E.Col)
         }
 
-        def rows(dtab, scan_columns, snap, params):
+        def rows(dtab, scan_columns, snap, params, zone=None):
             S, rmax = len(dtab.nrows), dtab.rmax
+            xmin, xmax, nrows = dtab.xmin, dtab.xmax, dtab.nrows_dev
+            cuts = None
+            if zone is not None:
+                # each shard's window [start, start + W): one copy of the
+                # window's rows, nothing else of the planes is read
+                starts, rmax = zone
+                cuts = [slice(int(st), int(st) + rmax) for st in starts]
+                nrows = torch.clamp(
+                    nrows - torch.from_numpy(starts).to(dev), 0, rmax)
+
+            def plane(a):
+                if cuts is None:
+                    return a.reshape(S * rmax)
+                return torch.cat([a[i, c] for i, c in enumerate(cuts)])
+
+            if cuts is not None and xmin.shape[1] != 1:
+                xmin = plane(xmin).reshape(S, rmax)
+                xmax = plane(xmax).reshape(S, rmax)
             n = S * rmax
             live = (
-                (torch.arange(rmax, device=dev)[None, :]
-                 < dtab.nrows_dev[:, None])
-                & (dtab.xmin <= snap) & (snap < dtab.xmax)
+                (torch.arange(rmax, device=dev)[None, :] < nrows[:, None])
+                & (xmin <= snap) & (snap < xmax)
             ).reshape(n)
             env = []
             for c in scan_columns:
                 v = dtab.validity[c]
-                env.append((dtab.columns[c].reshape(n),
-                            None if v is None else v.reshape(n)))
+                env.append((plane(dtab.columns[c]),
+                            None if v is None else plane(v)))
             mask = live
             for kind, fn in step_fns:
                 if kind == "filter":
@@ -898,6 +1094,30 @@ class FusedExecutor:
         if group_plan is not None:
             key_expr, _decoders, n_groups = group_plan
         return sa.compile_spec(preds, key_expr, values, n_groups), specs
+
+
+def concat_batches(batches: list) -> ColumnBatch:
+    """The batches' rows one after another, column by column (a copy of
+    the reference's ``executor/dist.py`` ``concat_batches``): a column
+    takes a validity mask where any part has one."""
+    batches = [b for b in batches if b is not None]
+    if not batches:
+        raise ValueError("no batches to concatenate")
+    if len(batches) == 1:
+        return batches[0]
+    names = list(batches[0].columns.keys())
+    cols: dict[str, Column] = {}
+    for i, name in enumerate(names):
+        parts = [list(b.columns.values())[i] for b in batches]
+        data = np.concatenate([p.data for p in parts])
+        validity = None
+        if any(p.validity is not None for p in parts):
+            validity = np.concatenate([
+                np.ones(len(p.data), np.bool_) if p.validity is None
+                else p.validity for p in parts])
+        cols[name] = Column(parts[0].type, data, validity,
+                            parts[0].dictionary)
+    return ColumnBatch(cols, sum(b.nrows for b in batches))
 
 
 def _bcast(kv, n: int):

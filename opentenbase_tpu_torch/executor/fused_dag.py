@@ -54,12 +54,20 @@ regroups, ranks and ships the k rows. A big build side of the top join
 is hoisted: evaluated and key-sorted once, then read presorted by every
 window.
 
-Ported: the scalar, grouped, gagg, wgagg (with the hoist), gsort and
-grouped_topk final modes with their retry loops, inner joins, and the
-join-mode notes (``last_join_modes``). Where the reference would
-segment-reduce over the build rows (gseg) or ship rows (rows,
-rows_topk), and for semi/anti joins and the multi-device exchanges, the
-port raises NotPorted.
+A semi or anti join (EXISTS, NOT EXISTS, IN, NOT IN) is an existence
+probe: a sort-merge lookup of each left row's key that keeps the left
+side's rows and columns, without a flag (duplicate right keys are
+harmless). A top-k grouped by the unique build key of the top join,
+where neither gagg nor gsort applies, reduces by build row (gseg). A
+final fragment with no aggregate ships its rows (rows: compacted to a
+capacity that regrows) or, under a top-k, ranks them on the device and
+ships k (rows_topk).
+
+Ported: every final mode of the reference at one device (scalar,
+grouped, gagg, wgagg with the hoist, gsort, grouped_topk, gseg, rows,
+rows_topk) with their retry loops, inner, semi and anti joins, and the
+join-mode notes (``last_join_modes``). The multi-device exchanges are
+not ported: a one-device mesh inlines every producer.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ import dataclasses
 import os
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from opentenbase_tpu_torch import types as t
@@ -293,9 +302,7 @@ def _detect_topk(dplan, final):
     ``Limit(Sort(Project*...(Aggregate?)(RemoteSource(final))))`` with
     bare-column sort keys and k = limit + offset <= 1024. Returns (k,
     ((position, descending, nulls_first), ...), merged) with positions
-    into the final fragment's output schema, or None. The port runs no
-    top-k mode: its caller raises NotPorted where the reference would
-    rank on the device."""
+    into the final fragment's output schema, or None."""
     node = dplan.root
     if not isinstance(node, L.Limit) or node.limit is None:
         return None
@@ -927,7 +934,7 @@ def _gather(env, bidx):
 class _Builder:
     def __init__(self, fx, comp: ExprCompiler, orientation: tuple, root,
                  runner, offs=(frozenset(), frozenset()), window=None,
-                 sources=None):
+                 sources=None, capture_id=None):
         self.fx = fx
         self.comp = comp
         self.orientation = orientation
@@ -951,6 +958,10 @@ class _Builder:
         self.window = window
         # device-resident sources by fragment (the hoisted build side)
         self.sources = sources or {}
+        # the join (by id) whose (build row per probe row, build columns,
+        # build rows) a run leaves in ``captured``: gseg's top join
+        self.capture_id = capture_id
+        self.captured = None
 
     def jinfo(self) -> tuple:
         """(folded, radixed) join-index sets for THIS compile: whether a
@@ -1068,9 +1079,7 @@ class _Builder:
         raise DagUnsupported(type(node).__name__)
 
     def _build_join(self, node: L.Join) -> Callable:
-        if node.join_type in ("semi", "anti"):
-            raise NotPorted(f"fused DAG {node.join_type} join")
-        if node.join_type != "inner":
+        if node.join_type not in ("inner", "semi", "anti"):
             raise DagUnsupported(f"{node.join_type} join")
         if len(node.left_keys) != 1 or len(node.right_keys) != 1:
             raise DagUnsupported("multi-key join")
@@ -1086,6 +1095,9 @@ class _Builder:
             None if node.residual is None
             else self.comp.compile(node.residual, _dids(node.schema))
         )
+        if node.join_type != "inner":
+            return self._existence_probe(node.join_type == "semi", left,
+                                         right, lkfn, rkfn, resfn)
         ji = self.njoin
         self.njoin += 1
         build_right = (
@@ -1120,6 +1132,9 @@ class _Builder:
         self.modes.add("fold" if fold else ("radix" if use_radix else
                                             "merge"))
         radix_budget = self.radix_budget
+        # gseg reads the top join's build row of every probe row
+        capture = id(node) == self.capture_id
+        builder = self
 
         def run(blocks, params, snap):
             lenv, lmask, ln, lflags = left(blocks, params, snap)
@@ -1129,10 +1144,10 @@ class _Builder:
             rk = _bcast(rkfn(renv, params), rn)
             if build_right:
                 pk, pmask, penv, pn = lk, lmask, lenv, ln
-                bk, bmask, benv = rk, rmask, renv
+                bk, bmask, benv, bn = rk, rmask, renv, rn
             else:
                 pk, pmask, penv, pn = rk, rmask, renv, rn
-                bk, bmask, benv = lk, lmask, lenv
+                bk, bmask, benv, bn = lk, lmask, lenv, ln
             if fold:
                 _benv, bvis, _bn, _bf = bstrip_fn(blocks, params, snap)
                 matched, bidx, flag = _lookup_dense(
@@ -1146,6 +1161,8 @@ class _Builder:
                 matched, bidx, flag = _lookup(
                     pk, pmask, bk, bmask, check_dup=True
                 )
+            if capture:
+                builder.captured = (bidx, benv, bn)
             gathered = _gather(benv, bidx)
             env = (
                 list(penv) + gathered if build_right
@@ -1156,6 +1173,31 @@ class _Builder:
                 d, v = resfn(env, params)
                 mask = mask & (d if v is None else (d & v))
             return env, mask, pn, flags + [flag]
+
+        return run
+
+    @staticmethod
+    def _existence_probe(semi: bool, left, right, lkfn, rkfn,
+                         resfn) -> Callable:
+        """A semi or anti join: every left row asks whether some right
+        row shares its key (a sort-merge lookup without the duplicate
+        check: duplicate right keys are harmless here). The left side's
+        rows and columns carry on; a NULL left key matches nothing, so
+        an anti join keeps its row. No flag: the radix table and the
+        fold answer inner joins only."""
+
+        def run(blocks, params, snap):
+            lenv, lmask, ln, lflags = left(blocks, params, snap)
+            renv, rmask, rn, rflags = right(blocks, params, snap)
+            lk = _bcast(lkfn(lenv, params), ln)
+            rk = _bcast(rkfn(renv, params), rn)
+            matched, _bidx, _dup = _lookup(lk, lmask, rk, rmask,
+                                           check_dup=False)
+            mask = lmask & (matched if semi else ~matched)
+            if resfn is not None:
+                d, v = resfn(lenv, params)
+                mask = mask & (d if v is None else (d & v))
+            return lenv, mask, ln, lflags + rflags
 
         return run
 
@@ -1466,11 +1508,7 @@ class DagRunner:
         skey = final_root.key()
         tk = self._topk_spec(tk, agg, root, out_proj, skey, versions)
         if agg is None:
-            if tk is not None:
-                raise NotPorted("fused DAG rows_topk mode (ORDER BY ... "
-                                "LIMIT over join rows, ranked on the device)")
-            raise NotPorted("fused DAG rows mode (the final fragment "
-                            "ships rows, not partial aggregates)")
+            return self._run_rows(root, skey, snap, versions, tk)
         orientation = self._orientation_for(skey, root)
         arrays = _collect_arrays(self.fx, root)
         sig = _shapes_sig(arrays)
@@ -1506,11 +1544,8 @@ class DagRunner:
                                            snap, out_proj)
             bg = None
             if tk is not None and gs is None and ga is None:
+                # gseg: a segment reduction over the top join's build rows
                 bg = _detect_build_group(agg, root, orientation)
-            if bg is not None:
-                raise NotPorted(
-                    "fused DAG gseg mode (grouped by the unique build key "
-                    "of the top join, ranked on the device)")
             narrow = (gs is not None or ga is not None) and not \
                 self._narrow_off.get(skey)
             robust = bool(self._robust_on.get(skey))
@@ -1518,11 +1553,12 @@ class DagRunner:
             # versions: the mode gates read row counts at compile time
             fkey = ("final", skey, orientation, sig, fo, versions,
                     gcap if grouped else None, packing, tk,
-                    gs is not None, ga is not None, narrow, robust)
+                    gs is not None, ga is not None, bg is not None, narrow,
+                    robust)
             prog, comp, mode, jinfo, modes = self._cached(
                 fkey, lambda: self._compile_final(
                     agg, root, orientation, fo, gcap, packing, tk, gs,
-                    ga is not None, narrow, robust))
+                    ga is not None, narrow, robust, bg))
             self._mode_notes |= modes
             host_params, params = self._bind(comp)
             if grouped and gcapkey is None:
@@ -1563,7 +1599,7 @@ class DagRunner:
                     tk = None
                 continue
             self._orientations[skey] = orientation
-            if mode in ("gagg", "gsort"):
+            if mode in ("gagg", "gsort", "gseg"):
                 out_keys, out_vals, sel, _ok = outs
                 return self._apply_proj(
                     self._collect_grouped(agg, out_keys, out_vals, sel)[0],
@@ -1580,6 +1616,99 @@ class DagRunner:
                 self._collect_grouped(agg, out_keys, out_vals, gvalid)[0],
                 out_proj,
             )
+
+    def _run_rows(self, root, skey, snap, versions, tk) -> ColumnBatch:
+        """A final fragment with no aggregate ships its rows: compacted
+        on the device to a row capacity that starts optimistic and, when
+        the run finds more rows, grows to their bucketed count and runs
+        again (the capacity that fit is remembered per plan, data version
+        and literal values); or, under a top-k (rows_topk), ranked on the
+        device with k rows shipped, every row shipped unranked once the
+        ranking key's range overflows."""
+        orientation = self._orientation_for(skey, root)
+        arrays = _collect_arrays(self.fx, root)
+        sig = _shapes_sig(arrays)
+        cap = OPTIMISTIC_GROUP_CAP
+        capkey = None
+        while True:
+            fo = self._offs(skey)
+            fkey = ("rows", skey, orientation, sig, fo, versions,
+                    cap if tk is None else None, tk)
+            prog, comp, mode, jinfo, modes = self._cached(
+                fkey, lambda: self._compile_rows(root, orientation, fo, cap,
+                                                 tk))
+            self._mode_notes |= modes
+            host_params, params = self._bind(comp)
+            if tk is None and capkey is None:
+                capkey = ("gcap", skey, orientation, sig, versions,
+                          _params_sig(host_params))
+                known = self._caps.get(capkey)
+                if known is not None and known != cap:
+                    cap = known
+                    continue  # compile or look up at that capacity
+            outs, flags = prog(arrays, params, snap)
+            self.last_mode = mode
+            self.last_folded = jinfo[0]
+            flip = _first_true(flags)
+            if flip is not None:
+                orientation = self._on_flag(skey, orientation, flip, jinfo)
+                capkey = None  # keyed per orientation
+                continue
+            if tk is not None:
+                cols, valids, sel, ok = outs
+                batch, (ok,) = self._collect_rows(root.schema, cols, valids,
+                                                  sel, [ok])
+                if not bool(ok):
+                    self._remember(self._topk_off, (skey, tk, versions))
+                    tk = None
+                    continue
+                self._orientations[skey] = orientation
+                return batch
+            cols, valids, nfull = outs
+            if nfull > cap:  # more rows than the capacity holds
+                cap = bucket_size(nfull)
+                continue
+            self._remember(self._caps, capkey, cap)
+            self._orientations[skey] = orientation
+            return self._collect_rows(root.schema, cols, valids)[0]
+
+    def _compile_rows(self, root, orientation, fo, cap, tk):
+        """(program, compiler, mode, jinfo, join modes) of the rows mode
+        (``tk`` None: the live rows compacted in row order, at most
+        ``cap`` of them, with their full count) or rows_topk (the live
+        rows ranked by the packed ORDER BY key, k kept, ``ok`` False
+        where the key's range overflowed)."""
+        comp = ExprCompiler(self.fx.device)
+        b = _Builder(self.fx, comp, orientation, root, runner=self, offs=fo)
+        ev = b.build(root)
+        if tk is None:
+            def program(arrays, params, snap):
+                env, mask, n, flags = ev(arrays, params, snap)
+                rows = torch.nonzero(mask).reshape(-1)
+                nfull = rows.shape[0]
+                rows = rows[:cap]
+                env = [_take(_bcast(pair, n), rows) for pair in env]
+                return ([d for d, _v in env], [v for _d, v in env],
+                        nfull), flags
+
+            return program, comp, "rows", b.jinfo(), frozenset(b.modes)
+        kk, sspecs, _m = tk
+
+        def program(arrays, params, snap):
+            env, mask, n, flags = ev(arrays, params, snap)
+            env = [_bcast(pair, n) for pair in env]
+            # the reference ranks over all-valid planes where a column
+            # has none: the same slots, the same overflow bound
+            every = torch.ones(n, dtype=torch.bool, device=mask.device)
+            sortcols = [(env[p][0], every if env[p][1] is None
+                         else env[p][1]) for p, _d, _nf in sspecs]
+            packed, ok = _pack_sort_cols(sortcols, sspecs, mask)
+            idx, sel = _topk_idx(packed, mask, kk)
+            env = [_take(pair, idx) for pair in env]
+            return ([d for d, _v in env], [v for _d, v in env], sel,
+                    ok), flags
+
+        return program, comp, "rows_topk", b.jinfo(), frozenset(b.modes)
 
     def _bind(self, comp) -> tuple:
         """(host values, device tensors) of a compiler's literal params,
@@ -1975,16 +2104,21 @@ class DagRunner:
 
     def _compile_final(self, agg, root, orientation, fo, gcap, packing,
                        tk=None, gs=None, ga=False, narrow=False,
-                       robust=False):
+                       robust=False, bg=None):
         """(program, compiler, mode, jinfo, join modes) of one mode:
-        gsort (``gs``), gagg (``ga``), or the scalar / grouped reduce,
-        grouped_topk where ``tk`` ranks its groups."""
+        gsort (``gs``), gagg (``ga``), gseg (``bg``), or the scalar /
+        grouped reduce, grouped_topk where ``tk`` ranks its groups."""
         comp = ExprCompiler(self.fx.device)
-        b = _Builder(self.fx, comp, orientation, root, runner=self, offs=fo)
+        top = _join_side(root, orientation) if bg is not None else None
+        b = _Builder(self.fx, comp, orientation, root, runner=self, offs=fo,
+                     capture_id=None if top is None else id(top[0]))
         if gs is not None:
             program = self._compile_gsort(b, comp, agg, gs, tk, narrow)
             return program, comp, "gsort", b.jinfo(), frozenset(b.modes)
         ev = b.build(root)
+        if bg is not None:
+            program = self._compile_gseg(b, ev, comp, agg, root, bg, tk)
+            return program, comp, "gseg", b.jinfo(), frozenset(b.modes)
         if ga:
             program = self._compile_gagg(ev, comp, agg, root, orientation,
                                          tk, narrow, robust)
@@ -2032,6 +2166,83 @@ class DagRunner:
         else:
             mode = "grouped_topk" if tk is not None else "grouped"
         return program, comp, mode, b.jinfo(), frozenset(b.modes)
+
+    def _compile_gseg(self, b, ev, comp, agg, root, build_cols, topk):
+        """Grouped aggregation as a segment reduction over the top join's
+        build-row index, ranked on the device: groups are 1:1 with real
+        build rows (the join's flag verified their keys unique), so no
+        row is sorted; each aggregate reduces its rows by build row
+        (``index_add_`` and ``scatter_reduce_``), the group keys are the
+        build rows' own columns, and only k rows leave the device. The
+        rows that pass are compacted first (one ``nonzero``), so the
+        reductions cost what they cost, and no dead row contends for a
+        spare segment (the reference's segment_sum sends them to one)."""
+        dids = _dids(root.schema)
+        specs, afns = _agg_specs(comp, agg, dids)
+        k, sspecs, _merged = topk
+        nkeys = len(agg.group_exprs)
+
+        def program(arrays, params, snap):
+            env, mask, n, flags = ev(arrays, params, snap)
+            bidx, benv, bn = b.captured
+            dev = mask.device
+            live = torch.nonzero(mask).reshape(-1)
+            seg = bidx[live].to(torch.int64)
+
+            def seg_sum(x):
+                out = torch.zeros(bn, dtype=x.dtype, device=dev)
+                return out.index_add_(0, seg, x)
+
+            rows = seg_sum(torch.ones_like(seg))
+            out_vals = []
+            for spec, fn in zip(specs, afns):
+                if fn is None:  # count(*)
+                    out_vals.append((rows, rows > 0))
+                    continue
+                data, valid = _take(_bcast(fn(env, params), n), live)
+                vvalid = (torch.ones_like(seg, dtype=torch.bool)
+                          if valid is None else valid)
+                cv = seg_sum(vvalid.to(torch.int64))
+                if spec == "count":
+                    out_vals.append((cv, rows > 0))
+                    continue
+                if spec == "sum":
+                    if not data.dtype.is_floating_point:
+                        data = data.to(torch.int64)
+                    out_vals.append((seg_sum(torch.where(vvalid, data, 0)),
+                                     cv > 0))
+                    continue
+                # min / max: the identity where a row does not count
+                if data.dtype.is_floating_point:
+                    sent = float("inf") if spec == "min" else float("-inf")
+                elif data.dtype == torch.bool:
+                    data = data.to(torch.int32)
+                    sent = 2 if spec == "min" else -1
+                elif data.dtype.itemsize < 8:
+                    info = torch.iinfo(data.dtype)
+                    sent = info.max if spec == "min" else info.min
+                else:
+                    sent = 2**62 if spec == "min" else -(2**62)
+                d = torch.where(vvalid, data, sent)
+                m = torch.full((bn,), sent, dtype=d.dtype, device=dev)
+                m.scatter_reduce_(0, seg, d,
+                                  "amin" if spec == "min" else "amax")
+                out_vals.append((m, cv > 0))
+            gvalid = rows > 0
+            every = torch.ones(bn, dtype=torch.bool, device=dev)
+            out_keys = []
+            for ci in build_cols:
+                d, v = _bcast(benv[ci], bn)
+                out_keys.append((d, every if v is None else v))
+            sortcols = [out_keys[p] if p < nkeys else out_vals[p - nkeys]
+                        for p, _d, _nf in sspecs]
+            packed, ok = _pack_sort_cols(sortcols, sspecs, gvalid)
+            idx, sel = _topk_idx(packed, gvalid, k)
+            out_keys = [_take(pair, idx) for pair in out_keys]
+            out_vals = [_take(pair, idx) for pair in out_vals]
+            return (out_keys, out_vals, sel, ok), flags
+
+        return program
 
     def _compile_gagg(self, ev, comp, agg, root, orientation, topk,
                       narrow: bool, robust: bool):
@@ -2579,6 +2790,31 @@ class DagRunner:
                 dd = dd.astype(oc.type.np_dtype)
             cols[oc.name] = Column(oc.type, dd, vv, self._dic(oc))
         return ColumnBatch(cols, int(keep.shape[0])), host[:base]
+
+    def _collect_rows(self, schema, cols, valids, sel=None,
+                      extra=()) -> tuple:
+        """(the shipped rows on the host, ``extra``'s values), in one
+        device-to-host transfer: every compacted row, or the lanes
+        ``sel`` marks (rows_topk's k lanes). Columns keep their
+        positions: a name the schema repeats (``a.k, b.k``) takes a
+        suffix, where the reference's collect keeps one column of it."""
+        host = _to_host([*extra, sel] + [x for pair in zip(cols, valids)
+                                         for x in pair])
+        base = len(extra) + 1
+        keep = None if sel is None else np.nonzero(host[base - 1])[0]
+        out: dict[str, Column] = {}
+        n = 0
+        for i, oc in enumerate(schema):
+            d, v = host[base + 2 * i], host[base + 2 * i + 1]
+            if keep is not None:
+                d = d[keep]
+                v = None if v is None else v[keep]
+            if d.dtype != oc.type.np_dtype:
+                d = d.astype(oc.type.np_dtype)
+            name = oc.name if oc.name not in out else f"{oc.name}_{i}"
+            out[name] = Column(oc.type, d, v, self._dic(oc))
+            n = len(d)
+        return ColumnBatch(out, n), host[:len(extra)]
 
     def _collect_scalar(self, agg, out_vals) -> ColumnBatch:
         cols: dict[str, Column] = {}

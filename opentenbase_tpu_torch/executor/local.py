@@ -3,8 +3,9 @@ opentenbase_tpu/executor/local.py).
 
 After the fused fragment ran on the device, the coordinator merges the
 gathered per-shard partial rows: ``RemoteSource -> Aggregate (merge) ->
-Project -> Sort -> Limit``, with Filter for HAVING. The inputs are a few
-rows per shard (or per group), so the operators run in numpy on the
+Project -> Sort -> Limit``, with Filter for HAVING and Distinct over
+shipped join rows. The inputs are a few rows per shard (or per group,
+or the rows a join ships), so the operators run in numpy on the
 host; every expression beyond a column reference (``avg``'s sum / count,
 HAVING predicates, computed sort keys) is compiled by the port's
 ``ExprCompiler`` and run over CPU tensors, as the reference runs its own
@@ -254,6 +255,15 @@ class LocalExecutor:
         np.add.at(s, gid[valid], d[valid].astype(s.dtype))
         return (s.astype(a.type.np_dtype), cnt > 0)  # SQL: sum of none is NULL
 
+    def _eval_distinct(self, plan: L.Distinct) -> HostBatch:
+        """One row per distinct row of the child (NULLs equal), in the
+        reference's group order: ascending key parts, NULLs last."""
+        child = self.eval(plan.child)
+        _gid, first = _group_ids(child.cols, child.n)
+        cols = [(d[first], None if v is None else v[first])
+                for d, v in child.cols]
+        return HostBatch(plan.schema, cols, len(first))
+
     # -- sort / limit ---------------------------------------------------------
     def _eval_sort(self, plan: L.Sort) -> HostBatch:
         """Stable passes from the least significant key to the most (the
@@ -290,6 +300,60 @@ class LocalExecutor:
             (d[lo:hi], None if v is None else v[lo:hi]) for d, v in child.cols
         ]
         return HostBatch(plan.schema, cols, hi - lo)
+
+
+def _predicate_bounds(pred, scan: L.Scan) -> dict:
+    """Per-column [lo, hi] bounds (either side None: unbounded) that a
+    predicate's top-level conjuncts imply, in the columns' physical units
+    (scaled decimals, epoch days: the analyzer lowers literals so). Only
+    bare column-vs-constant comparisons and IN lists count; anything else
+    is ignored (a copy of the reference's ``_predicate_bounds``)."""
+    out: dict = {}
+
+    def narrow(ci: int, lo, hi):
+        name = scan.columns[ci]
+        cur = out.get(name, (None, None))
+        nlo = cur[0] if lo is None else (
+            lo if cur[0] is None else max(cur[0], lo))
+        nhi = cur[1] if hi is None else (
+            hi if cur[1] is None else min(cur[1], hi))
+        out[name] = (nlo, nhi)
+
+    flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}
+    for c in E.conjuncts(pred):
+        if isinstance(c, E.BinE) and c.op in ("=", "<", "<=", ">", ">="):
+            op, col, k = c.op, c.left, c.right
+            if isinstance(col, E.Const) and isinstance(k, E.Col):
+                col, k = k, col
+                op = flip.get(op, op)
+            if not (isinstance(col, E.Col) and isinstance(k, E.Const)):
+                continue
+            if k.value is None or isinstance(k.value, (str, bytes)):
+                continue
+            try:
+                v = int(k.value)
+            except (TypeError, ValueError):
+                continue
+            lo, hi = {"=": (v, v), "<": (None, v - 1), "<=": (None, v),
+                      ">": (v + 1, None), ">=": (v, None)}[op]
+            narrow(col.index, lo, hi)
+        elif isinstance(c, E.InListE) and not c.negated:
+            if not isinstance(c.operand, E.Col):
+                continue
+            vals = []
+            for item in c.items:
+                if (not isinstance(item, E.Const) or item.value is None
+                        or isinstance(item.value, (str, bytes))):
+                    vals = []
+                    break
+                try:
+                    vals.append(int(item.value))
+                except (TypeError, ValueError):
+                    vals = []
+                    break
+            if vals:
+                narrow(c.operand.index, min(vals), max(vals))
+    return out
 
 
 # -- DML row location (the reference's LocalExecutor.predicate_rows) --------

@@ -28,7 +28,8 @@ from opentenbase_tpu.plan.optimize import optimize_statement
 from opentenbase_tpu.sql.parser import parse
 from opentenbase_tpu.storage.column import Column as RefColumn
 from opentenbase_tpu.storage.table import ColumnBatch as RefBatch
-from opentenbase_tpu_torch import Cluster, NotPorted, carry
+from opentenbase_tpu_torch import Cluster, carry
+from opentenbase_tpu_torch.executor.fused_dag import DagUnsupported
 from opentenbase_tpu_torch.ops import radix_probe as rp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -171,33 +172,57 @@ def test_min_max_count_over_the_join(ssb):
 def test_single_table_aggregate_over_date_dim(ssb):
     """Round robin: K1's route answers. Replication: the aggregate runs
     whole on one node and ships final rows, so K1's route declines it
-    and it reaches the DAG's rows mode — where the reference's DAG
-    declines it too, for its host executor — which is not ported."""
+    and it reaches the DAG, whose final fragment is then an aggregate
+    under the shipped projection: the reference's one-device runner
+    declines it (for its host executor) and the port declines it with
+    the same reason."""
     dist, _lo, _dd, rs, _port, ps = ssb
     sql = "select sum(d_year) from date_dim where d_year > 1995"
     if dist == "replication":
-        with pytest.raises(NotPorted, match="rows mode"):
+        reason = _mesh1_declines(rs, sql)
+        with pytest.raises(DagUnsupported) as e:
             ps.query(sql)
+        assert str(e.value) == reason == "Aggregate"
     else:
         assert ps.query(sql) == rs.query(sql)
 
 
+def _mesh1_declines(rs, sql) -> str:
+    """The reason the reference's one-device runner declines ``sql``."""
+    c = rs.cluster
+    mesh1 = jax.sharding.Mesh(np.asarray(jax.devices("cpu")[:1]), ("dn",))
+    runner = RefDagRunner(RefFused(c.catalog, c.stores, mesh=mesh1))
+    dp = distribute_statement(
+        optimize_statement(analyze_statement(parse(sql)[0], c.catalog),
+                           c.catalog),
+        c.catalog,
+    )
+    assert runner.run(dp, c.gts.snapshot_ts(), rs._dicts_view(), []) is None
+    return runner.unsupported[-1]
+
+
 @pytest.mark.parametrize("case", ["top-k", "rows"])
-def test_grouped_join_is_not_ported(ssb, case):
-    """What the DAG still refuses: join rows under ORDER BY ... LIMIT,
-    which the reference ranks on the device (rows_topk), and a join with
-    no aggregate (rows mode). The grouped join runs, ranked or not
-    (tests/test_torch_dag_grouped.py, tests/test_torch_dag_topk.py)."""
-    _dist, _lo, _dd, _rs, _port, ps = ssb
-    sql, match = {
+def test_join_rows_match_reference(ssb, case):
+    """Join rows under ORDER BY ... LIMIT rank on the device (rows_topk,
+    k rows shipped) and a join with no aggregate ships its rows (rows),
+    each equal to the reference session's and in its one-device runner's
+    mode and join modes; K2 answers the DATE join of both."""
+    _dist, _lo, _dd, rs, port, ps = ssb
+    sql, mode = {
         "top-k": ("select lo_quantity, d_year from lineorder, date_dim "
                   "where lo_orderdate = d_datekey "
-                  "order by lo_quantity limit 10", "rows_topk mode"),
+                  "order by lo_quantity, d_year limit 10", "rows_topk"),
         "rows": ("select lo_quantity, d_year from lineorder, date_dim "
-                 "where lo_orderdate = d_datekey", "rows mode"),
+                 "where lo_orderdate = d_datekey and lo_discount = 3 "
+                 "and d_year = 1994", "rows"),
     }[case]
-    with pytest.raises(NotPorted, match=match):
-        ps.query(sql)
+    want_rows, want_modes = _mesh1_modes(rs, sql)
+    got = ps.query(sql)
+    assert sorted(got) == sorted(rs.query(sql)) == sorted(want_rows)
+    if case == "top-k":
+        assert got == want_rows and len(got) == 10
+    assert _runner(port).last_mode == mode
+    assert _runner(port).last_join_modes == want_modes == ("fold", "radix")
 
 
 @pytest.fixture(scope="module")

@@ -21,7 +21,7 @@ negative values and ORDER BY min; the retry ladder (narrow -> wide ->
 robust -> unranked); a join residual, also where every row of a group
 fails it; grouped_topk on a FLOAT8 key; ties at the k-th row; NULL sort
 keys; OFFSET; k = 1024 against 1025; wgagg past the window budget, and
-the mode still refused (gseg). Also the ranking helpers against the
+gseg. Also the ranking helpers against the
 reference's jnp functions on the same arrays."""
 
 import numpy as np
@@ -29,7 +29,6 @@ import pytest
 
 import jax.numpy as jnp
 from opentenbase_tpu.executor import fused_dag as ref_fd
-from opentenbase_tpu_torch import NotPorted
 from opentenbase_tpu_torch.executor import fused_dag
 
 from test_torch_dag_grouped import _carry, _pair, smoke
@@ -310,18 +309,17 @@ def test_gsort_narrow_overflow_retries_wide(small_joins, monkeypatch):
                            "_topk_off": False}
 
 
-def test_gseg_not_ported(small_joins):
+def test_gseg_matches_reference(small_joins):
     """Grouped by the build key and a FLOAT8 build column (gagg does not
     apply) with an aggregate over the build side (gsort does not apply):
-    the reference runs gseg, the port refuses it by name."""
-    rs, port, ps = small_joins
-    sql = ("select of_key, of_f, sum(of_p) from ordf, linf "
-           "where of_key = lf_key group by of_key, of_f "
-           "order by 3 desc limit 4")
-    _rows, ref = _mesh1(rs, sql)
-    assert ref.last_mode == "gseg"
-    with pytest.raises(NotPorted, match="gseg"):
-        ps.query(sql)
+    the reference and the port run gseg, a segment reduction over the
+    top join's build rows, ranked on the device."""
+    got, _runner, _ref = _both(
+        small_joins, "select of_key, of_f, sum(of_p), count(*), "
+        "max(lf_key), min(lf_v), count(lf_v) from ordf, linf "
+        "where of_key = lf_key "
+        "group by of_key, of_f order by 3 desc, of_key limit 4", "gseg")
+    assert len(got) == 4
 
 
 # ---------------------------------------------------------------------------

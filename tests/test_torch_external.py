@@ -10,8 +10,9 @@ as the same rows in ordinary stores do, and as numpy does. The column
 stats are taken over live rows only and equal the reference's
 registration of the same arrays, the footprint of a registered table is
 its actual bytes, and a scan whose footprint passes
-``OTB_SCAN_HBM_BUDGET`` raises NotPorted exactly where the reference
-streams it in chunks."""
+``OTB_SCAN_HBM_BUDGET`` streams in chunks exactly where the reference
+streams it (an external table, with no host rows to stream, is refused
+by name)."""
 
 import jax
 import numpy as np
@@ -26,7 +27,7 @@ from opentenbase_tpu.plan.distribute import (
 )
 from opentenbase_tpu.plan.optimize import optimize_statement as ref_optimize
 from opentenbase_tpu.sql.parser import parse as ref_parse
-from opentenbase_tpu_torch import Cluster, NotPorted
+from opentenbase_tpu_torch import Cluster
 from opentenbase_tpu_torch.executor import fused, fused_dag
 
 from test_torch_dag_grouped import smoke
@@ -142,10 +143,56 @@ def test_footprint_is_the_external_tables_bytes(sf100):
 
 
 def test_external_table_past_the_budget_refused(sf100, monkeypatch):
-    _tables, ext, _plain = sf100
+    """A budget one compact MVCC plane below the table's actual bytes:
+    the scan streams, as in the reference, and a window needs host rows,
+    which an external table has none of. The reference fails there (its
+    window upload reads the stub store's rows: AttributeError); the port
+    refuses by name before touching the cache, so the table stays
+    resident and answers once the budget holds it again."""
+    tables, ext, _plain = sf100
     monkeypatch.setattr(fused, "SCAN_HBM_BUDGET", 4 * 4 * N)
-    with pytest.raises(NotPorted, match="chunked scan"):
+    rs = _ref_external(tables)
+    monkeypatch.setattr(ref_fused, "SCAN_HBM_BUDGET", 4 * 4 * N)
+    with pytest.raises(AttributeError, match="scan_view"):
+        _ref_fragment(rs, smoke.SF100_Q6)
+    with pytest.raises(KeyError, match="no host rows"):
         ext.session().query(smoke.SF100_Q6)
+    monkeypatch.undo()
+    assert ext.session().query(smoke.SF100_Q6) == \
+        smoke.expected_sf100_q6(tables)
+
+
+def _ref_external(tables):
+    """The reference's one-datanode session over the same tables
+    registered as external (bench.py's stub stores), and its one-device
+    executor on ``session.fx1``."""
+    from opentenbase_tpu.engine import Cluster as RefCluster
+
+    ref = RefCluster(num_datanodes=1, shard_groups=16)
+    rs = ref.session()
+    for ddl in smoke.SF100_DDL:
+        rs.execute(ddl)
+    rs.fx1 = RefFused(ref.catalog, ref.stores, mesh=_mesh1())
+    stats = smoke.sf100_stats(N)
+    for t, cols in tables.items():
+        meta = ref.catalog.get(t)
+        node = meta.node_indices[0]
+        rows = len(next(iter(cols.values())))
+        ref.stores[node][t] = smoke.ExtStore(rows)
+        meta.stats = stats[t]
+        rs.fx1.cache.register_external(
+            t, meta, (node,), {c: a.reshape(1, rows)
+                               for c, a in cols.items()}, [rows])
+    return rs
+
+
+def _ref_fragment(rs, sql):
+    c = rs.cluster
+    dp = ref_distribute(ref_optimize(ref_analyze(ref_parse(sql)[0],
+                                                 c.catalog), c.catalog),
+                        c.catalog)
+    return rs.fx1.fragment_output(dp.fragments[0], c.gts.snapshot_ts(),
+                                  rs._dicts_view(), [], use_pallas=False)
 
 
 @pytest.fixture(scope="module")
@@ -187,8 +234,8 @@ def test_chunk_trigger_where_the_reference_streams(stores_pair, monkeypatch,
                                                    margin, streams):
     """The budget one byte below, then exactly at, the scan's padded
     footprint (both packages model it alike): the reference streams
-    chunks past it, and the port raises NotPorted there and answers
-    otherwise."""
+    chunks past it, and so does the port (its chunked scans count one
+    more), with the reference's answer either way."""
     rs, port, ps = stores_pair
     meta = port.catalog.get("t")
     fx = port.fused_executor()
@@ -202,8 +249,6 @@ def test_chunk_trigger_where_the_reference_streams(stores_pair, monkeypatch,
     monkeypatch.setattr(fused, "SCAN_HBM_BUDGET", budget)
     monkeypatch.setattr(ref_fused, "SCAN_HBM_BUDGET", budget)
     assert _ref_streams(rs, monkeypatch) == streams
-    if streams:
-        with pytest.raises(NotPorted, match="chunked scan"):
-            ps.query(SQL_T)
-    else:
-        assert ps.query(SQL_T) == rs.query(SQL_T)
+    before = fx.cache.stats["chunked_scans"]
+    assert ps.query(SQL_T) == rs.query(SQL_T)
+    assert fx.cache.stats["chunked_scans"] - before == int(streams)
