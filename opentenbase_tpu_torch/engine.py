@@ -6,10 +6,13 @@ roundrobin|shard(...)|replication``; ``insert ... values`` of literals,
 ``delete`` and ``update`` (no FROM/USING, no RETURNING), each in an
 implicit transaction or inside ``begin ... commit|rollback``;
 ``vacuum``; ``create index`` (zone maps: the columns register for the
-fragment program's block pruning); and ``select`` through analyze ->
-optimize -> distribute -> the device (a single fragment through the
-scan-aggregate kernel or the fragment program, joins through the fused
-DAG) -> the coordinator merge. Anything else raises NotPorted.
+fragment program's block pruning); ``analyze`` (the planner's row and
+distinct-value estimates); ``set`` / ``reset enable_fused_execution``;
+and ``select`` through analyze -> optimize -> distribute -> the fused
+executors (a single fragment through the scan-aggregate kernel or the
+fragment program, joins through the fused DAG) and the coordinator
+merge, or, where the fused executors decline as the reference's do,
+the host executor (executor/dist.py). Anything else raises NotPorted.
 
 Transactions run under snapshot isolation, single process (no 2PC, no
 WAL): a write parks its rows as delta batches at PENDING_TS and records
@@ -47,8 +50,13 @@ from opentenbase_tpu_torch.catalog.distribution import (
 )
 from opentenbase_tpu_torch.catalog.nodes import NodeDef, NodeManager, NodeRole
 from opentenbase_tpu_torch.catalog.shardmap import ShardMap
+from opentenbase_tpu_torch.device import resolve_device
 from opentenbase_tpu_torch.errors import NotPorted
-from opentenbase_tpu_torch.executor.fused import FusedExecutor
+from opentenbase_tpu_torch.executor.dist import DistExecutor
+from opentenbase_tpu_torch.executor.fused import (
+    FusedExecutor,
+    FusedUnsupported,
+)
 from opentenbase_tpu_torch.executor.fused_dag import DagUnsupported
 from opentenbase_tpu_torch.executor.local import (
     LocalExecutor,
@@ -103,17 +111,21 @@ class SQLError(RuntimeError):
             self.sqlstate = sqlstate
 
 
-def resolve_device(device) -> torch.device:
-    """``None`` means the first CUDA device, and no CUDA is an error: the
-    port never falls back to the CPU unless the caller asks for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: opentenbase_tpu_torch runs on the GPU "
-                "(pass device='cpu' to run the plain PyTorch versions)"
-            )
-        return torch.device("cuda", 0)
-    return torch.device(device)
+# gathered partial rows from which the fused route's coordinator merge
+# runs on the cluster's device instead of the CPU
+MERGE_DEVICE_ROWS = 1 << 16
+
+
+def merge_device(cluster, nrows: int) -> torch.device:
+    """Where the fused route merges ``nrows`` partial rows. A merge of a
+    row per shard or group runs on the CPU, as the reference's runs on
+    the host's devices: a few operators over a few rows cost less there
+    than their launches and round trips on the card. A merge of millions
+    of partial groups (ClickBench's top 10 ships 10.6 M at 60 M rows)
+    regroups and sorts them on the cluster's device, which is local."""
+    if nrows >= MERGE_DEVICE_ROWS:
+        return cluster.device
+    return torch.device("cpu")
 
 
 class CommitClock:
@@ -347,6 +359,14 @@ class Session:
         # whether the last SELECT's device output came from the fused DAG
         # (else from K1's route), the reference's attribute
         self._fused_via_dag = False
+        # session settings: enable_fused_execution alone is taken
+        self.gucs: dict = {}
+        # the last SELECT's route ("fused" or "host") and, on the host
+        # route, its DistExecutor (instrumentation, motions, join modes)
+        self.last_route: Optional[str] = None
+        self.last_executor: Optional[DistExecutor] = None
+        # why the fused executors declined the last SELECT, in order
+        self.last_declines: list[str] = []
 
     def execute(self, sql: str) -> Result:
         results = [self._execute_one(s) for s in parse(sql)]
@@ -376,6 +396,8 @@ class Session:
             A.RollbackStmt: self._x_rollbackstmt,
             A.VacuumStmt: self._x_vacuumstmt,
             A.CreateIndex: self._x_createindex,
+            A.SetStmt: self._x_setstmt,
+            A.AnalyzeStmt: self._x_analyzestmt,
         }.get(type(stmt))
         if fn is None:
             raise NotPorted(self._REFUSED.get(
@@ -880,7 +902,7 @@ class Session:
                          if ty.id == t.TypeId.TEXT else None)
                 for name, ty in meta.schema.items()
             )
-            ex = LocalExecutor(self.cluster.catalog, {})
+            ex = LocalExecutor(self.cluster.catalog, {}, device="cpu")
             names = list(assigned)
             fns, params = ex._bind(
                 [assigned[n] for n in names], schema,
@@ -899,48 +921,148 @@ class Session:
                 meta.dictionaries.get(name))
         return ColumnBatch(out, old.nrows)
 
+    # -- SET / ANALYZE ---------------------------------------------------------
+    _GUCS = ("enable_fused_execution",)
+
+    def _x_setstmt(self, stmt: A.SetStmt) -> Result:
+        """``set enable_fused_execution = on|off`` (off: every SELECT
+        takes the host executor) and its RESET; any other setting is
+        outside the port."""
+        name = stmt.name.lower()
+        if name not in self._GUCS:
+            raise NotPorted(f"SET {name}")
+        if stmt.value is None:  # RESET, SET ... TO DEFAULT
+            self.gucs.pop(name, None)
+            return Result("SET")
+        v = stmt.value
+        if isinstance(v, str):
+            low = v.lower()
+            if low not in ("on", "off", "true", "false"):
+                raise SQLError(f'parameter "{name}" requires a Boolean '
+                               "value", "22023")
+            v = low in ("on", "true")
+        self.gucs[name] = bool(v)
+        return Result("SET")
+
+    def _x_analyzestmt(self, stmt: A.AnalyzeStmt) -> Result:
+        """The planner's statistics (the reference's ANALYZE): live rows
+        and per-column distinct-value estimates from a bounded sample of
+        every table (or the one named), which join ordering and the
+        broadcast-or-redistribute choice read (plan/costs.py)."""
+        snap = self.cluster.gts.snapshot_ts()
+        cat = self.cluster.catalog
+        names = [stmt.table] if stmt.table else cat.table_names()
+        sample_max = 100_000
+        for name in names:
+            meta = self._table_meta(name)
+            rows = 0
+            samples: dict[str, list] = {c: [] for c in meta.schema}
+            nodes = (meta.node_indices[:1] if meta.dist.is_replicated
+                     else meta.node_indices)
+            for n in nodes:
+                store = self.cluster.stores[n].get(name)
+                if store is None:
+                    continue
+                sv = store.scan_view()
+                idx = np.nonzero((sv.xmin() <= snap) & (snap < sv.xmax()))[0]
+                rows += len(idx)
+                if len(idx) > sample_max:
+                    idx = idx[:: max(len(idx) // sample_max, 1)][:sample_max]
+                for c in meta.schema:
+                    samples[c].append(sv.col(c)[idx])
+            ndv: dict[str, int] = {}
+            for c, parts in samples.items():
+                if not parts:
+                    ndv[c] = 0
+                    continue
+                arr = np.concatenate(parts)
+                u = len(np.unique(arr))
+                if rows > len(arr) and u > 0.9 * len(arr):
+                    # nearly unique in the sample: extrapolate to the
+                    # table (PG's proportional n_distinct)
+                    u = int(u * rows / max(len(arr), 1))
+                ndv[c] = max(u, 1)
+            meta.stats = {"rows": rows, "ndv": ndv}
+        return Result("ANALYZE")
+
     # -- SELECT ----------------------------------------------------------------
     def _x_select(self, stmt: A.Select) -> Result:
         if stmt.for_update is not None:
             raise NotPorted("SELECT ... FOR UPDATE")
-        if self.txn is not None and self.txn.writes:
-            # the reference never takes the device route here (the
-            # cache holds no own-write overlay): its host executor
-            # answers, which the port has not yet
-            raise NotPorted("read inside a writing transaction")
         catalog = self.cluster.catalog
         splan = optimize_statement(analyze_statement(stmt, catalog), catalog)
         dplan = distribute_statement(splan, catalog)
-        if dplan.subplans:
-            raise NotPorted("scalar subqueries")
-        snapshot = self._snapshot()
-        fx = self.cluster.fused_executor()
-        # the reference's route order (engine.py _try_fused_inner): a
-        # Limit(Sort(...)) coordinator plan tries the fused DAG first,
-        # which may rank on the device and ship k rows; a single fragment
-        # tries K1's route; what neither took, and every other plan, goes
-        # to the DAG. A DagUnsupported of the first try is the reference's
-        # "DAG returns None"; any other NotPorted is a gap of the port
-        # and propagates.
-        has_topk = isinstance(dplan.root, L.Limit) and isinstance(
-            dplan.root.child, L.Sort)
-        out, final_idx, declined = None, 0, None
-        self._fused_via_dag = False
-        if has_topk:
-            try:
-                final_idx, out = fx.dag_output(dplan, snapshot)
-                self._fused_via_dag = True
-            except DagUnsupported as e:
-                declined = e
-        if out is None and len(dplan.fragments) == 1:
-            out = fx.fragment_output(dplan.fragments[0], snapshot)
-        if out is None:
-            if declined is not None:
-                # the reference's host executor answers: not ported
-                raise declined
-            final_idx, out = fx.dag_output(dplan, snapshot)
-            self._fused_via_dag = True
-        batch = LocalExecutor(catalog, {final_idx: out}).run_plan(dplan.root)
+        batch = self._execute_dplan(dplan, self._snapshot())
         return Result(
             "SELECT", batch.to_rows(), batch.column_names(), batch.nrows
         )
+
+    def _execute_dplan(self, dplan, snapshot) -> ColumnBatch:
+        """The one dispatch point for a planned statement (the
+        reference's ``_execute_dplan``): the fused executors, else the
+        host executor over the cluster's stores on the cluster's device,
+        with the transaction's own writes laid over its scans."""
+        self.last_executor = None
+        out = self._try_fused(dplan, snapshot)
+        if out is not None:
+            self.last_route = "fused"
+            return out
+        self.last_route = "host"
+        ex = DistExecutor(
+            self.cluster.catalog, self.cluster.stores, snapshot,
+            own_writes=self.txn.own_writes_view() if self.txn else None,
+            device=self.cluster.device,
+        )
+        self.last_executor = ex
+        return ex.run(dplan)
+
+    def _try_fused(self, dplan, snapshot) -> Optional[ColumnBatch]:
+        """The fused route (the reference's ``_try_fused_inner``), or
+        None where the reference's declines: the setting is off, a
+        writing transaction is open (the device cache holds no own-write
+        overlay), the plan has no fragments or has subplans, the DAG
+        declines (``DagUnsupported``) or the fragment program does
+        (``FusedUnsupported``). Any other exception — a kernel that does
+        not build or launch, a NotPorted, a fault in the fused path —
+        propagates: it never gives way to the host route.
+
+        Route order, as the reference's: a Limit(Sort(...)) plan tries
+        the DAG first, which may rank on the device and ship k rows; a
+        single fragment tries K1's route and the fragment program; what
+        neither took, and every other plan, goes to the DAG."""
+        self.last_declines = []
+        if self.gucs.get("enable_fused_execution", True) is False:
+            self.last_declines.append("enable_fused_execution is off")
+            return None
+        if self.txn is not None and self.txn.writes:
+            self.last_declines.append("a writing transaction is open")
+            return None
+        if not dplan.fragments or dplan.subplans:
+            self.last_declines.append("no fragments" if not dplan.fragments
+                                      else "scalar subqueries")
+            return None
+        fx = self.cluster.fused_executor()
+        has_topk = isinstance(dplan.root, L.Limit) and isinstance(
+            dplan.root.child, L.Sort)
+        out, final_idx = None, 0
+        self._fused_via_dag = False
+        try:
+            if has_topk:
+                try:
+                    final_idx, out = fx.dag_output(dplan, snapshot)
+                    self._fused_via_dag = True
+                except DagUnsupported as e:
+                    self.last_declines.append(f"DagUnsupported: {e}")
+            if out is None and len(dplan.fragments) == 1:
+                out = fx.fragment_output(dplan.fragments[0], snapshot)
+            if out is None and not has_topk:
+                final_idx, out = fx.dag_output(dplan, snapshot)
+                self._fused_via_dag = True
+        except (DagUnsupported, FusedUnsupported) as e:
+            self.last_declines.append(f"{type(e).__name__}: {e}")
+            return None
+        if out is None:
+            return None
+        return LocalExecutor(
+            self.cluster.catalog, {final_idx: out},
+            device=merge_device(self.cluster, out.nrows)).run_plan(dplan.root)

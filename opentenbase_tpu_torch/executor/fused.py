@@ -29,8 +29,9 @@ predicate bounds a CREATE INDEX column reads only each shard's window of
 candidate zone-map blocks) and its chunked scan (a scan whose resident
 footprint passes ``SCAN_HBM_BUDGET`` streams shard-row windows through
 the program, one resident at a time, ``get_window``). Where the reference's
-program declines and its host executor answers (min/max over TEXT, the
-sort mode past its capacity), the port raises NotPorted.
+program declines (min/max over TEXT, the sort mode past its capacity),
+the port raises ``FusedUnsupported`` and the session's host executor
+answers, as the reference's does.
 """
 
 from __future__ import annotations
@@ -44,7 +45,11 @@ import numpy as np
 import torch
 
 from opentenbase_tpu_torch.errors import NotPorted
-from opentenbase_tpu_torch.executor.local import _predicate_bounds
+from opentenbase_tpu_torch.executor.dist import concat_batches
+from opentenbase_tpu_torch.executor.local import (
+    _predicate_bounds,
+    to_host_arrays,
+)
 from opentenbase_tpu_torch.ops import agg as agg_ops
 from opentenbase_tpu_torch.ops import scan_agg as sa
 from opentenbase_tpu_torch.ops.expr import ExprCompiler, resolve_param
@@ -73,6 +78,12 @@ DEFAULT_GROUP_CAP = 1024
 DEFAULT_SCAN_HBM_BUDGET = 8_000_000_000
 SCAN_HBM_BUDGET = int(os.environ.get("OTB_SCAN_HBM_BUDGET",
                                      DEFAULT_SCAN_HBM_BUDGET))
+
+
+class FusedUnsupported(NotPorted):
+    """The fused executors decline this fragment where the reference's
+    decline too (the reference's ``FusedUnsupported``): the session then
+    hands the plan to the host executor (executor/dist.py)."""
 
 
 # ---------------------------------------------------------------------------
@@ -485,7 +496,7 @@ class DeviceCache:
                 torch.int64).reshape(1))
             stats.append(torch.where(live, a, info.min).amax().to(
                 torch.int64).reshape(1))
-        host = _to_host([torch.cat(stats)])[0] if stats else []
+        host = to_host_arrays([torch.cat(stats)])[0] if stats else []
         col_range: dict = {c: None for c in cols}
         col_maxabs: dict = {c: None for c in cols}
         for i, c in enumerate(ints):
@@ -815,9 +826,8 @@ class FusedExecutor:
         batch, ngroups = self._collect(m, out_keys, out_vals, gvalid,
                                        ngroups)
         if ngroups >= cap:
-            raise NotPorted(
-                f"group capacity overflow in the sort mode ({cap} groups; "
-                "the reference answers on its host executor)")
+            raise FusedUnsupported(
+                f"group capacity overflow in the sort mode ({cap} groups)")
         self.last_route, self.last_rung = "program", ("sort", cap)
         return batch
 
@@ -853,14 +863,12 @@ class FusedExecutor:
                 afns.append(None)
                 continue
             if a.func not in ("sum", "count", "min", "max"):
-                raise NotPorted(f"aggregate {a.func} in the fragment "
-                                "program")
+                raise FusedUnsupported(f"aggregate {a.func} in the "
+                                       "fragment program")
             if a.func in ("min", "max") and a.arg.type.is_text:
                 # codes follow insertion order, not collation: the
-                # reference's host executor ranks them
-                raise NotPorted(f"{a.func} over TEXT on the device (the "
-                                "reference answers it on its host "
-                                "executor)")
+                # host executor ranks them
+                raise FusedUnsupported(f"{a.func} over TEXT on the device")
             specs.append(a.func)
             afns.append(comp.compile(a.arg, dids))
         dev = self.device
@@ -913,7 +921,7 @@ class FusedExecutor:
             # the aggregate reads only the visible rows, compacted: no
             # invisible row reaches a scatter (they would all contend
             # for the overflow slot)
-            idx = compact_indices(mask)
+            idx, _ = compact_indices(mask)
             env = [gather_cols([c], idx)[0] if i in used else None
                    for i, c in enumerate(env)]
             k = idx.shape[0]
@@ -930,7 +938,7 @@ class FusedExecutor:
         collision bit or the sort rung's group count, fetched with the
         rows in one transfer."""
         pairs = list(out_keys) + list(out_vals)
-        host = _to_host([flag, gvalid]
+        host = to_host_arrays([flag, gvalid]
                         + [x for pair in pairs for x in pair])
         fl = None if flag is None else host[0].item()
         keep = np.nonzero(host[1].reshape(-1))[0]
@@ -981,7 +989,7 @@ class FusedExecutor:
             cols, dtab.xmin, dtab.xmax, dtab.nrows_dev, snap, spec,
             max_nrows=int(dtab.nrows.max(initial=0)),
         )
-        sums, counts = _to_host([sums, counts])
+        sums, counts = to_host_arrays([sums, counts])
         S = len(dtab.nrows)
         if decoders is None:
             return self._scalar_batch(m, sums[:, 0], counts[:, 0], specs, S)
@@ -1096,30 +1104,6 @@ class FusedExecutor:
         return sa.compile_spec(preds, key_expr, values, n_groups), specs
 
 
-def concat_batches(batches: list) -> ColumnBatch:
-    """The batches' rows one after another, column by column (a copy of
-    the reference's ``executor/dist.py`` ``concat_batches``): a column
-    takes a validity mask where any part has one."""
-    batches = [b for b in batches if b is not None]
-    if not batches:
-        raise ValueError("no batches to concatenate")
-    if len(batches) == 1:
-        return batches[0]
-    names = list(batches[0].columns.keys())
-    cols: dict[str, Column] = {}
-    for i, name in enumerate(names):
-        parts = [list(b.columns.values())[i] for b in batches]
-        data = np.concatenate([p.data for p in parts])
-        validity = None
-        if any(p.validity is not None for p in parts):
-            validity = np.concatenate([
-                np.ones(len(p.data), np.bool_) if p.validity is None
-                else p.validity for p in parts])
-        cols[name] = Column(parts[0].type, data, validity,
-                            parts[0].dictionary)
-    return ColumnBatch(cols, sum(b.nrows for b in batches))
-
-
 def _bcast(kv, n: int):
     """A (data, valid) pair at ``n`` rows: a 0-d constant broadcasts."""
     d, v = kv
@@ -1132,25 +1116,3 @@ def _bcast(kv, n: int):
 
 def _nbytes(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.numel() * t.element_size()
-
-
-def _to_host(tensors: list) -> list:
-    """numpy arrays of ``tensors`` (None stays None) from one
-    device-to-host transfer: their bytes ride one buffer, so the host
-    waits for the device once. The widest elements go first, so each
-    array is an aligned view into the buffer (no copy on the host)."""
-    flat = [None if t is None else t.reshape(-1).contiguous()
-            for t in tensors]
-    order = sorted((i for i, f in enumerate(flat) if f is not None),
-                   key=lambda i: -flat[i].element_size())
-    if not order:
-        return flat
-    buf = torch.cat([flat[i].view(torch.uint8) for i in order]).cpu().numpy()
-    out, off = list(flat), 0
-    for i in order:
-        t = tensors[i]
-        nb = flat[i].numel() * flat[i].element_size()
-        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out[i] = buf[off:off + nb].view(dtype).reshape(t.shape)
-        off += nb
-    return out

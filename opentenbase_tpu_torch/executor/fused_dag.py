@@ -81,7 +81,7 @@ import torch
 
 from opentenbase_tpu_torch import types as t
 from opentenbase_tpu_torch.errors import NotPorted
-from opentenbase_tpu_torch.executor.fused import _to_host
+from opentenbase_tpu_torch.executor.local import to_host_arrays
 from opentenbase_tpu_torch.ops import join as join_ops
 from opentenbase_tpu_torch.ops import radix_probe as rp
 from opentenbase_tpu_torch.ops import agg as agg_ops
@@ -2780,8 +2780,9 @@ class DagRunner:
         dictionary."""
         keep = torch.nonzero(gvalid.reshape(-1)).reshape(-1)
         pairs = list(out_keys) + list(out_vals)
-        host = _to_host([*extra] + [None if x is None else x.reshape(-1)[keep]
-                                    for p in pairs for x in p])
+        host = to_host_arrays(
+            [*extra] + [None if x is None else x.reshape(-1)[keep]
+                        for p in pairs for x in p])
         base = len(extra)
         cols: dict[str, Column] = {}
         for i, oc in enumerate(agg.schema):
@@ -2798,8 +2799,8 @@ class DagRunner:
         ``sel`` marks (rows_topk's k lanes). Columns keep their
         positions: a name the schema repeats (``a.k, b.k``) takes a
         suffix, where the reference's collect keeps one column of it."""
-        host = _to_host([*extra, sel] + [x for pair in zip(cols, valids)
-                                         for x in pair])
+        host = to_host_arrays([*extra, sel] + [
+            x for pair in zip(cols, valids) for x in pair])
         base = len(extra) + 1
         keep = None if sel is None else np.nonzero(host[base - 1])[0]
         out: dict[str, Column] = {}

@@ -27,6 +27,10 @@ boolean mask computed on the host, for an ordered comparison, an IN list
 or a LIKE pattern: codes follow insertion order, not collation) or a
 ``DictTranslateParam`` (codes of one dictionary mapped to another's).
 
+A scalar subquery's value (``SubqueryParam``) binds as a (value,
+valid) pair from the list of subplan results the executor passes to
+``resolve_param``.
+
 The subset: column references, lifted literals, NULL, the six
 comparisons, AND/OR/NOT, unary minus, ``+ - * / // %`` (decimals in
 scaled-int64 form), IS [NOT] NULL, CASE, casts between the numeric,
@@ -114,6 +118,15 @@ class DictTranslateParam:
 
     src: str
     dst: str
+
+
+@dataclass(frozen=True)
+class SubqueryScalarParam:
+    """The value of uncorrelated subplan ``index`` (an InitPlan's scalar),
+    bound as a 0-d (value, valid) pair from the executor's value list."""
+
+    index: int
+    type: t.SqlType
 
 
 ColVal = tuple  # (data: torch.Tensor, valid: torch.Tensor | None)
@@ -230,6 +243,9 @@ class ExprCompiler:
             return self._like(e, dids)
         if isinstance(e, E.FuncE):
             return self._func(e, dids, want)
+        if isinstance(e, E.SubqueryParam):
+            pi = self._param(SubqueryScalarParam(e.index, e.type))
+            return lambda cols, params: params[pi]
         raise NotPorted(f"expression {type(e).__name__}")
 
     def _const(self, e: E.Const, want=None) -> CompiledExpr:
@@ -676,8 +692,17 @@ def resolve_param_host(spec, dictionary=None) -> np.ndarray:
     raise TypeError(f"unknown param spec {spec}")
 
 
-def resolve_param(spec, device, dictionary=None) -> torch.Tensor:
+def resolve_param(spec, device, dictionary=None, subquery_values=None):
     """The runtime value of a param spec as a tensor on ``device`` (a 0-d
-    tensor of its type's dtype for a scalar literal)."""
+    tensor of its type's dtype for a scalar literal); a subquery's value
+    as a 0-d (value, valid) pair from ``subquery_values`` (a list of
+    (python value or None, SqlType))."""
+    if isinstance(spec, SubqueryScalarParam):
+        assert subquery_values is not None, "subquery params not bound"
+        value, ty = subquery_values[spec.index]
+        data = np.asarray(0 if value is None else value,
+                          dtype=ty.np_dtype).reshape(())
+        return (torch.from_numpy(data).to(device),
+                torch.tensor(value is not None, device=device))
     return torch.from_numpy(resolve_param_host(spec, dictionary)).to(
         device)

@@ -31,6 +31,14 @@ from opentenbase_tpu.storage.table import ColumnBatch as RefBatch
 from opentenbase_tpu_torch import Cluster, carry
 from opentenbase_tpu_torch.executor.fused_dag import DagUnsupported
 from opentenbase_tpu_torch.ops import radix_probe as rp
+from opentenbase_tpu_torch.plan import analyze_statement as port_analyze
+from opentenbase_tpu_torch.plan.distribute import (
+    distribute_statement as port_distribute,
+)
+from opentenbase_tpu_torch.plan.optimize import (
+    optimize_statement as port_optimize,
+)
+from opentenbase_tpu_torch.sql import parse as port_parse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(
@@ -174,15 +182,20 @@ def test_single_table_aggregate_over_date_dim(ssb):
     whole on one node and ships final rows, so K1's route declines it
     and it reaches the DAG, whose final fragment is then an aggregate
     under the shipped projection: the reference's one-device runner
-    declines it (for its host executor) and the port declines it with
-    the same reason."""
-    dist, _lo, _dd, rs, _port, ps = ssb
+    declines it (for its host executor) and the port's DAG declines it
+    with the same reason; the port's host executor then answers."""
+    dist, _lo, _dd, rs, port, ps = ssb
     sql = "select sum(d_year) from date_dim where d_year > 1995"
     if dist == "replication":
         reason = _mesh1_declines(rs, sql)
+        cat = port.catalog
+        dp = port_distribute(port_optimize(
+            port_analyze(port_parse(sql)[0], cat), cat), cat)
         with pytest.raises(DagUnsupported) as e:
-            ps.query(sql)
+            port.fused_executor().dag_output(dp, port.gts.snapshot_ts())
         assert str(e.value) == reason == "Aggregate"
+        assert ps.query(sql) == rs.query(sql)
+        assert ps.last_route == "host"
     else:
         assert ps.query(sql) == rs.query(sql)
 

@@ -329,7 +329,11 @@ def test_a_failed_statement_leaves_no_writes_in_the_transaction(pair):
 
 
 @pytest.mark.parametrize("sql,shape", [
-    ("select count(*) from t", "read inside a writing transaction"),
+    # once refused; the host executor answers it now, as the reference's
+    # does (the case keeps its earlier name)
+    pytest.param("select count(*), sum(v) from t", None,
+                 id="select count(*) from t-read inside a writing "
+                 "transaction"),
     ("update t set v = 1 where k = 1 returning k", "UPDATE ... RETURNING"),
     ("delete from t where k = 1 returning k", "DELETE ... RETURNING"),
     ("savepoint sp", "SAVEPOINT"),
@@ -338,11 +342,20 @@ def test_a_failed_statement_leaves_no_writes_in_the_transaction(pair):
     ("prepare transaction 'g1'", "PREPARE TRANSACTION"),
 ])
 def test_named_refusals_inside_a_writing_transaction(pair, sql, shape):
-    pair.ps.execute("begin")
-    pair.ps.execute("update t set v = 0 where k = 2")
-    with pytest.raises(NotPorted, match=shape):
-        pair.ps.execute(sql)
-    pair.ps.execute("rollback")
+    """Inside a writing transaction the shapes outside the port are
+    refused by name; a read is answered by the host executor with the
+    transaction's own update in view, as the reference's is."""
+    for s in (pair.rs, pair.ps):
+        s.execute("begin")
+        s.execute("update t set v = 0 where k = 2")
+    if shape is None:
+        assert pair.ps.query(sql) == pair.rs.query(sql)
+        assert pair.ps.last_route == "host"
+    else:
+        with pytest.raises(NotPorted, match=shape):
+            pair.ps.execute(sql)
+    for s in (pair.rs, pair.ps):
+        s.execute("rollback")
 
 
 @pytest.mark.parametrize("sql,shape", [

@@ -297,15 +297,34 @@ def test_text_literal_encodes_into_target_dictionary():
 
 
 def test_outside_the_subset_raises_not_ported():
+    """String functions and TEXT casts stay outside the port; a scalar
+    subquery's value, once refused here, binds from the executor's
+    value list as the reference's does (a NULL value included)."""
     ty = _types(pt)
     comp = port_expr.ExprCompiler("cpu")
     with pytest.raises(NotPorted):  # a host string function
         comp.compile(PE.FuncE("upper", (PE.Col(0, pt.TEXT),), pt.TEXT),
                      ["x.c"])
-    with pytest.raises(NotPorted):  # a scalar subquery's value
-        comp.compile(PE.SubqueryParam(0, ty[1]))
     with pytest.raises(NotPorted):  # TEXT cast to a number
         comp.compile(PE.CastE(PE.Col(0, pt.TEXT), ty[1]), ["x.c"])
+    rty = _types(rt)
+    pexpr = PE.BinE("+", PE.SubqueryParam(1, ty[1]), PE.Const(5, ty[1]),
+                    ty[1])
+    rexpr = RE.BinE("+", RE.SubqueryParam(1, rty[1]), RE.Const(5, rty[1]),
+                    rty[1])
+    pfn = comp.compile(pexpr)
+    rcomp = ref_expr.ExprCompiler(lift_consts=True)
+    rfn = rcomp.compile(rexpr, [])
+    for value in (37, None):
+        pvals = [(None, ty[0]), (value, ty[1])]
+        rvals = [(None, rty[0]), (value, rty[1])]
+        pd, pv = pfn([], tuple(port_expr.resolve_param(sp, "cpu", None, pvals)
+                               for sp in comp.params))
+        rd, rv = rfn([], tuple(ref_expr.resolve_param(sp, {}, rvals)
+                               for sp in rcomp.params))
+        assert bool(pv) == bool(np.asarray(rv)) == (value is not None)
+        if value is not None:
+            assert int(pd) == int(np.asarray(rd)) == 42
 
 
 SPECS = ("sum", "count", "count_star", "min", "max")

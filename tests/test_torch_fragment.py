@@ -37,7 +37,8 @@ from opentenbase_tpu.plan.optimize import optimize_statement
 from opentenbase_tpu.sql.parser import parse
 from opentenbase_tpu.storage.column import Column as RefColumn
 from opentenbase_tpu.storage.table import ColumnBatch as RefBatch
-from opentenbase_tpu_torch import Cluster, NotPorted, carry
+from opentenbase_tpu_torch import Cluster, carry
+from opentenbase_tpu_torch.executor.fused import FusedUnsupported
 from opentenbase_tpu_torch.ops import agg as port_agg
 from opentenbase_tpu_torch.ops import filter as port_filter
 from opentenbase_tpu_torch.ops import scan_agg as sa
@@ -220,13 +221,37 @@ def test_fused_queries_match_reference(fused_li, qi):
         assert got and got[0][-1] is not None
 
 
+def _port_fragment(ps, sql):
+    """The port's fragment program (K1's route first) on ``sql``'s one
+    fragment."""
+    from opentenbase_tpu_torch.plan import analyze_statement as p_analyze
+    from opentenbase_tpu_torch.plan.distribute import (
+        distribute_statement as p_distribute,
+    )
+    from opentenbase_tpu_torch.plan.optimize import (
+        optimize_statement as p_optimize,
+    )
+    from opentenbase_tpu_torch.sql import parse as p_parse
+
+    cat = ps.cluster.catalog
+    dplan = p_distribute(p_optimize(p_analyze(p_parse(sql)[0], cat), cat),
+                         cat)
+    return ps.cluster.fused_executor().fragment_output(
+        dplan.fragments[0], ps.cluster.gts.clamped_snapshot())
+
+
 def test_text_min_max_is_not_ported(fused_li):
     """The reference's program declines min/max over TEXT (codes follow
-    insertion order) and its host executor answers; the port names it."""
+    insertion order) and its host executor answers. The port's program
+    declines alike (``FusedUnsupported``, once a NotPorted) and its host
+    executor answers the same rows."""
     rs, ps = fused_li
-    assert rs.query("select min(flag), max(status) from li") == [("A", "O")]
-    with pytest.raises(NotPorted, match="TEXT"):
-        ps.query("select min(flag), max(status) from li")
+    sql = "select min(flag), max(status) from li"
+    assert rs.query(sql) == [("A", "O")]
+    with pytest.raises(FusedUnsupported, match="TEXT"):
+        _port_fragment(ps, sql)
+    assert ps.query(sql) == [("A", "O")]
+    assert ps.last_route == "host"
 
 
 # ---------------------------------------------------------------------------
@@ -619,12 +644,16 @@ def test_collision_climbs_the_ladder(ladder, case):
 
 def test_sort_rung_past_its_capacity_is_not_ported(ladder):
     """1100 groups overflow the sort rung's 1024: the reference hands the
-    query to its host executor; the port names it."""
+    query to its host executor, and so does the port (its program
+    raises ``FusedUnsupported``, once a NotPorted)."""
     rs, ps = ladder
     sql = "select k, count(*) from lo group by k"
-    assert len(rs.query(sql)) == 1100
-    with pytest.raises(NotPorted, match="capacity"):
-        ps.query(sql)
+    want = rs.query(sql)
+    assert len(want) == 1100
+    with pytest.raises(FusedUnsupported, match="capacity"):
+        _port_fragment(ps, sql)
+    assert sorted(ps.query(sql)) == sorted(want)
+    assert ps.last_route == "host"
 
 
 # ---------------------------------------------------------------------------
@@ -809,7 +838,7 @@ def test_compact_and_gather_match_reference():
     d = rng.integers(0, 100, 40)
     v = rng.random(40) > 0.2
     k = int(mask.sum())
-    idx = port_filter.compact_indices(torch.from_numpy(mask))
+    idx, _valid = port_filter.compact_indices(torch.from_numpy(mask))
     ridx, rvalid = ref_filter.compact_indices(jnp.asarray(mask), k)
     assert idx.tolist() == np.asarray(ridx).tolist()
     (gd, gv), (hd, hv), (cd, cv) = port_filter.gather_cols(

@@ -70,7 +70,7 @@ def _executor(port, dplan, partials):
         else:
             cols[oc.name] = Column(oc.type, np.asarray(vals, np.int64))
     batch = ColumnBatch(cols, len(partials[0]))
-    return LocalExecutor(port.catalog, {frag.index: batch})
+    return LocalExecutor(port.catalog, {frag.index: batch}, device="cpu")
 
 
 def _merge(port, sql, partials):
@@ -320,6 +320,6 @@ def test_nan_and_negative_zero_keys_fold_in_the_merge():
     pbatch = ColumnBatch({
         oc.name: Column(oc.type, arr, np.ones(6, bool))
         for oc, arr in zip(pfrag.root.schema, (keys, counts, sums))}, 6)
-    got = LocalExecutor(port.catalog, {pfrag.index: pbatch}).run_plan(
-        pplan.root).to_rows()
+    got = LocalExecutor(port.catalog, {pfrag.index: pbatch},
+                        device="cpu").run_plan(pplan.root).to_rows()
     _same(got, want)

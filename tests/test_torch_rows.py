@@ -23,6 +23,7 @@ from opentenbase_tpu_torch.executor import fused_dag
 from opentenbase_tpu_torch.executor.fused_dag import DagUnsupported
 
 from test_torch_dag_topk import _mesh1, _sql_pair
+from test_torch_wgagg import _port_dag
 from test_torch_semi_anti import tpch  # noqa: F401 (the module fixture)
 
 SEED = 21
@@ -188,9 +189,10 @@ def test_repeated_column_names_keep_their_columns(sql):
 
 def test_bare_scan_declines_where_join_rows_answer():
     """A bare scan chain is the host executor's in the reference (its
-    one-device runner declines with "trivial scan"); the port declines
-    with the same reason. The same table's rows through a join answer
-    in rows mode."""
+    one-device runner declines with "trivial scan"); the port's DAG
+    declines with the same reason and its session answers through the
+    host executor, as the reference's. The same table's rows through a
+    join answer in rows mode."""
     rs, port, ps = _sql_pair(
         ["create table t (a int, b int) distribute by roundrobin",
          "create table u (b int, c int) distribute by replication"],
@@ -200,7 +202,9 @@ def test_bare_scan_declines_where_join_rows_answer():
     rows, ref = _mesh1(rs, sql)
     assert rows is None and ref.unsupported[-1] == "trivial scan"
     with pytest.raises(DagUnsupported, match="trivial scan"):
-        ps.query(sql)
+        _port_dag((rs, port, ps), sql)
+    assert sorted(ps.query(sql)) == sorted(rs.query(sql)) == [(3,), (5,)]
+    assert ps.last_route == "host"
     got, _r, _ref = _same((rs, port, ps), "select a, c from t, u "
                           "where t.b = u.b order by a", "rows")
     assert got == [(3, 7), (5, 7)]

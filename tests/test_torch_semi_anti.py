@@ -18,7 +18,6 @@ import pytest
 
 from opentenbase_tpu.plan.analyze import analyze_statement as ref_analyze
 from opentenbase_tpu.sql.parser import parse as ref_parse
-from opentenbase_tpu_torch import NotPorted
 from opentenbase_tpu_torch.ops import radix_probe as rp
 from opentenbase_tpu_torch.plan import analyze_statement
 from opentenbase_tpu_torch.sql import parse
@@ -164,15 +163,16 @@ def o2l2():
 ], ids=["uncorrelated", "correlated"])
 def test_exists_pullup_subplans(o2l2, sql, subplans):
     """The analyzers register the same subplans; a plan with subplans
-    (scalar subqueries) is outside the port and refused by name. The
-    correlated query with the scalar subquery's value written in is the
-    pull-up alone: a semi join, answered on the device."""
+    (scalar subqueries) is the host executor's, in the reference and in
+    the port, and both answer alike. The correlated query with the
+    scalar subquery's value written in is the pull-up alone: a semi
+    join, answered on the device."""
     rs, port, ps = o2l2
     ref_sp = ref_analyze(ref_parse(sql)[0], rs.cluster.catalog)
     sp = analyze_statement(parse(sql)[0], port.catalog)
     assert len(sp.subplans) == len(ref_sp.subplans) == subplans
-    with pytest.raises(NotPorted, match="scalar subqueries"):
-        ps.query(sql)
+    assert ps.query(sql) == rs.query(sql)
+    assert ps.last_route == "host"
     assert _same(o2l2, "select count(*) from o2 where exists "
                  "(select 1 from l2 where lk = ok and p > 1)",
                  "scalar") == [(1,)]

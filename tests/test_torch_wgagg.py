@@ -269,12 +269,19 @@ def _refusal(pair, sql, reason):
 def test_full_range_keys_overflow_the_sentinels(budget):
     """Keys over the full signed 64-bit range (ClickBench's UserIDs)
     reach past the raw-key sentinels: ``ok`` clears, the robust rerun
-    clears it again, and both refuse: the reference's host executor
-    answers there."""
+    clears it again, and both refuse. The session then answers, in both
+    packages: the top ten against numpy, on the fused route at this
+    size; where the fragment program declines too (past 1024 groups),
+    the host executor answers (tests/test_torch_dist.py)."""
     hits = smoke.make_hits(3000, 600, 3)
     pair = _pair1((smoke.CLICKBENCH_DDL,), tables={"hits": hits})
     _refusal(pair, smoke.CLICKBENCH_Q, "wgagg ranking overflow")
     assert pair[1].fused_executor()._dag.last_retries["robust"] == 1
+    rs, _port, ps = pair
+    want = smoke.expected_clickbench(hits)
+    assert ps.query(smoke.CLICKBENCH_Q) == rs.query(smoke.CLICKBENCH_Q) \
+        == want
+    assert ps.last_route == "fused"
 
 
 @pytest.fixture(scope="module")
