@@ -115,7 +115,9 @@ neither jax nor the reference package.
    (default 30: 180 M rows, 2 datanodes) under the default 8 GB
    OTB_SCAN_HBM_BUDGET: each scan streams shard-row windows through the
    fragment program (Q1 in 3 windows, Q6 in 2), one resident at a time,
-   K1 never launched, each exact against numpy.
+   K1 never launched, each exact against numpy; one warm run, one
+   layered run and one traced run each (a cut that keeps the whole
+   script inside its time limit).
 10. main path, the host executor and the distributed loop (no kernel:
    K1 and K2 must launch 0 times on each of these queries): (a) after
    phase 5c's ClickBench, its top-10 UserIDs over the published
@@ -130,7 +132,8 @@ neither jax nor the reference package.
    (phase 8a), after its INSERTs, Q6 and a count of orders. Each exact
    against numpy, with its route and declines, join modes, per
    fragment and node ms and rows, motions, coordinator ms, bytes
-   uploaded, the warm median of ``--repeats`` runs (ClickBench: 2), a
+   uploaded, the warm median of ``--repeats`` runs (ClickBench: 2; at
+   most 2 where the first run took over 1 s, a cut for the time limit), a
    traced run's device busy time and idle share, and peak memory.
 11. the durable server: (a) after phase 9d, lineitem at ``--rows`` in a
    Cluster(num_datanodes=2, data_dir=D) on the card (D under
@@ -165,8 +168,9 @@ neither jax nor the reference package.
    bytes printed). (a) Fused route off: Q6, Q1 as the spec writes it,
    Q3, Q13 and Q18, every fragment in the datanode processes, the
    redistribution of Q3 or Q18 on the peer exchange, each exact against
-   numpy; per query its first and warm times, each fragment's datanode
-   ms and the bytes on the wire. (b) Fused route on: Q6 and Q1 (phase
+   numpy; per query its first and warm times (one warm run for a query
+   whose first run took over 1 s), each fragment's datanode ms and the
+   bytes on the wire. (b) Fused route on: Q6 and Q1 (phase
    4's form) through K1 on the coordinator, one launch each. (c) RF1's
    rows appended in one transaction, committed by implicit 2PC with the
    write set shipped (prepare and commit ms), then count(*) and Q6 read back
@@ -175,6 +179,34 @@ neither jax nor the reference package.
    standby's Q6 and Q1 through K1 (one launch each), and a replica read
    of Q6 on datanode 0's host route. Every process's RSS and device
    memory printed; every child reaped at the end.
+13. self-healing HA, on phase 12's live topology before its teardown:
+   (a) once both datanodes and the standby replayed the WAL's end, the
+   coordinator crashes as HATopology.crash_primary makes it (walsender
+   stopped, datanode pools closed), then commits 64 rows under
+   synchronous_commit = local: a frame that never streams; (b) the
+   failover by HATopology.failover's RPCs: both datanodes pinged, the
+   one with the higher applied offset promoted to generation 1 (a SQL
+   front end and a walsender inside its process, on its device), the
+   other fenced (a ping carrying generation 1) and re-pointed at the
+   promoted walsender, the in-process standby's stream restarted there
+   after probe_timeline; promote ms, promote_lsn, torn bytes and each
+   replica's catch-up printed; (c) over the JSON wire to the promoted
+   process, Q6 and Q1 (phase 4's form, fused route on) exact against
+   numpy after RF1, and a 64-row commit under remote_write, read back
+   exactly on the re-pointed standby and, as a replica read, on the
+   surviving datanode, with none of (a)'s rows anywhere; (d) the
+   ex-primary revived (a ClusterServer, its datanode channels
+   re-attached): a read (fused route off) and a write refused with
+   SQLSTATE 72000, then every statement (demoted); (e) the ex-primary
+   closed and rewound by rejoin_standby onto the promoted timeline, on
+   the card: the bytes truncated (its WAL end less promote_lsn: exactly
+   (a)'s frame), the replay and catch-up seconds; (f) Q6 and Q1 through
+   K1 on the re-pointed standby and on the rewound ex-primary, one
+   launch each, exact; (g) a small HATopology on the card with
+   tests/test_ha.py's configuration: HAMonitor declares the crashed
+   primary dead within detect_ms + detect_ms / beats + 600 ms, the
+   promoted node takes RoutingClient's writes, and every acknowledged
+   row is present.
 """
 
 from __future__ import annotations
@@ -3518,8 +3550,10 @@ def run_chunked(args, device, card: str) -> dict:
                       f"{foot / 1e9:.3f} GB stays under the budget at "
                       f"SF{sf:g}", flush=True)
                 continue
-            out[name] = run_chunked_query(name, cluster, sql, want[q],
-                                          min(args.repeats, 2), card)
+            # one warm run: each takes 6-8 s, and the whole script
+            # must stay inside its time limit
+            out[name] = run_chunked_query(name, cluster, sql, want[q], 1,
+                                          card)
     finally:
         fused.SCAN_HBM_BUDGET = budget
     return out
@@ -3734,8 +3768,10 @@ def host_query(name: str, cluster, sql: str, check, repeats: int,
     by ``check`` (which raises on a wrong one); its route, declines,
     join modes, per fragment and node ms and rows, motions, coordinator
     ms and bytes uploaded printed; then the warm median of ``repeats``
-    runs (each checked), the resident and peak device memory over them,
-    and one traced run's device busy time and idle share. With
+    runs (at most 2 where the first run took over 1 s, a cut that keeps
+    the whole script inside its time limit; each checked), the resident
+    and peak device memory over them, and one traced run's device busy
+    time and idle share. With
     ``fresh_dag`` every run starts from a fresh DAG runner, so each
     takes the first run's route (the runner's retry state would
     otherwise remember a refusal and change the route of later runs)."""
@@ -3768,6 +3804,8 @@ def host_query(name: str, cluster, sql: str, check, repeats: int,
                              "host route")
     check(got)
     ex = s.last_executor
+    if first_ms > 1000:
+        repeats = min(repeats, 2)
     print(f"host path: {name} exact on the host route (declined: "
           f"{'; '.join(s.last_declines)}; join modes {ex.join_modes}; "
           f"scan_agg launches 0, radix_probe launches 0; {len(got)} rows; "
@@ -4703,9 +4741,10 @@ def wait_replicas(cluster, standby, card: str, label: str) -> dict:
 def dn_query(name: str, s, sql: str, check, args, card: str) -> dict:
     """One query on the host route with every fragment in the datanode
     processes: exact (``check``), K1 and K2 launched 0 times here; its
-    first run, the warm median (``--repeats`` runs, 2 where the first
-    took over 1 s), each fragment's datanode ms, rows and wire bytes,
-    the motions (peer: datanode to datanode)."""
+    first run, the warm median (``--repeats`` runs; one where the first
+    took over 1 s, a cut that keeps the whole script inside its time
+    limit), each fragment's datanode ms, rows and wire bytes, the
+    motions (peer: datanode to datanode)."""
     from opentenbase_tpu_torch.ops import radix_probe as rp
     from opentenbase_tpu_torch.ops import scan_agg as sa
 
@@ -4728,7 +4767,7 @@ def dn_query(name: str, s, sql: str, check, args, card: str) -> dict:
     if any(launches.values()):
         raise AssertionError(f"{name}: a kernel launched in the "
                              f"coordinator on the datanode route: {launches}")
-    repeats = args.repeats if first <= 1000 else 2
+    repeats = args.repeats if first <= 1000 else 1
     ts = []
     for _ in range(repeats):
         t0 = time.perf_counter()
@@ -4809,12 +4848,13 @@ def topology_answers(tables: dict) -> dict:
 
 
 def run_topology(tables: dict, args, device, card: str,
-                 answers=None) -> dict:
+                 answers=None, done=None) -> dict:
     """Phase 12: the process topology on the card over phase 5c's SF10
     arrays (see the module's docstring), checked against ``answers``
-    (``topology_answers``; computed here when not given). Every child is
-    reaped and the data directories removed at the end, whatever
-    happened."""
+    (``topology_answers``; computed here when not given); then phase
+    13 on the same live topology (``run_failover``), ``done`` called
+    between them. Every child is reaped and the data directories
+    removed at the end, whatever happened."""
     import shutil
 
     import torch
@@ -4999,8 +5039,27 @@ def run_topology(tables: dict, args, device, card: str,
               f"[{card}]", flush=True)
         out["replica_read_ms"] = ms
         out["memory"]["end"] = memory_report("at the end", cluster, card)
+        if done is not None:
+            done("process topology (phase 12)")
+
+        # phase 13: self-healing HA on the same topology; it closes the
+        # ex-primary itself (``live`` is emptied), so the teardown below
+        # finds only what is still open
+        live = {"cluster": cluster, "session": s, "sender": sender}
+        del s
+        cluster = sender = None
+        try:
+            fo = run_failover(live, standby, ports, d,
+                              {"Q6": want_q6, "Q1": want_q1}, args, device,
+                              card)
+        finally:
+            cluster, sender = live.get("cluster"), live.get("sender")
+            del live
+        out["queries"].update(fo.pop("queries"))
+        out["failover"] = fo
         return out
     finally:
+        t0 = time.perf_counter()
         if cluster is not None:
             for node in list(cluster.dn_channels):
                 cluster.detach_datanode(node)
@@ -5009,6 +5068,7 @@ def run_topology(tables: dict, args, device, card: str,
                 proc.terminate()
         for proc in procs:
             _stop(proc)
+        t1 = time.perf_counter()
         if standby is not None:
             standby.close()
         if sender is not None:
@@ -5018,6 +5078,369 @@ def run_topology(tables: dict, args, device, card: str,
         del cluster, standby, sender
         gc.collect()
         torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        shutil.rmtree(d, ignore_errors=True)
+        print(f"topology: teardown: datanode processes reaped in "
+              f"{t1 - t0:.3f} s (exit codes {[p.returncode for p in procs]}),"
+              f" standby and coordinator closed in {t2 - t1:.3f} s, data "
+              f"removed in {time.perf_counter() - t2:.3f} s", flush=True)
+
+
+# phase 13: the rows of (a)'s dead-timeline write and (c)'s acknowledged
+# commit, told apart from phase 12 (d)'s by their keys
+DEAD_KEYS = range(1_000_000, 1_000_064)
+ACKED_KEYS = range(2_000_000, 2_000_064)
+# tests/test_ha.py's topology configuration, for (g)
+HA_CONF = {"enable_fused_execution": "off", "synchronous_commit": "on",
+           "failover_detect_ms": 1000, "failover_beats": 3,
+           "fragment_retries": 1, "fragment_retry_backoff_ms": 5,
+           "statement_timeout": 8000}
+HA_ROWS = 4000  # (g)'s table: (a)-(f) carry SF10
+
+
+def dn_rpc(port: int, msg: dict, timeout_s: float = 600.0) -> dict:
+    """One RPC to a datanode process on a channel of its own."""
+    from opentenbase_tpu_torch.net.pool import Channel
+
+    ch = Channel("127.0.0.1", port, timeout=timeout_s, connect_retries=1)
+    try:
+        return ch.rpc(msg, timeout_s=timeout_s)
+    finally:
+        ch.close()
+
+
+def wait_applied(label: str, applied, target: int) -> float:
+    """Seconds until ``applied()`` reached ``target`` (raises past
+    TOPOLOGY_CATCHUP_S)."""
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + TOPOLOGY_CATCHUP_S
+    while applied() < target:
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{label}: applied {applied()} short of "
+                               f"{target}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def sync_probe_rows(query) -> dict:
+    """sync_probe's count and sum, and its rows of (a)'s dead-timeline
+    write and of (c)'s acknowledged commit, through ``query``."""
+    (n, v), = [tuple(r) for r in query(
+        "select count(*), sum(v) from sync_probe")]
+    (dead,), = [tuple(r) for r in query(
+        f"select count(*) from sync_probe where k >= {DEAD_KEYS.start} "
+        f"and k < {DEAD_KEYS.stop}")]
+    (acked,), = [tuple(r) for r in query(
+        f"select count(*) from sync_probe where k >= {ACKED_KEYS.start} "
+        f"and k < {ACKED_KEYS.stop}")]
+    return {"rows": n, "sum": v, "dead": dead, "acked": acked}
+
+
+def run_failover(live: dict, standby, ports: list, d: str, wants: dict,
+                 args, device, card: str) -> dict:
+    """Phase 13 on phase 12's live topology (see the module docstring).
+    ``live`` holds the coordinator ("cluster", "session") and its
+    walsender ("sender"): (e) closes the ex-primary and drops all
+    three (the sender holds the cluster), so the caller's teardown
+    finds only what is still open and the ex-primary's memory is free
+    before its rewind. The rewound ex-primary is closed here, whatever
+    happens."""
+    import torch
+
+    from opentenbase_tpu_torch.ha import _probe_ping
+    from opentenbase_tpu_torch.net.client import WireError, connect_tcp
+    from opentenbase_tpu_torch.net.server import ClusterServer
+    from opentenbase_tpu_torch.storage.replication import (
+        probe_timeline,
+        rejoin_standby,
+    )
+
+    cluster, s, sender = live["cluster"], live["session"], live["sender"]
+    out: dict = {"queries": {}}
+    rejoined = srv = None
+    try:
+        # (a) the replicas hold the coordinator's WAL end; the crash as
+        # HATopology.crash_primary makes it (the walsender stopped, the
+        # datanode pools closed; detached, so the write below commits on
+        # the crashed process's own stores); then a write that never
+        # streams
+        wait_replicas(cluster, standby, card, "before the crash")
+        sender.stop()
+        for node in list(cluster.dn_channels):
+            cluster.detach_datanode(node)
+        before = sync_probe_rows(s.query)
+        s.execute("set synchronous_commit = local")
+        pos0 = cluster.persistence.wal.position
+        s.execute("insert into sync_probe values " + ",".join(
+            f"({k}, 7)" for k in DEAD_KEYS))
+        ex_end = cluster.persistence.wal.position
+        print(f"topology: failover (a): coordinator crashed (walsender "
+              f"stopped, datanode pools closed); a 64-row commit under "
+              f"synchronous_commit = local after it, WAL {pos0} -> "
+              f"{ex_end} ({ex_end - pos0} bytes that never stream) "
+              f"[{card}]", flush=True)
+
+        # (b) failover by HATopology.failover's RPCs
+        pings = [dn_rpc(p, {"op": "ping"}, 30.0) for p in ports]
+        cands = sorted(((int(pg["applied"]), i) for i, pg in
+                        enumerate(pings)), reverse=True)
+        new = cands[0][1]
+        other = 1 - new
+        t0 = time.perf_counter()
+        resp = dn_rpc(ports[new], {"op": "promote", "generation": 1,
+                                   "hgen": 1})
+        promote_ms = (time.perf_counter() - t0) * 1000
+        if resp.get("generation") != 1 or not resp.get("wal_port"):
+            raise AssertionError(f"promote: {resp}")
+        sql_port, wal_port = int(resp["port"]), int(resp["wal_port"])
+        promote_lsn = int(resp["promote_lsn"])
+        if promote_lsn != pos0:
+            raise AssertionError(f"promote_lsn {promote_lsn}: the replicas "
+                                 f"had applied {pos0}")
+        t0 = time.perf_counter()
+        dn_rpc(ports[other], {"op": "ping", "hgen": 1}, 30.0)
+        rp = dn_rpc(ports[other], {"op": "repl_repoint",
+                                   "wal_host": "127.0.0.1",
+                                   "wal_port": wal_port, "hgen": 1})
+        repoint_ms = (time.perf_counter() - t0) * 1000
+        if not rp.get("ok") or rp.get("rewound"):
+            raise AssertionError(f"repl_repoint: {rp}")
+        gen, base = probe_timeline("127.0.0.1", wal_port)
+        if (gen, base) != (1, promote_lsn) or standby.applied > base:
+            raise AssertionError(f"timeline ({gen}, {base}), standby at "
+                                 f"{standby.applied}")
+        t0 = time.perf_counter()
+        standby.restart_replication("127.0.0.1", wal_port)
+        restart_ms = (time.perf_counter() - t0) * 1000
+        new_end = int(_probe_ping("127.0.0.1", sql_port, 30.0)["applied"])
+        catch = {
+            f"dn{other}": wait_applied(f"dn{other}", lambda: int(dn_rpc(
+                ports[other], {"op": "ping"}, 30.0)["applied"]), new_end),
+            "standby": wait_applied("standby", lambda: standby.applied,
+                                    new_end)}
+        if standby.cluster.node_generation != 1:
+            raise AssertionError("the standby did not replay the "
+                                 "ha_generation record")
+        print(f"topology: failover (b): datanodes applied "
+              f"{[c[0] for c in sorted(cands, key=lambda c: c[1])]}; "
+              f"dn{new} promoted to generation 1 in {promote_ms:.3f} ms "
+              f"(promote_lsn {promote_lsn}, torn tail "
+              f"{resp.get('torn_bytes')} bytes, SQL port {sql_port}, "
+              f"walsender {wal_port}); dn{other} fenced and re-pointed in "
+              f"{repoint_ms:.3f} ms, the standby's stream restarted in "
+              f"{restart_ms:.3f} ms after probe_timeline; caught up to the "
+              f"new timeline's end {new_end}: " + "; ".join(
+                  f"{k} {v:.3f} s" for k, v in catch.items())
+              + f" [{card}]", flush=True)
+        out.update(promote_ms=promote_ms, promote_lsn=promote_lsn,
+                   torn_bytes=resp.get("torn_bytes"), repoint_ms=repoint_ms,
+                   catchup_s=catch, promoted=new)
+
+        # (c) the promoted node serves over the JSON wire
+        conn = connect_tcp("127.0.0.1", sql_port, timeout=900)
+        try:
+            for name, sql in (("Q6", Q6), ("Q1", Q1)):
+                ts = []
+                for _ in range(1 + args.repeats):
+                    t0 = time.perf_counter()
+                    got = conn.query(sql)
+                    ts.append((time.perf_counter() - t0) * 1000)
+                    if got != wants[name]:
+                        raise AssertionError(f"promoted {name}: {got} != "
+                                             f"{wants[name]}")
+                out[f"promoted {name} ms"] = {
+                    "first": ts[0], "warm": statistics.median(ts[1:])}
+                print(f"topology: failover (c): TPC-H {name} on the "
+                      f"promoted dn{new} over the JSON wire exact, fused "
+                      f"route on; first {ts[0]:.3f} ms incl. its upload, "
+                      f"warm median {statistics.median(ts[1:]):.3f} ms over "
+                      f"{args.repeats} [{card}]", flush=True)
+            conn.execute("set synchronous_commit = remote_write")
+            t0 = time.perf_counter()
+            res = conn.execute("insert into sync_probe values " + ",".join(
+                f"({k}, 9)" for k in ACKED_KEYS))
+            commit_ms = (time.perf_counter() - t0) * 1000
+            promoted_rows = sync_probe_rows(conn.query)
+        finally:
+            conn.close()
+        want_rows = {"rows": before["rows"] + 64,
+                     "sum": before["sum"] + 9 * 64, "dead": 0, "acked": 64}
+        t0 = time.perf_counter()
+        wait_applied("standby", lambda: standby.applied, res.wal_pos)
+        reads = {"promoted": promoted_rows,
+                 "re-pointed standby": sync_probe_rows(
+                     standby.session().query),
+                 f"dn{other} (replica read)": sync_probe_rows(
+                     lambda q: dn_rpc(ports[other], {
+                         "op": "query", "sql": q,
+                         "min_lsn": res.wal_pos}, 60.0)["rows"])}
+        readback_s = time.perf_counter() - t0
+        for where, got in reads.items():
+            if got != want_rows:
+                raise AssertionError(f"sync_probe on {where}: {got}, want "
+                                     f"{want_rows}")
+        print(f"topology: failover (c): a 64-row commit on the promoted "
+              f"node under synchronous_commit = remote_write {commit_ms:.3f} "
+              f"ms (WAL {res.wal_pos}); read back exactly on the "
+              f"re-pointed standby and on dn{other} in {readback_s:.3f} s; "
+              f"(a)'s rows nowhere: {reads} [{card}]", flush=True)
+        out["remote_write_ms"] = commit_ms
+
+        # (d) the revived ex-primary is fenced
+        for node, port in enumerate(ports):
+            cluster.attach_datanode(node, "127.0.0.1", port, pool_size=2,
+                                    rpc_timeout=900)
+        srv = ClusterServer(cluster).start()
+        stale = connect_tcp("127.0.0.1", srv.port, timeout=900)
+        states = []
+        try:
+            stale.execute("set enable_fused_execution = off")
+            for sql in ("select count(*) from sync_probe",
+                        "insert into sync_probe values (5, 5)"):
+                try:
+                    stale.execute(sql)
+                    states.append("served")
+                except WireError as e:
+                    states.append(e.sqlstate)
+        finally:
+            stale.close()
+        try:
+            s.execute("select count(*) from sync_probe")
+            states.append("served")
+        except Exception as e:
+            states.append(getattr(e, "sqlstate", type(e).__name__))
+        if states != ["72000"] * 3 or not cluster.ha_demoted:
+            raise AssertionError(f"the ex-primary: {states}, demoted "
+                                 f"{cluster.ha_demoted}")
+        print(f"topology: failover (d): the revived ex-primary's read and "
+              f"write refused with {states[:2]}, then every statement "
+              f"({states[2]}; demoted, {cluster.ha_stats['fenced_refusals']}"
+              f" refusals counted) [{card}]", flush=True)
+
+        # (e) the ex-primary's rewind, on the card
+        srv.stop()
+        srv = None
+        for node in list(cluster.dn_channels):
+            cluster.detach_datanode(node)
+        cluster.close()
+        live.clear()
+        del cluster, s, sender
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rejoined = rejoin_standby(os.path.join(d, "cn"), "127.0.0.1",
+                                  wal_port, 2, device=device)
+        rejoin_s = time.perf_counter() - t0
+        end = int(_probe_ping("127.0.0.1", sql_port, 30.0)["applied"])
+        catch_s = wait_applied("rewound ex-primary",
+                               lambda: rejoined.applied, end)
+        if rejoined.truncated_bytes != ex_end - promote_lsn:
+            raise AssertionError(f"rewind truncated "
+                                 f"{rejoined.truncated_bytes} bytes, the "
+                                 f"dead timeline is {ex_end - promote_lsn}")
+        got = sync_probe_rows(rejoined.session().query)
+        if got != want_rows or rejoined.cluster.node_generation != 1:
+            raise AssertionError(f"rewound ex-primary: {got}")
+        print(f"topology: failover (e): the ex-primary rewound "
+              f"{rejoined.truncated_bytes} bytes (its WAL end {ex_end} less "
+              f"promote_lsn {promote_lsn}: (a)'s frame) and rejoined as a "
+              f"standby on {rejoined.cluster.device}: rejoin "
+              f"{rejoin_s:.3f} s (local replay {rejoined.replay_s:.3f} s), "
+              f"caught up to {end} {catch_s:.3f} s later; sync_probe "
+              f"{got} [{card}]", flush=True)
+        out.update(rewound_bytes=rejoined.truncated_bytes, rejoin_s=rejoin_s,
+                   replay_s=rejoined.replay_s, rejoin_catchup_s=catch_s)
+
+        # (f) K1 on the healed topology
+        for where, sb in (("re-pointed standby", standby),
+                          ("rewound ex-primary", rejoined)):
+            rs = sb.session()
+            for name, sql in (("Q6", Q6), ("Q1", Q1)):
+                out["queries"][f"failover {name} ({where}, fused)"] = (
+                    k1_query(f"TPC-H {name} on the {where}", rs, sql,
+                             wants[name], args, card))
+
+        # (g) the failure detector on the card
+        out["detector"] = run_ha_detector(os.path.join(d, "ha"), device,
+                                          card)
+        return out
+    finally:
+        if srv is not None:
+            srv.stop()
+        if rejoined is not None:
+            rejoined.close()
+        del rejoined
+        gc.collect()
+
+
+def run_ha_detector(d: str, device, card: str) -> dict:
+    """Phase 13 (g): a small HATopology on the card with the reference
+    test's configuration; the monitor promotes within its detection
+    budget after crash_primary, and RoutingClient writes resume with
+    every acknowledged row present."""
+    import shutil
+
+    import torch
+
+    from opentenbase_tpu_torch.ha import HAMonitor, HATopology, RoutingClient
+
+    shutil.rmtree(d, ignore_errors=True)
+    topo = HATopology(d, num_datanodes=2, shard_groups=16,
+                      conf_gucs=HA_CONF, device=device)
+    mon = None
+    rc = RoutingClient(topo)
+    try:
+        rc.execute("create table ha (k bigint, v bigint) "
+                   "distribute by shard(k)")
+        acked = []
+        for lo in range(0, HA_ROWS, 500):
+            rc.execute("insert into ha values " + ",".join(
+                f"({k}, {k % 97})" for k in range(lo, lo + 500)))
+            acked += range(lo, lo + 500)
+        mon = HAMonitor(topo).start()
+        t_crash = time.time()
+        topo.crash_primary()
+        resumed = None
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            try:
+                rc.execute(f"insert into ha values ({HA_ROWS}, 0)")
+                resumed = time.time()
+                break
+            except Exception:
+                time.sleep(0.05)
+        if resumed is None or mon.declared_dead_at is None:
+            raise AssertionError(f"writes never resumed: {topo.events}")
+        detect_ms = (mon.declared_dead_at - t_crash) * 1000
+        budget = mon.detect_ms + mon.detect_ms / mon.beats + 600
+        promoted = next(e for e in topo.events if e["kind"] == "promoted")
+        promote_ms = (promoted["t"] - t_crash) * 1000
+        keys = {r[0] for r in rc.query("select k from ha")}
+        kinds = [e["kind"] for e in topo.events]
+        if (detect_ms > budget or mon.promotions != 1
+                or not set(acked) | {HA_ROWS} <= keys
+                or topo.active_cluster.device != torch.device(device)):
+            raise AssertionError(f"detector: {detect_ms:.1f} ms (budget "
+                                 f"{budget:.1f}), promotions "
+                                 f"{mon.promotions}, {len(keys)} keys, "
+                                 f"{kinds}")
+        print(f"topology: failover (g): HATopology on "
+              f"{topo.active_cluster.device}, {HA_ROWS} rows under "
+              f"synchronous_commit = on; the monitor declared the primary "
+              f"dead {detect_ms:.1f} ms after the crash (budget "
+              f"{budget:.1f} ms), dn{topo.promoted_index} promoted "
+              f"{promote_ms:.1f} ms after it, writes resumed "
+              f"{(resumed - t_crash) * 1000:.1f} ms after it; every "
+              f"acknowledged row present ({len(keys)}); events {kinds} "
+              f"[{card}]", flush=True)
+        return {"detect_ms": detect_ms, "budget_ms": budget,
+                "promote_ms": promote_ms,
+                "resume_ms": (resumed - t_crash) * 1000}
+    finally:
+        rc.close()
+        if mon is not None:
+            mon.stop()
+        topo.stop()
         shutil.rmtree(d, ignore_errors=True)
 
 
@@ -5164,9 +5587,11 @@ def main(argv=None) -> int:
     # phase 12: phase 5c's arrays in the process topology (last: its
     # 4.4 GB of WAL a replica and three processes on the card touch
     # nothing after it)
-    topology = run_topology(q3_tables, args, device, card, q3_answers)
+    # phase 13: self-healing HA on phase 12's live topology
+    topology = run_topology(q3_tables, args, device, card, q3_answers,
+                            done=done)
     del q3_tables, q3_answers
-    done("process topology (phase 12)")
+    done("self-healing HA (phase 13)")
     # K1's and K2's launches in every path's run, the new queries too
     path_launches = {
         "scan_agg": {**launches_tpch, **ssb_run["k1_launches"],
@@ -5296,6 +5721,7 @@ def main(argv=None) -> int:
                           "rf1": topology["rf1"], "sync_ms": topology["sync"],
                           "replica_read_ms": topology["replica_read_ms"],
                           "fs": topology["fs"]},
+                      "failover": topology["failover"],
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

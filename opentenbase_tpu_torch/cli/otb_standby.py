@@ -12,9 +12,9 @@ read-only SQL on --serve-port (the JSON wire), on cuda:0 unless
 start). The control port takes line commands:
 
     status   -> JSON {role, applied, read_only}
+    promote  -> pg_ctl promote: the standby goes read-write (its SQL port
+                then takes writes); JSON {promoted: true}
     stop     -> clean shutdown
-
-``promote`` answers an error: promotion (HA) is not ported.
 """
 
 from __future__ import annotations
@@ -68,10 +68,13 @@ def main(argv=None) -> int:
             for line in f:
                 cmd = line.strip()
                 if cmd == "status":
-                    reply = {"role": "standby", "applied": sb.applied,
+                    reply = {"role": "primary" if sb.promoted
+                             else "standby", "applied": sb.applied,
                              "read_only": sb.cluster.read_only}
                 elif cmd == "promote":
-                    reply = {"error": "NotPorted: promote (HA)"}
+                    if not sb.promoted:
+                        sb.promote()
+                    reply = {"promoted": True}
                 elif cmd == "stop":
                     reply = {"stopping": True}
                 else:

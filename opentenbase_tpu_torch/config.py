@@ -1,0 +1,197 @@
+"""Settings and the configuration file (the reference's
+opentenbase_tpu/config.py, cut to the settings the port acts on).
+
+A cluster with a data directory reads ``<data_dir>/opentenbase.conf``
+(``name = value`` lines, ``#`` comments) into ``Cluster.conf_gucs``:
+the session defaults of the settings below, and the HA controller's
+(ha.py) detection, lease and hysteresis budgets. Each value is
+validated as the reference validates it. A setting the reference knows
+and the port does not act on is refused by name (``NotPorted``) when
+the cluster is built, so a conf file never quietly means less than it
+says; an unknown name is an error unless it is namespaced with a dot
+(PostgreSQL's custom-variable rule).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from opentenbase_tpu_torch.errors import NotPorted
+
+
+class GucError(ValueError):
+    pass
+
+
+def _bool(v):
+    if isinstance(v, bool):
+        return v
+    s = str(v).lower()
+    if s in ("true", "on", "yes", "1"):
+        return True
+    if s in ("false", "off", "no", "0"):
+        return False
+    raise GucError(f"invalid boolean: {v!r}")
+
+
+def _int(v):
+    if isinstance(v, bool):
+        raise GucError(f"invalid integer: {v!r}")
+    try:
+        return int(v)
+    except (TypeError, ValueError):
+        raise GucError(f"invalid integer: {v!r}") from None
+
+
+_DURATION_UNITS = {"us": 0.001, "ms": 1, "s": 1000, "min": 60000, "h": 3600000}
+
+
+def _duration(v):
+    """int milliseconds, or a PG duration string ('150ms', '2s')."""
+    if isinstance(v, bool):
+        raise GucError(f"invalid duration: {v!r}")
+    if isinstance(v, (int, float)):
+        return int(v)
+    s = str(v).strip()
+    for unit, mult in sorted(
+        _DURATION_UNITS.items(), key=lambda kv: -len(kv[0])
+    ):
+        if s.endswith(unit):
+            num = s[: -len(unit)].strip()
+            try:
+                return int(float(num) * mult)
+            except ValueError:
+                break
+    try:
+        return int(s)
+    except ValueError:
+        raise GucError(f"invalid duration: {v!r}") from None
+
+
+def _enum(*allowed):
+    def f(v):
+        if isinstance(v, bool):
+            v = "on" if v else "off"
+        s = str(v).lower()
+        if s not in allowed:
+            raise GucError(f"must be one of {allowed}, got {v!r}")
+        return s
+
+    return f
+
+
+# name -> (validator, default), the reference's entries for the
+# settings the port acts on
+GUCS: dict = {
+    "enable_fused_execution": (_bool, True),
+    # TLS is not ported: only "off" is taken (otb_server refuses "on"
+    # by name before it builds a cluster)
+    "ssl": (_bool, False),
+    "statement_timeout": (_duration, 0),
+    # self-healing reads (executor/dist.py): extra attempts for a failed
+    # remote read fragment before it fails over to the coordinator's
+    # own stores; writes never retry
+    "fragment_retries": (_int, 2),
+    "fragment_retry_backoff_ms": (_duration, 25),
+    # the HA controller (ha.py): the monitor probes every
+    # failover_detect_ms / failover_beats and promotes after
+    # failover_beats consecutive missed beats
+    "failover_detect_ms": (_duration, 3000),
+    "failover_beats": (_int, 3),
+    # the serving lease (ha.ServingLease); 0 = leases off
+    "lease_ttl_ms": (_duration, 0),
+    "lease_skew_ms": (_duration, 100),
+    "failover_retry_max_ms": (_duration, 10000),
+    "failover_cooldown_ms": (_duration, 2000),
+    "synchronous_commit": (
+        _enum("off", "local", "remote_write", "on"), "local",
+    ),
+    "enable_group_commit": (_bool, True),
+    "commit_delay_us": (_int, 0),
+    "commit_siblings": (_int, 5),
+}
+
+# the reference's settings the port does not act on
+NOT_ACTED_ON = frozenset((
+    "ssl_cert_file", "ssl_key_file", "enable_pallas_scan",
+    "enable_pallas_join", "join_mode", "device_memory_limit",
+    "enable_fast_query_shipping", "dn_parallel_workers", "lock_timeout",
+    "deadlock_timeout", "work_mem", "resource_group", "wlm_queue_timeout",
+    "search_path", "session_authorization", "role", "application_name",
+    "client_min_messages", "log_min_messages", "log_destination",
+    "log_directory", "metrics_port", "auto_explain_min_duration_ms",
+    "enable_stat_statements", "stat_statements_max",
+    "log_min_duration_statement", "enable_plan_cache", "plan_cache_size",
+    "enable_result_cache", "result_cache_size", "enable_matview_rewrite",
+    "trace_queries", "expected_device_platform", "fault_injection",
+    "gtm_standby_addr", "enable_bulk_insert_rewrite",
+    "delta_compaction_naptime_ms", "enable_delta_scan",
+    "rebalance_rate_limit", "read_routing", "max_staleness",
+    "replica_read_fallback", "replica_read_wait_ms", "autovacuum",
+    "autovacuum_naptime_s", "autovacuum_scale_factor_pct",
+))
+
+
+def validate(name: str, value):
+    """The validated value; a namespaced name ('ext.knob') passes as
+    is, a setting the port does not act on raises ``NotPorted``."""
+    entry = GUCS.get(name)
+    if entry is None:
+        if name in NOT_ACTED_ON:
+            raise NotPorted(f"setting {name}")
+        if "." not in name:
+            raise GucError(f'unrecognized configuration parameter "{name}"')
+        return value
+    fn, _default = entry
+    return fn(value)
+
+
+def load_conf(data_dir: Optional[str]) -> dict:
+    """Read <data_dir>/opentenbase.conf: ``name = value`` per line, '#'
+    comments, validated on load."""
+    out: dict = {}
+    if not data_dir:
+        return out
+    path = os.path.join(data_dir, "opentenbase.conf")
+    if not os.path.exists(path):
+        return out
+    with open(path) as f:
+        for lineno, raw in enumerate(f, 1):
+            line = raw.split("#", 1)[0].strip()
+            if not line:
+                continue
+            if "=" not in line:
+                raise GucError(
+                    f"{path}:{lineno}: expected name = value, got {raw!r}"
+                )
+            name, _, value = line.partition("=")
+            name = name.strip()
+            value = value.strip().strip("'\"")
+            out[name] = validate(name, value)
+    if out.get("ssl"):
+        raise NotPorted("TLS (ssl = on)")
+    _check_lease_budget(out, path)
+    return out
+
+
+def _check_lease_budget(conf: dict, path: str) -> None:
+    """With leases on, the failure-detection budget must exceed the
+    lease TTL plus skew: failover waits out the old lease before it
+    flips routing, which holds only when a partitioned primary's lease
+    lapses before the monitor can promote a successor."""
+    ttl = int(conf.get("lease_ttl_ms", GUCS["lease_ttl_ms"][1]) or 0)
+    if ttl <= 0:
+        return
+    detect = int(
+        conf.get("failover_detect_ms", GUCS["failover_detect_ms"][1])
+    )
+    beats = int(conf.get("failover_beats", GUCS["failover_beats"][1]))
+    skew = int(conf.get("lease_skew_ms", GUCS["lease_skew_ms"][1]))
+    if detect * beats <= ttl + skew:
+        raise GucError(
+            f"{path}: failover_detect_ms ({detect}) x failover_beats "
+            f"({beats}) must exceed lease_ttl_ms ({ttl}) + "
+            f"lease_skew_ms ({skew}) — a primary's lease must lapse "
+            f"before a successor can be promoted"
+        )

@@ -15,14 +15,21 @@ A datanode process is
   write set (fsynced with it), ``2pc_commit`` applies the journal ahead
   of the stream, exactly once against the stream's gid-tagged frame;
 - a peer-exchange endpoint: producer fragments push their partitions
-  straight to the consumer datanodes (``exch_put``).
+  straight to the consumer datanodes (``exch_put``);
+- a promotion candidate (self-healing HA, ha.py): ``promote`` turns its
+  standby into a read-write coordinator with a SQL front end and a
+  walsender in this process, on its device; ``repl_repoint`` re-points
+  a surviving standby at the promoted walsender (rewinding a diverged
+  one); every op may carry the caller's fencing generation
+  (``hgen``), and a caller behind this node's generation is refused
+  with SQLSTATE 72000 (``fenced``); ``lease_grant`` records a
+  coordinator's serving lease.
 
 Ops: ping, query (a replica read), exec_fragment, cancel_fragment,
-exch_put, exch_take, 2pc_prepare, 2pc_commit, 2pc_abort, 2pc_list.
-Refused by name: the failpoints (fault_*), the log and trace rings
-(log_fetch, trace_fetch), HA (lease_grant, promote, repl_repoint),
-rebalance (rebalance_*) and within-fragment parallel workers
-(``parallel`` > 1).
+exch_put, exch_take, 2pc_prepare, 2pc_commit, 2pc_abort, 2pc_list,
+lease_grant, promote, repl_repoint. Refused by name: the failpoints
+(fault_*), the log and trace rings (log_fetch, trace_fetch), rebalance
+(rebalance_*) and within-fragment parallel workers (``parallel`` > 1).
 
 Run as a module (on cuda:0 unless ``--device`` says otherwise; with no
 CUDA and no ``--device cpu`` it refuses to start):
@@ -57,8 +64,7 @@ log = logging.getLogger(__name__)
 _REFUSED = {
     "fault_arm": "failpoints", "fault_clear": "failpoints",
     "fault_stats": "failpoints", "log_fetch": "the datanode log ring",
-    "trace_fetch": "the datanode trace ring", "lease_grant": "HA",
-    "promote": "HA", "repl_repoint": "HA",
+    "trace_fetch": "the datanode trace ring",
     "rebalance_apply": "rebalance", "rebalance_finalize": "rebalance",
 }
 
@@ -81,6 +87,11 @@ class DNServer:
     ):
         from opentenbase_tpu_torch.storage.replication import StandbyCluster
 
+        # kept for the repoint's rewind: a diverged survivor rebuilds its
+        # standby over the same data directory
+        self._data_dir = data_dir
+        self._num_datanodes = num_datanodes
+        self._shard_groups = shard_groups
         self.standby = StandbyCluster(data_dir, num_datanodes, shard_groups,
                                       device=device)
         self.device = self.standby.cluster.device
@@ -109,6 +120,17 @@ class DNServer:
                 self._on_stream_txn(header["gid"])
         self.standby.stream_txn_hook = self._on_stream_txn
         self.standby.start_replication(wal_host, wal_port)
+        # self-healing HA: the promoted front end and walsender (None
+        # until ``promote``), the fencing generation learned from wire
+        # ops (a monotone maximum; the stream-learned half is the
+        # standby cluster's node_generation), and the serving-lease
+        # grants: holder -> (generation, monotonic deadline)
+        self._promoted_srv = None
+        self._promoted_walsender = None
+        self._promote_mu = threading.Lock()
+        self._hgen = 0
+        self._leases: dict = {}
+        self._lease_mu = threading.Lock()
         # tokens the coordinator abandoned (insertion-ordered, bounded)
         self._cancelled: dict = {}
         self._cancel_mu = threading.Lock()
@@ -119,6 +141,10 @@ class DNServer:
         self._lsock.listen(32)
         self.host, self.port = self._lsock.getsockname()
         self._stop = threading.Event()
+        # accepted connections: stop() severs them as a dying process
+        # would, so no pooled channel is answered after it
+        self._conns: set = set()
+        self._conns_mu = threading.Lock()
 
     def start(self) -> "DNServer":
         threading.Thread(target=self._accept_loop, daemon=True).start()
@@ -127,6 +153,13 @@ class DNServer:
     def stop(self) -> None:
         self._stop.set()
         shutdown_and_close(self._lsock)
+        with self._conns_mu:
+            conns, self._conns = list(self._conns), set()
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
         with self._peer_mu:
             for pool in self._peer_pools.values():
                 try:
@@ -134,6 +167,14 @@ class DNServer:
                 except Exception:
                     pass
             self._peer_pools.clear()
+        with self._promote_mu:
+            promoted = (self._promoted_srv, self._promoted_walsender)
+        for part in promoted:
+            if part is not None:
+                try:
+                    part.stop()
+                except Exception:
+                    pass
         self.standby.stop()
 
     def _accept_loop(self) -> None:
@@ -143,6 +184,11 @@ class DNServer:
             except OSError:
                 return
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            with self._conns_mu:
+                if self._stop.is_set():
+                    conn.close()
+                    return
+                self._conns.add(conn)
             threading.Thread(target=self._serve, args=(conn,),
                              daemon=True).start()
 
@@ -163,10 +209,14 @@ class DNServer:
                                 msg.get("op"), type(e).__name__, e)
                     frame = encode_frame(
                         {"error": f"{type(e).__name__}: {e}"})
+                if self._stop.is_set():
+                    break  # a stopped node answers nothing more
                 conn.sendall(frame)
         except OSError:
             pass
         finally:
+            with self._conns_mu:
+                self._conns.discard(conn)
             try:
                 conn.close()
             except OSError:
@@ -180,6 +230,37 @@ class DNServer:
         op = msg.get("op")
         if op in _REFUSED:
             return {"error": f"NotPorted: {op} ({_REFUSED[op]})"}
+        # the fencing gate: a caller behind this node's generation is a
+        # stale ex-primary partitioned through a promotion, refused so
+        # that it demotes; a caller ahead advances the learned one
+        hg = msg.get("hgen")
+        if hg is not None:
+            hg = int(hg)
+            cur = self.effective_generation()
+            if hg < cur:
+                self._bump("fenced_refusals")
+                log.warning("fenced stale-generation op %r (caller %d < "
+                            "node %d)", op, hg, cur)
+                return {
+                    "error": (f"stale generation: {op} carries generation "
+                              f"{hg} but this node follows generation "
+                              f"{cur}; caller must demote and resync"),
+                    "fenced": True, "gen": cur, "sqlstate": "72000",
+                }
+            with self._promote_mu:  # never regress under a race
+                if hg > self._hgen:
+                    self._hgen = hg
+        if op == "lease_grant":
+            # below the gate: a stale generation's renewal is refused
+            # fenced, which is how a partitioned ex-primary learns it
+            # must demote
+            holder = str(msg.get("holder") or "cn0")
+            ttl_ms = int(msg.get("ttl_ms") or 0)
+            with self._lease_mu:
+                self._leases[holder] = (int(msg.get("hgen") or 0),
+                                        time.monotonic() + ttl_ms / 1000.0)
+            self._bump("lease_grants")
+            return {"ok": True}
         if op == "cancel_fragment":
             tok = str(msg.get("token") or "")
             with self._cancel_mu:
@@ -193,7 +274,10 @@ class DNServer:
             with self._stats_mu:
                 st = dict(self.stats)
                 inflight = self._inflight
-            return {
+            gen = self.effective_generation()
+            with self._promote_mu:
+                promoted = self._promoted_srv
+            out = {
                 "ok": True, "applied": self.standby.applied,
                 "dml_stats": st, "inflight": inflight,
                 "repl_addr": self.standby.repl_addr,
@@ -201,9 +285,36 @@ class DNServer:
                 "device": str(self.device),
                 "rss_bytes": _rss_bytes(),
                 "device_peak_bytes": _device_peak(self.device),
+                "generation": gen,
+                "lease_remaining_ms": self._stale_lease_remaining_ms(gen),
+                "role": "coordinator" if promoted is not None
+                else "datanode",
             }
+            if promoted is not None:
+                out["promoted"] = True
+                out["coordinator_port"] = promoted.port
+            return out
         if op == "query":
+            # above the promoted fence: a promoted node's data is still
+            # the freshest copy, so replica reads keep working
             return self._query(msg)
+        if op == "promote":
+            return self._promote(msg)
+        if op == "repl_repoint":
+            return self._repoint(msg)
+        with self._promote_mu:
+            promoted = self._promoted_srv
+        if promoted is not None:
+            # a promoted node owns its data read-write: replication-role
+            # ops from a partitioned old coordinator would write behind
+            # the new primary's back
+            return {
+                "error": "stale generation: datanode has been promoted "
+                "to coordinator; replication-role ops refused — caller "
+                "must demote and resync",
+                "fenced": True, "gen": self.effective_generation(),
+                "sqlstate": "72000",
+            }
         if op == "exec_fragment":
             return self._exec_fragment(msg)
         if op == "2pc_prepare":
@@ -307,6 +418,14 @@ class DNServer:
 
         c = self.standby.cluster
         with c._exec_lock:
+            # the fence again, under the lock promote() bumps the
+            # generation under: a phase 2 from the deposed generation
+            # that lost the race must not write a row the promoted WAL
+            # never carries
+            hg = msg.get("hgen")
+            if hg is not None and int(hg) < self.effective_generation():
+                self._bump("fenced_refusals")
+                return False
             if (gid in self._stream_resolved
                     or gid in self.standby.direct_applied):
                 return False
@@ -317,12 +436,21 @@ class DNServer:
             if c.persistence.frame_apply_gap(sub):
                 self._bump("dml_deferred_gap")
                 return False
-            c.persistence._apply(
-                "G", {"commit_ts": int(commit_ts), "writes": sub,
-                      "gid": gid}, arrays)
-            self.standby.direct_applied.add(gid)
-            self.standby.note_direct_apply(gid, int(commit_ts),
-                                           entry["writes"])
+            header = {"commit_ts": int(commit_ts), "writes": sub,
+                      "gid": gid}
+            c.persistence._apply("G", header, arrays)
+            if self.standby.relog_closed:
+                # this node is the promoted primary (the in-doubt
+                # resolver after promote): no stream brings this frame,
+                # so it is logged here
+                c.persistence.wal.append(b"G", header, arrays or None)
+                c.persistence._record_decision(gid, "commit",
+                                               int(commit_ts))
+            else:
+                self.standby.direct_applied.add(gid)
+                # until the stream's frame lands, a promotion re-logs it
+                self.standby.note_direct_apply(gid, int(commit_ts),
+                                               entry["writes"])
             self._bump("dml_direct_applied")
         return True
 
@@ -475,6 +603,114 @@ class DNServer:
         if errors:
             raise errors[0]
         return sum(sent)
+
+    # -- self-healing HA ----------------------------------------------------
+    def effective_generation(self) -> int:
+        """The highest fencing generation this node knows: from wire ops,
+        from replayed ha_generation records, or its own promotion."""
+        return max(self._hgen, self.standby.cluster.node_generation)
+
+    def _stale_lease_remaining_ms(self, new_gen: int) -> int:
+        """The longest a serving lease of a generation older than
+        ``new_gen`` may still run: what failover waits out before it
+        flips client routing."""
+        now = time.monotonic()
+        worst = 0.0
+        with self._lease_mu:
+            for gen, deadline in self._leases.values():
+                if gen < new_gen and deadline > now:
+                    worst = max(worst, deadline - now)
+        return int(worst * 1000.0)
+
+    def _promote(self, msg: dict) -> dict:
+        """This datanode becomes the coordinator: its standby holds the
+        whole replicated state, so it finishes recovery (the torn tail
+        truncated, unstreamed direct applies re-logged, the bumped
+        generation logged), goes read-write, and opens a SQL front end
+        and a walsender in this process, on its device. Idempotent."""
+        from opentenbase_tpu_torch.net.server import ClusterServer
+        from opentenbase_tpu_torch.storage.replication import WalSender
+
+        with self._promote_mu:
+            if self._promoted_srv is None:
+                gen = msg.get("generation")
+                c = self.standby.promote(
+                    generation=int(gen) if gen is not None else None)
+                self._hgen = max(self._hgen, c.node_generation)
+                self._promoted_srv = ClusterServer(c).start()
+                self._promoted_walsender = WalSender(c.persistence)
+                self._bump("promoted")
+            c = self.standby.cluster
+            out = {
+                "ok": True,
+                "port": self._promoted_srv.port,
+                "generation": int(c.node_generation),
+                "promote_lsn": int(c.ha_promote_lsn),
+                "torn_bytes": int(self.standby.torn_bytes),
+                "lease_remaining_ms": self._stale_lease_remaining_ms(
+                    int(c.node_generation)),
+                "wal_port": self._promoted_walsender.port,
+            }
+            return out
+
+    def _repoint(self, msg: dict) -> dict:
+        """Re-point this standby's walreceiver at the promoted node's
+        walsender and stream from our own offset (a torn tail truncated
+        first); a survivor past the new timeline's base is rewound."""
+        from opentenbase_tpu_torch.storage.replication import probe_timeline
+
+        with self._promote_mu:
+            promoted = self._promoted_srv
+        if promoted is not None:
+            return {"error": "node is a promoted coordinator; "
+                             "it does not follow anyone"}
+        host = str(msg.get("wal_host") or "127.0.0.1")
+        port = int(msg["wal_port"])
+        try:
+            _gen, promote_lsn = probe_timeline(host, port)
+            if 0 <= promote_lsn < int(self.standby.applied):
+                # a still-live deposed primary streamed frames here past
+                # the promotion point: streaming on would fork
+                return self._repoint_rewind(host, port, promote_lsn)
+            self.standby.restart_replication(host, port)
+        except Exception as e:
+            log.error("repoint to %s:%s failed: %s", host, port, e)
+            return {"error": f"repoint failed: {type(e).__name__}: {e}"}
+        self._bump("repoints")
+        log.warning("walreceiver re-pointed at %s:%s (resumed from %d)",
+                    host, port, self.standby.applied)
+        return {"ok": True, "applied": self.standby.applied}
+
+    def _repoint_rewind(self, host: str, port: int,
+                        promote_lsn: int) -> dict:
+        """Rewind a diverged survivor onto the promoted timeline: stop
+        the old stream, close the old cluster, and rebuild through
+        ``rejoin_standby`` (the WAL truncated at the promotion point,
+        the stores replayed from it, the stream restarted)."""
+        from opentenbase_tpu_torch.storage.replication import rejoin_standby
+
+        old = self.standby
+        rewound = int(old.applied) - int(promote_lsn)
+        try:
+            old.close()
+        except Exception as e:
+            log.warning("rewind: closing the old standby failed: %s", e)
+        try:
+            sb = rejoin_standby(self._data_dir, host, port,
+                                self._num_datanodes, self._shard_groups,
+                                device=self.device)
+        except Exception as e:
+            log.error("repoint rewind to %s:%s failed: %s", host, port, e)
+            return {"error": f"repoint rewind failed: "
+                             f"{type(e).__name__}: {e}"}
+        sb.stream_txn_hook = self._on_stream_txn
+        self.standby = sb
+        self._bump("repoints")
+        self._bump("repoint_rewinds")
+        log.warning("diverged survivor rewound %d bytes to promotion point "
+                    "%d and re-pointed at %s:%s", rewound, promote_lsn,
+                    host, port)
+        return {"ok": True, "applied": sb.applied, "rewound": rewound}
 
     # -- reads ------------------------------------------------------------
     def _wait_applied(self, lsn: int, timeout_s: float = 90.0,
@@ -660,8 +896,12 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, lambda *a: done.set())
     signal.signal(signal.SIGINT, lambda *a: done.set())
     done.wait()
+    t0 = time.perf_counter()
     srv.stop()
+    t1 = time.perf_counter()
     srv.standby.close()
+    print(f"STOPPED {srv.port}: server {t1 - t0:.3f} s, standby and WAL "
+          f"{time.perf_counter() - t1:.3f} s", file=sys.stderr, flush=True)
     return 0
 
 

@@ -30,8 +30,19 @@ set (``2pc_prepare``), the 'G' frame is tagged with the gid, and
 ``2pc_commit`` applies the journal ahead of the stream.
 ``synchronous_commit = on`` then waits until every reachable datanode
 applied the commit's frame, ``remote_write`` until a majority of the
-standbys acked it; ``clean_2pc`` retires orphaned votes. Explicit
-PREPARE TRANSACTION stays refused.
+standbys acked it; ``clean_2pc`` retires orphaned votes and
+``resolve_indoubt`` drives in-doubt votes to the WAL's decision.
+Explicit PREPARE TRANSACTION stays refused.
+
+Self-healing HA (ha.py, storage/replication.py): ``node_generation``
+is the timeline's fencing generation, carried on every datanode RPC
+(``hgen``). A datanode at a newer generation refuses a stale caller
+(``ChannelFenced``); the session then demotes the cluster
+(``ha_demoted``), and from then on every statement is refused with
+SQLSTATE 72000, as is every statement while a ``serving_lease`` is not
+valid. A cluster with a data directory reads
+``<data_dir>/opentenbase.conf`` into ``conf_gucs`` (config.py), its
+sessions' defaults.
 
 Durability (``Cluster(..., data_dir=D)``, storage/persist.py): every
 commit is one WAL 'G' frame, written inside the stamping fence and
@@ -66,6 +77,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from opentenbase_tpu_torch import config as _config
 from opentenbase_tpu_torch import types as t
 from opentenbase_tpu_torch.catalog.catalog import Catalog, TableMeta
 from opentenbase_tpu_torch.catalog.distribution import (
@@ -345,6 +357,9 @@ class Cluster:
         device=None,
     ):
         self.device = resolve_device(device)
+        # <data_dir>/opentenbase.conf, validated before anything opens:
+        # the session defaults and the HA controller's budgets
+        self.conf_gucs: dict = _config.load_conf(data_dir)
         self.nodes = NodeManager()
         self.nodes.create_node(NodeDef("cn0", NodeRole.COORDINATOR))
         self.nodes.create_node(NodeDef("gtm0", NodeRole.GTM))
@@ -391,6 +406,23 @@ class Cluster:
         # implicit-2PC gids between their prepare and their decision:
         # clean_2pc's sweep leaves their votes alone
         self._open_gids: set = set()
+        # self-healing HA: the timeline's fencing generation (bumped and
+        # WAL-logged by every promotion); the WAL offset where this
+        # timeline stopped being a byte prefix of its predecessor's (0
+        # for an original primary), which a walsender hands rejoining
+        # standbys as the rewind point; True once a newer generation
+        # fenced this node out (every statement refused until it is
+        # rejoined as a standby)
+        self.node_generation = 0
+        self.ha_promote_lsn = 0
+        self.ha_demoted = False
+        self.ha_stats: dict = {"promotions": 0, "fenced_refusals": 0}
+        # the name this coordinator serves under (a promoted datanode
+        # takes its own), and its serving lease (ha.ServingLease)
+        self.coordinator_name = "cn0"
+        self.serving_lease = None
+        # remote read fragments retried and failed over to local stores
+        self.frag_heal_stats: dict = {"retries": 0, "failovers": 0}
 
     @classmethod
     def recover(
@@ -461,6 +493,16 @@ class Cluster:
                     continue
                 try:
                     resp = ch.rpc({"op": "ping"}, timeout_s=2.0)
+                    if resp.get("promoted") or (
+                            int(resp.get("generation") or 0)
+                            > self.node_generation):
+                        # a standby that promoted away or follows a
+                        # newer timeline applies a diverged WAL: its
+                        # offset may pass ``lsn`` with our frame never
+                        # replayed there. It can never confirm; the
+                        # deadline fails the wait
+                        fails.pop(n, None)
+                        continue
                     if int(resp.get("applied") or 0) >= lsn:
                         confirmed.add(n)
                     fails.pop(n, None)
@@ -519,7 +561,8 @@ class Cluster:
         resolved = []
         for n, ch in sorted(self.dn_channels.items()):
             try:
-                resp = ch.rpc({"op": "2pc_list"})
+                resp = ch.rpc({"op": "2pc_list",
+                               "hgen": self.node_generation})
                 for e in resp.get("entries") or []:
                     gid = e["gid"]
                     if gid in self._open_gids:
@@ -527,11 +570,56 @@ class Cluster:
                     age = e.get("age_s")
                     if age is not None and age < max_age_s:
                         continue
-                    ch.rpc({"op": "2pc_abort", "gid": gid})
+                    ch.rpc({"op": "2pc_abort", "gid": gid,
+                            "hgen": self.node_generation})
                     resolved.append(f"dn{n}:{gid}")
             except Exception as e:
                 log.warning("clean_2pc: datanode %d: %s", n, e)
         return resolved
+
+    def resolve_indoubt(self) -> list[tuple]:
+        """Drive every in-doubt gid to a decision after a coordinator
+        crash or a failover: the candidates are the reachable datanodes'
+        ``2pc_list`` journals, the verdict is this WAL's commit record
+        (``gid_decision``): present, the journal's writes apply (phase
+        2 replayed); absent, presumed abort. Returns [(gid, outcome)],
+        each outcome ``committed``, ``aborted``, or ``commit_retry`` /
+        ``abort_retry`` where a datanode did not answer. The
+        reference's candidates also include the GTM's prepared registry
+        (``gts.prepared_txns``); the port has no GTM and no explicit
+        PREPARE TRANSACTION, so its in-doubt gids are the journals."""
+        chans = dict(self.dn_channels)
+        votes: dict[str, list[int]] = {}
+        for n, ch in chans.items():
+            try:
+                resp = ch.rpc({"op": "2pc_list",
+                               "hgen": self.node_generation})
+            except Exception:
+                continue  # a down datanode resolves on a later run
+            for e in resp.get("entries") or []:
+                votes.setdefault(e["gid"], []).append(n)
+        p = self.persistence
+        out: list[tuple] = []
+        for gid in sorted(votes):
+            decision = p.gid_decision(gid) if p is not None else None
+            ok = True
+            commit = decision is not None and decision[0] == "commit"
+            for n in votes[gid]:
+                msg = {"op": "2pc_commit" if commit else "2pc_abort",
+                       "gid": gid, "hgen": self.node_generation}
+                if commit:
+                    msg["commit_ts"] = decision[1]
+                try:
+                    chans[n].rpc(msg)
+                except Exception:
+                    ok = False
+            outcome = ("committed" if commit else "aborted") if ok else (
+                "commit_retry" if commit else "abort_retry")
+            log.log(logging.WARNING if not ok else logging.INFO,
+                    "in-doubt transaction %s %s (datanodes %s)", gid,
+                    outcome, votes[gid])
+            out.append((gid, outcome))
+        return out
 
     def __enter__(self) -> "Cluster":
         return self
@@ -583,30 +671,14 @@ class Cluster:
         return Session(self)
 
 
-_DURATION_UNITS = {"us": 0.001, "ms": 1, "s": 1000, "min": 60000,
-                   "h": 3600000}
-
-
 def _duration_ms(v, name: str) -> int:
     """A duration setting's milliseconds: an integer, or a PostgreSQL
-    duration string ('150ms', '2s'), as the reference's config.py
-    parses it."""
-    if not isinstance(v, bool):
-        if isinstance(v, (int, float)):
-            return int(v)
-        text = str(v).strip()
-        for unit, mult in sorted(_DURATION_UNITS.items(),
-                                 key=lambda kv: -len(kv[0])):
-            if text.endswith(unit):
-                try:
-                    return int(float(text[:-len(unit)].strip()) * mult)
-                except ValueError:
-                    break
-        try:
-            return int(text)
-        except ValueError:
-            pass
-    raise SQLError(f'invalid value for parameter "{name}": {v!r}')
+    duration string ('150ms', '2s'), as config.py parses it."""
+    try:
+        return _config._duration(v)
+    except _config.GucError:
+        raise SQLError(f'invalid value for parameter "{name}": {v!r}') \
+            from None
 
 
 class Session:
@@ -617,8 +689,11 @@ class Session:
         # whether the last SELECT's device output came from the fused DAG
         # (else from K1's route), the reference's attribute
         self._fused_via_dag = False
-        # session settings (SET / RESET), at their defaults
-        self.gucs: dict = dict(self._GUC_DEFAULTS)
+        # session settings (SET / RESET): the defaults, overlaid with
+        # the cluster's conf file
+        self.gucs: dict = {**self._GUC_DEFAULTS, **{
+            k: v for k, v in cluster.conf_gucs.items()
+            if k in self._GUC_DEFAULTS}}
         # the last SELECT's route ("fused" or "host") and, on the host
         # route, its DistExecutor (instrumentation, motions, join modes)
         self.last_route: Optional[str] = None
@@ -655,6 +730,25 @@ class Session:
                     A.RollbackStmt)
 
     def _execute_one(self, stmt: A.Statement) -> Result:
+        c = self.cluster
+        if c.ha_demoted:
+            # a fenced ex-primary: a newer generation was promoted, and
+            # a read served here could be arbitrarily stale
+            c.ha_stats["fenced_refusals"] += 1
+            raise SQLError(
+                "node is fenced: a newer generation "
+                f"({c.node_generation}+) was promoted; demoted ex-primary "
+                "must resync (rejoin_standby) before serving", "72000")
+        lease = c.serving_lease
+        if lease is not None and not lease.valid():
+            # no datanode-quorum contact within the lease: a partitioned
+            # or fenced coordinator must not serve, even a read that
+            # would send no datanode an RPC
+            c.ha_stats["fenced_refusals"] += 1
+            raise SQLError(
+                "node's serving lease is not valid: no datanode-quorum "
+                f"contact within lease_ttl_ms ({lease.ttl_ms}ms) — "
+                "self-demoted until the lease renews", "72000")
         if self.cluster.read_only and not isinstance(stmt,
                                                      self._READONLY_OK):
             raise SQLError(f"cannot execute {type(stmt).__name__} in a "
@@ -910,18 +1004,36 @@ class Session:
             writes, self.cluster.stores, catalog=self.cluster.catalog,
             dict_synced=p._dict_synced if p is not None else {})
 
+    def _ha_demote(self, exc) -> None:
+        """A datanode at a newer generation fenced this node out: every
+        further statement is refused with 72000 until the node is
+        rejoined as a standby (rejoin_standby)."""
+        c = self.cluster
+        c.ha_stats["fenced_refusals"] += 1
+        if not c.ha_demoted:
+            c.ha_demoted = True
+            log.error("node fenced by a newer generation (ours %d, the "
+                      "peer's %s): demoting; this ex-primary must resync "
+                      "before serving again", c.node_generation,
+                      getattr(exc, "peer_generation", None))
+
     def _dn_2pc(self, op: str, gid: str, nodes, **extra) -> list[int]:
         """A 2PC message to every participating datanode process, in
-        parallel. Returns the nodes that acknowledged; any failure
-        raises (SQLSTATE 08006 for a channel failure)."""
+        parallel, carrying our fencing generation. Returns the nodes
+        that acknowledged; any failure raises: SQLSTATE 72000 after a
+        demotion where a datanode fenced us, else 08006."""
+        from opentenbase_tpu_torch.net.pool import ChannelFenced
+
         chans = self.cluster.dn_channels
         targets = [(n, chans[n]) for n in nodes if n in chans]
         results: dict = {}
         errors: list = []
+        hgen = self.cluster.node_generation
 
         def send(n, ch):
             try:
-                results[n] = ch.rpc({"op": op, "gid": gid, **extra})
+                results[n] = ch.rpc({"op": op, "gid": gid, "hgen": hgen,
+                                     **extra})
             except Exception as e:  # a channel failure is a failed vote
                 errors.append((n, e))
 
@@ -930,6 +1042,12 @@ class Session:
             th.start()
         for th in ths:
             th.join()
+        for n, e in errors:
+            if isinstance(e, ChannelFenced):
+                # never 08006: a retry would be the split-brain write
+                self._ha_demote(e)
+                raise SQLError(f"datanode {n} fenced {op} for {gid!r}: "
+                               f"{e}", "72000")
         if errors:
             n, e = errors[0]
             raise SQLError(f"datanode {n} failed {op} for {gid!r}: {e}",
@@ -1426,6 +1544,8 @@ class Session:
         "commit_delay_us": 0,
         "commit_siblings": 5,
         "statement_timeout": 0,
+        "fragment_retries": 2,
+        "fragment_retry_backoff_ms": 25,
     }
 
     def _x_setstmt(self, stmt: A.SetStmt) -> Result:
@@ -1436,18 +1556,21 @@ class Session:
         ``on``: also until every reachable datanode applied its frame;
         ``remote_write``: also until a majority of the standbys acked
         it), ``enable_group_commit``, ``commit_delay_us``
-        and ``commit_siblings``, and ``statement_timeout`` (ms or a
-        duration string; 0 is none), parsed and validated as the
-        reference's config.py does. Any other setting is outside the
-        port."""
+        and ``commit_siblings``, ``statement_timeout`` (ms or a
+        duration string; 0 is none), and the read fragments' retry
+        ladder, ``fragment_retries`` and ``fragment_retry_backoff_ms``,
+        parsed and validated as the reference's config.py does. RESET
+        restores the conf file's value. Any other setting is outside
+        the port."""
         name = stmt.name.lower()
         if name not in self._GUC_DEFAULTS:
             raise NotPorted(f"SET {name}")
         v = stmt.value
-        if v is None:  # RESET, SET ... TO DEFAULT
-            self.gucs[name] = self._GUC_DEFAULTS[name]
+        if v is None:  # RESET, SET ... TO DEFAULT: the conf file's value
+            self.gucs[name] = self.cluster.conf_gucs.get(
+                name, self._GUC_DEFAULTS[name])
             return Result("SET")
-        if name == "statement_timeout":
+        if name in ("statement_timeout", "fragment_retry_backoff_ms"):
             self.gucs[name] = _duration_ms(v, name)
             return Result("SET")
         if isinstance(v, str):  # the reference's spelling normalization
@@ -1465,7 +1588,8 @@ class Session:
             if v not in ("off", "local", "remote_write", "on"):
                 raise SQLError("must be one of ('off', 'local', "
                                f"'remote_write', 'on'), got {v!r}")
-        elif name in ("commit_delay_us", "commit_siblings"):
+        elif name in ("commit_delay_us", "commit_siblings",
+                      "fragment_retries"):
             if isinstance(v, bool) or not isinstance(v, int):
                 raise SQLError(f"invalid integer: {v!r}")
         elif not isinstance(v, bool):
@@ -1553,9 +1677,27 @@ class Session:
             min_lsn=max(p.wal.position if p is not None else 0,
                         self.last_commit_lsn),
             deadline=self._stmt_deadline,
+            fragment_retries=self.gucs["fragment_retries"],
+            retry_backoff_ms=self.gucs["fragment_retry_backoff_ms"],
+            node_generation=self.cluster.node_generation,
         )
         self.last_executor = ex
-        return ex.run(dplan)
+        from opentenbase_tpu_torch.net.pool import ChannelFenced
+
+        try:
+            return ex.run(dplan)
+        except ChannelFenced as cf:
+            # a datanode at a newer generation refused a fragment: this
+            # node is the fenced ex-primary. The executor neither
+            # retried nor failed over (our stores are the stale copy)
+            self._ha_demote(cf)
+            raise SQLError(f"fragment refused by fenced datanode: {cf}",
+                           "72000") from cf
+        finally:
+            hs = self.cluster.frag_heal_stats
+            with self.cluster._dml_stats_mu:
+                hs["retries"] += ex.retry_stats["retries"]
+                hs["failovers"] += ex.retry_stats["failovers"]
 
     def _try_fused(self, dplan, snapshot) -> Optional[ColumnBatch]:
         """The fused route (the reference's ``_try_fused_inner``), or

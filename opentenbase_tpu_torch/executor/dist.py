@@ -24,18 +24,32 @@ coordinator's stores); ``min_lsn`` is the WAL offset the datanode must
 have replayed first (read-your-writes). A ``deadline`` (monotonic) cuts
 a remote call at the socket and sends ``cancel_fragment``.
 
+Self-healing reads: a remote fragment whose channel fails is retried
+``fragment_retries`` times with doubling backoff (from
+``retry_backoff_ms``), then runs on the coordinator's own stores, which
+hold the authoritative copy the datanode replicates. Every dispatched
+fragment is a read (writes reach the datanodes by 2PC and the WAL), so
+a rerun never applies anything twice; a fragment on the peer exchange
+is not retried (its parts are consumed once). A fenced refusal
+(``ChannelFenced``: a datanode at a newer fencing generation than
+``node_generation``) never enters this ladder: our stores are then the
+stale copy. ``retry_stats`` counts retries and failovers, and a
+fragment's instrumentation its ``retries`` and ``failover: "local"``.
+
 Every in-process executor runs on the cluster's device; a fragment's
 output comes back to the host in one transfer per node
 (``LocalExecutor.to_host``), the motions work on host ``ColumnBatch``es,
 as the reference's do, and the consumer uploads its input. Scalar
 subqueries (InitPlans) run first, in registration order, sharing one
-value list. Not ported: fragment retries and failover to local stores,
-within-fragment parallel workers (``parallel > 1``), WLM tickets and
-tracing.
+value list. Not ported: within-fragment parallel workers
+(``parallel > 1``), WLM tickets, tracing, the failpoints, and the
+replica coordinator's guard on a failover (the port has no peer
+coordinators: its local stores are always the primary's).
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 import uuid
@@ -56,6 +70,8 @@ from opentenbase_tpu_torch.plan.distribute import (
 from opentenbase_tpu_torch.storage.column import Column
 from opentenbase_tpu_torch.storage.table import ColumnBatch
 from opentenbase_tpu_torch.utils.hashing import combine_hashes, hash32_np
+
+log = logging.getLogger(__name__)
 
 
 class StatementTimeout(RuntimeError):
@@ -214,6 +230,9 @@ class DistExecutor:
         dn_channels: Optional[dict] = None,  # node -> net.pool.ChannelPool
         min_lsn: int = 0,
         deadline: Optional[float] = None,  # time.monotonic() cutoff
+        fragment_retries: int = 2,  # extra remote attempts a fragment
+        retry_backoff_ms: float = 25.0,  # base backoff, doubling a try
+        node_generation: int = 0,  # fencing generation on every call
     ):
         self.catalog = catalog
         self.node_stores = node_stores
@@ -228,6 +247,11 @@ class DistExecutor:
         self.coordinator_ms = 0.0
         self.h2d_bytes = 0
         self.join_modes: list[str] = []
+        self.fragment_retries = max(int(fragment_retries or 0), 0)
+        self.retry_backoff_ms = float(retry_backoff_ms or 0.0)
+        self.node_generation = int(node_generation or 0)
+        self.retry_stats = {"retries": 0, "failovers": 0, "cancels": 0}
+        self._stats_mu = threading.Lock()
 
     def _stores(self, node: int) -> dict:
         if node == COORDINATOR:
@@ -302,22 +326,79 @@ class DistExecutor:
             errors: list = []
 
             def run_remote(node):
+                from opentenbase_tpu_torch.net.pool import (
+                    ChannelError,
+                    ChannelFenced,
+                )
+
                 t0 = time.perf_counter()
+                retries = 0
+                # a fragment on the peer exchange runs once: its parts
+                # are consumed by the first attempt
+                retryable = peer_xid is None and not any(
+                    isinstance(per_node.get(node), ExchangeRef)
+                    for j, per_node in motioned.items() if j in sources)
                 try:
-                    rows, batch, resp = self._exec_remote(
-                        frag, node, motioned, subquery_values,
-                        frag_schemas, sources, peer_xid)
+                    while True:
+                        try:
+                            rows, batch, resp = self._exec_remote(
+                                frag, node, motioned, subquery_values,
+                                frag_schemas, sources, peer_xid)
+                            break
+                        except ChannelFenced:
+                            raise  # the session demotes; no ladder
+                        except ChannelError as ce:
+                            if not retryable:
+                                raise
+                            self._check_deadline()
+                            if retries >= self.fragment_retries:
+                                # our stores are the authoritative copy
+                                # the datanode was replicating
+                                log.warning(
+                                    "remote fragment %s on dn%d failed "
+                                    "over to local stores after %d "
+                                    "retries: %s", frag.index, node,
+                                    retries, ce)
+                                batch, ex, _counts = (
+                                    self._exec_local_fragment(
+                                        frag, node, motioned,
+                                        subquery_values, sources))
+                                with self._stats_mu:
+                                    self.retry_stats["failovers"] += 1
+                                outs[node] = batch
+                                self.instrumentation.append({
+                                    "fragment": fkey, "node": node,
+                                    "rows": batch.nrows,
+                                    "ms": (time.perf_counter() - t0)
+                                    * 1000.0,
+                                    "remote": False, "retries": retries,
+                                    "failover": "local",
+                                    "h2d_bytes": ex.h2d_bytes})
+                                return
+                            retries += 1
+                            with self._stats_mu:
+                                self.retry_stats["retries"] += 1
+                            log.warning("retrying remote fragment %s on "
+                                        "dn%d (attempt %d): %s",
+                                        frag.index, node, retries + 1, ce)
+                            delay = (self.retry_backoff_ms
+                                     * (2 ** (retries - 1)) / 1000.0)
+                            if delay > 0:
+                                time.sleep(min(delay, 2.0))
                     if batch is not None:
                         outs[node] = batch
                     pushed.append(int(resp.get("bytes_out", 0)))
-                    self.instrumentation.append({
+                    instr = {
                         "fragment": fkey, "node": node, "rows": rows,
                         "ms": (time.perf_counter() - t0) * 1000.0,
                         "remote": True,
                         "dn_ms": float(resp.get("ms", 0.0)),
                         "wire_bytes": sum(resp.get("_wire", (0, 0))),
                         "h2d_bytes": int(resp.get("h2d_bytes", 0)),
-                    })
+                    }
+                    if retries:
+                        instr["retries"] = retries
+                    self.instrumentation.append(instr)
                 except Exception as e:
                     errors.append(e)
 
@@ -467,6 +548,7 @@ class DistExecutor:
                 [_jsonable(v), [ty.id.value, ty.precision, ty.scale]]
                 for v, ty in subquery_values],
             "min_lsn": self.min_lsn,
+            "hgen": self.node_generation,
         }
         if exchanges:
             msg["exchanges"] = exchanges
@@ -497,6 +579,8 @@ class DistExecutor:
                 try:
                     pool.rpc({"op": "cancel_fragment",
                               "token": msg["cancel_token"]}, timeout_s=2.0)
+                    with self._stats_mu:
+                        self.retry_stats["cancels"] += 1
                 except Exception:
                     pass
                 raise StatementTimeout(

@@ -6,8 +6,9 @@ backends (PoolManagerGetConnections, src/backend/pgxc/pool/poolmgr.c).
 Here the pool is an in-process object with the same contract: acquire a
 warm framed-RPC channel to a datanode (opening lazily up to ``size``),
 release it back, discard broken ones, and answer pooler-stat queries.
-Not ported: the fencing refusal (``ChannelFenced``, HA) and the
-failpoints.
+A peer that refuses a caller's stale fencing generation raises
+``ChannelFenced`` (SQLSTATE 72000), never a retryable ``ChannelError``.
+Not ported: the failpoints.
 """
 
 from __future__ import annotations
@@ -25,6 +26,20 @@ from opentenbase_tpu_torch.net.protocol import (
 
 class ChannelError(RuntimeError):
     """A channel failed (I/O, a peer that closed, or an error frame)."""
+
+
+class ChannelFenced(ChannelError):
+    """The peer refused the op because the caller's node_generation is
+    stale: the caller is an ex-primary that missed a promotion. Not a
+    transient failure: the only reaction is to demote (SQLSTATE
+    72000); a retry or a failover to the caller's own stores would
+    serve the stale data the fence refuses."""
+
+    sqlstate = "72000"
+
+    def __init__(self, msg: str, peer_generation=None):
+        super().__init__(msg)
+        self.peer_generation = peer_generation
 
 
 class Channel:
@@ -74,6 +89,9 @@ class Channel:
             self.broken = True
             raise ChannelError("channel closed by peer")
         if "error" in resp:
+            if resp.get("fenced"):
+                raise ChannelFenced(resp["error"],
+                                    peer_generation=resp.get("gen"))
             raise ChannelError(resp["error"])
         resp["_wire"] = [len(frame), nrecv]
         return resp

@@ -9,8 +9,11 @@ statement lock (``cluster._exec_lock``, utils/rwlock.py), by class
 plane with other readers, autocommit DML takes it per table (writers of
 disjoint tables overlap), and everything else (DDL, explicit
 transactions, anything uncertain) takes it exclusively. A statement that
-waits on a row lock parks its slot (lmgr.py). TLS is not ported: a
-server asked for it refuses to start.
+waits on a row lock parks its slot (lmgr.py). A ``ping`` frame is
+answered before authentication with the cluster's role (coordinator,
+standby, or fenced), fencing generation and serving lease: the HA
+failure detector's probe (ha.py). TLS is not ported: a server asked
+for it refuses to start.
 """
 
 from __future__ import annotations
@@ -196,6 +199,12 @@ class ClusterServer:
                 if msg.get("op") == "close":
                     send_frame(conn, {"ok": True})
                     break
+                if msg.get("op") == "ping":
+                    # the HA failure detector's liveness probe (ha.py),
+                    # answered before auth, carrying the fencing
+                    # generation and the live role
+                    send_frame(conn, self._ping())
+                    continue
                 if msg.get("op") == "auth":
                     authed = self._scram_exchange(conn, msg)
                     continue
@@ -238,6 +247,19 @@ class ClusterServer:
                 conn.close()
             except OSError:
                 pass
+
+    def _ping(self) -> dict:
+        c = self.cluster
+        role = ("fenced" if c.ha_demoted
+                else "standby" if c.read_only else "coordinator")
+        lease = c.serving_lease
+        lease_ms = lease.remaining_ms() if lease is not None else -1
+        p = c.persistence
+        return {"ok": True, "role": role,
+                "generation": int(c.node_generation),
+                "lease_valid": lease is None or lease_ms > 0,
+                "lease_remaining_ms": lease_ms,
+                "applied": int(p.wal.position) if p is not None else 0}
 
     def _scram_exchange(self, conn: socket.socket, msg: dict) -> bool:
         """Server half of the SCRAM flow (auth.py). True when the client

@@ -22,14 +22,20 @@ their 2PC prepare (implicit 2PC, engine.py) is a 'G' frame tagged with
 its gid and led by each touched dictionary's delta ("dict"
 sub-records): a datanode that applied the journaled copy skips the
 frame, exactly once across the two delivery paths. ``wal_senders`` are
-the walsenders streaming this WAL (storage/replication.py).
+the walsenders streaming this WAL (storage/replication.py). Each gid's
+commit is remembered as its decision (``gid_decision``), which the
+in-doubt resolver reads after a failover.
+
+Self-healing HA: a promotion logs the timeline's fencing generation as
+an ``ha_generation`` 'D' record, replayed as a monotone maximum into
+``cluster.node_generation``; a checkpoint carries the generation too.
 
 Not ported, each refused by name: point-in-time recovery to a barrier
 (``recover(until_barrier=...)``), the explicit 2PC records ('T'
 PREPARE, 'C' / 'R' COMMIT / ROLLBACK PREPARED), and every DDL record of
 a statement the port does not take (views, partitions, nodes,
-sequences, HA generations, ...). Left out: base backups, rebalance
-journals, logical decoding and the fault failpoints.
+sequences, ...). Left out: base backups, rebalance journals, logical
+decoding and the fault failpoints.
 """
 
 from __future__ import annotations
@@ -403,6 +409,10 @@ class ClusterPersistence:
         # live WalSenders streaming this WAL (storage/replication.py
         # registers and deregisters them)
         self.wal_senders: list = []
+        # gid -> (outcome, commit_ts) of the gid-tagged commits logged
+        # or replayed here, oldest evicted first
+        self._gid_decisions: dict[str, tuple] = {}
+        self._gid_decisions_mu = threading.Lock()
 
     def sync_dicts(self, table: str) -> None:
         tm = self.cluster.catalog.get(table)
@@ -423,6 +433,18 @@ class ClusterPersistence:
         for key in [k for k in self._dict_synced
                     if k.startswith(f"{table}.")]:
             del self._dict_synced[key]
+
+    def _record_decision(self, gid: str, outcome: str, ts) -> None:
+        with self._gid_decisions_mu:
+            self._gid_decisions[gid] = (outcome, ts)
+            while len(self._gid_decisions) > 8192:
+                self._gid_decisions.pop(next(iter(self._gid_decisions)),
+                                        None)
+
+    def gid_decision(self, gid: str):
+        """("commit", commit_ts), or None: no durable decision, which
+        the 2PC protocol reads as presumed abort."""
+        return self._gid_decisions.get(gid)
 
     # -- WAL hooks (called by the engine) -------------------------------
     def log_ddl(self, op: dict) -> None:
@@ -463,8 +485,13 @@ class ClusterPersistence:
         if gid is not None:
             header["gid"] = gid
         if not group_commit and sync_mode != "off":
-            return self.wal.append(b"G", header, arrays or None, sync=True)
+            end = self.wal.append(b"G", header, arrays or None, sync=True)
+            if gid is not None:
+                self._record_decision(gid, "commit", int(commit_ts))
+            return end
         end = self.wal.append(b"G", header, arrays or None, sync=False)
+        if gid is not None:
+            self._record_decision(gid, "commit", int(commit_ts))
         if sync_mode != "off":
             self.wal.flush_to(
                 end, delay_us=int(commit_delay_us),
@@ -506,7 +533,9 @@ class ClusterPersistence:
             "views": {},
             "matviews": {},
             "users": dict(c.users),
-            "node_generation": 0,
+            # a checkpoint past an ha_generation record must carry the
+            # generation the replayed tail no longer holds
+            "node_generation": int(c.node_generation),
         }
         for name in c.catalog.table_names():
             tm = c.catalog.get(name)
@@ -615,9 +644,7 @@ class ClusterPersistence:
                 self._apply(tag, header, arrays)
                 applied += 1
             last = off
-        for name in c.catalog.table_names():
-            for col, d in c.catalog.get(name).dictionaries.items():
-                self._dict_synced[f"{name}.{col}"] = len(d)
+        self._finish_recovery()
         self.last_recovery = {
             "seconds": time.perf_counter() - t0,
             "records": applied,
@@ -628,8 +655,22 @@ class ClusterPersistence:
         }
         return applied
 
+    def _finish_recovery(self) -> None:
+        """After redo (a recovery, or a standby's promotion): the WAL
+        holds every dictionary value the stores do, so the next commit
+        logs only new ones. (The reference also re-parks in-doubt
+        explicit 2PC transactions here; the port refuses their
+        records.)"""
+        c = self.cluster
+        for name in c.catalog.table_names():
+            for col, d in c.catalog.get(name).dictionaries.items():
+                self._dict_synced[f"{name}.{col}"] = len(d)
+
     def _restore_checkpoint(self, meta: dict) -> None:
         c = self.cluster
+        g = int(meta.get("node_generation", 0))
+        if g > c.node_generation:
+            c.node_generation = g
         for key in ("prepared", "views", "matviews", "partitions",
                     "rebalance"):
             if meta.get(key):
@@ -732,11 +773,19 @@ class ClusterPersistence:
                     header["column"]]
                 for v in header["values"]:
                     d.encode_one(v)
+            elif op == "ha_generation":
+                # a promotion's fencing generation: a monotone maximum,
+                # never regressing one learned elsewhere
+                g = int(header.get("generation", 0))
+                if g > c.node_generation:
+                    c.node_generation = g
             else:
                 raise NotPorted(f"WAL DDL record {op!r}")
             return
         if tag == "G":
             cts = int(header["commit_ts"])
+            if header.get("gid"):
+                self._record_decision(header["gid"], "commit", cts)
             writes = self._materialize_writes(header["writes"], arrays, cts)
             for wm in writes:
                 if wm["kind"] == "del":

@@ -14,11 +14,23 @@ opentenbase_tpu/storage/replication.py, the same stream protocol).
   (hot standby). It requests from its own offset, so a restart is a
   reconnect. A datanode process (dn/server.py) is one of these.
 
-The handshake carries the reference's fencing fields (generation,
-timeline base); the port has no HA, so it sends 0 for both and follows
-whoever answers. Not ported, each refused by name: ``promote``,
-``probe_timeline``, ``local_generation`` and ``rejoin_standby`` (HA),
-and the failpoints.
+Self-healing HA (ha.py drives these):
+
+- The handshake carries fencing generations both ways: the receiver
+  announces its cluster's ``node_generation``, the sender answers with
+  its own and its timeline base (``ha_promote_lsn``). A standby refuses
+  to follow an older generation, and a sender refuses a follower from
+  a newer one before any WAL byte: split-brain is a refused handshake.
+- ``StandbyCluster.promote(generation=...)`` truncates the torn stream
+  tail to the last complete record, re-logs direct-applied 2PC commits
+  whose frame never streamed, logs the bumped generation as a durable
+  ``ha_generation`` record, and goes read-write.
+- ``rejoin_standby`` is the pg_rewind analog: probe the new primary's
+  timeline base (``probe_timeline``), truncate the diverged local WAL
+  past it, rebuild on the caller's device, and stream again.
+
+Not ported: the failpoints, and the reference's re-registration with
+the GTM after a promotion (the port has no GTM).
 """
 
 from __future__ import annotations
@@ -32,7 +44,6 @@ import threading
 import time
 from typing import Optional
 
-from opentenbase_tpu_torch.errors import NotPorted
 from opentenbase_tpu_torch.net.protocol import (
     REPL_PROBE,
     pack_repl_ack,
@@ -75,16 +86,28 @@ class WalSender:
         # staleness evidence: (wal_end_offset, monotonic_time) pairs; a
         # peer whose ack covers off was current at t
         self._pos_ring: list = []
+        # the accepted connections: stop() severs them, so that nothing
+        # written after it returns reaches a peer
+        self._conns: set = set()
         persistence.wal_senders.append(self)
         threading.Thread(target=self._accept_loop, daemon=True).start()
 
     def stop(self) -> None:
+        """Stop accepting and sever every stream: once this returns, no
+        byte the WAL gains reaches a standby (a crash's cut)."""
         self._stop.set()
         try:
             self.persistence.wal_senders.remove(self)
         except ValueError:
             pass
         shutdown_and_close(self._lsock)
+        with self._peers_mu:
+            conns, self._conns = list(self._conns), set()
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
 
     def peer_positions(self) -> list:
         """[(peer_addr, sent_offset)] of live standby connections."""
@@ -172,6 +195,15 @@ class WalSender:
                 self._peers.pop(id(conn), None)
                 self._ack_cv.notify_all()
 
+    def _generation(self) -> int:
+        """This timeline's fencing generation."""
+        return int(self.persistence.cluster.node_generation)
+
+    def _promote_lsn(self) -> int:
+        """This timeline's base: the WAL offset where it stopped being a
+        byte prefix of its predecessor's (0 for an original primary)."""
+        return int(self.persistence.cluster.ha_promote_lsn)
+
     def _accept_loop(self) -> None:
         while not self._stop.is_set():
             try:
@@ -183,6 +215,11 @@ class WalSender:
 
     def _stream(self, conn: socket.socket) -> None:
         path = self.persistence.wal.path
+        with self._peers_mu:
+            if self._stop.is_set():
+                conn.close()
+                return
+            self._conns.add(conn)
         try:
             peer = "unknown"
             try:
@@ -191,13 +228,21 @@ class WalSender:
             except OSError:
                 pass
             try:
-                offset, _peer_gen = recv_repl_hello(conn)
+                offset, peer_gen = recv_repl_hello(conn)
             except ConnectionError:
                 return
-            # generation 0, timeline base 0: the port has no HA
-            conn.sendall(pack_repl_hello(0, 0))
+            # our generation and timeline base before any WAL byte
+            conn.sendall(pack_repl_hello(self._generation(),
+                                         self._promote_lsn()))
             if offset == REPL_PROBE:
                 return  # a timeline probe: header only
+            if peer_gen > self._generation():
+                # a standby of a newer timeline: this node is a fenced
+                # ex-primary, and not one divergent byte may cross
+                log.warning("refusing standby %s with newer generation "
+                            "(%d > %d): this node is a fenced ex-primary",
+                            peer, peer_gen, self._generation())
+                return
             with self._peers_mu:
                 self._peers[id(conn)] = [peer, int(offset), -1]
             threading.Thread(target=self._ack_loop, args=(conn,),
@@ -234,6 +279,7 @@ class WalSender:
         finally:
             with self._peers_mu:
                 self._peers.pop(id(conn), None)
+                self._conns.discard(conn)
             try:
                 conn.close()
             except OSError:
@@ -304,14 +350,27 @@ class StandbyCluster:
         # delivers (the datanode retires its journal entry)
         self.stream_txn_hook = None
         # gid -> (commit_ts, wire payload) of direct applies whose frame
-        # has not streamed yet (kept for the reference's promotion
-        # re-log; promotion is not ported)
+        # has not streamed yet: a promotion re-logs them, so the
+        # promoted WAL holds every row of the promoted stores
         self.pending_relog: dict = {}
-        # replay the local WAL copy (a restarted standby)
+        # True once promote() drained pending_relog: no stream delivers a
+        # frame here any more, so a direct 2PC apply logs its own
+        self.relog_closed = False
+        self.promoted = False
+        # bytes past the last complete record that promote() truncated
+        self.torn_bytes = 0
+        # the sender's generation and timeline base from its hello
+        self.source_generation = 0
+        self.source_promote_lsn = 0
+        # what rejoin_standby truncated before this standby was built
+        self.truncated_bytes = 0
+        # replay the local WAL copy (a restarted or rewound standby)
+        t0 = time.perf_counter()
         self.applied = 0
         for tag, header, arrays, off in WAL.read_records(p.wal.path):
             self._apply_one(tag, header, arrays)
             self.applied = off
+        self.replay_s = time.perf_counter() - t0
         self._sock: Optional[socket.socket] = None
         self.repl_addr = ""
         self._thread: Optional[threading.Thread] = None
@@ -321,16 +380,36 @@ class StandbyCluster:
 
     # -- walreceiver ------------------------------------------------------
     def start_replication(self, host: str, port: int) -> "StandbyCluster":
+        my_gen = self.cluster.node_generation
         self._sock = socket.create_connection((host, port), timeout=10)
         try:
-            self._sock.sendall(pack_repl_hello(self.applied, 0))
+            self._sock.sendall(pack_repl_hello(self.applied, my_gen))
             self._sock.settimeout(10)
-            recv_repl_hello(self._sock)  # no HA: any generation is ours
+            sender_gen, promote_lsn = recv_repl_hello(self._sock)
             self._sock.settimeout(None)
         except Exception:
             shutdown_and_close(self._sock)
             self._sock = None
             raise
+        if sender_gen < my_gen:
+            # never follow an older timeline (a revived ex-primary's
+            # walsender trying to capture us back)
+            shutdown_and_close(self._sock)
+            self._sock = None
+            raise RuntimeError(
+                f"stale generation: walsender at {host}:{port} serves "
+                f"generation {sender_gen}, we are at {my_gen}")
+        if sender_gen > my_gen and self.applied > promote_lsn:
+            # our tail reaches past the new timeline's base: those
+            # records came from the old timeline and are applied here
+            shutdown_and_close(self._sock)
+            self._sock = None
+            raise RuntimeError(
+                f"diverged: applied {self.applied} is past the new "
+                f"timeline base {promote_lsn}; rewind required "
+                "(storage.replication.rejoin_standby)")
+        self.source_generation = sender_gen
+        self.source_promote_lsn = promote_lsn
         try:
             a = self._sock.getsockname()
             self.repl_addr = f"{a[0]}:{a[1]}"
@@ -474,7 +553,57 @@ class StandbyCluster:
         return False
 
     def promote(self, generation: Optional[int] = None):
-        raise NotPorted("promote (HA)")
+        """pg_ctl promote: stop the stream, finish recovery, go
+        read-write. The local WAL is truncated to ``applied`` (a sender
+        that died mid-frame leaves partial record bytes, and the new
+        timeline's first append must start on a record boundary);
+        direct-applied 2PC commits whose frame never streamed are
+        re-logged in commit order; the bumped fencing generation is
+        logged as a durable ``ha_generation`` record. The re-log and
+        the bump are atomic under the statement lock, so a phase 2 of
+        the doomed primary either lands before them (and is re-logged)
+        or sees the new generation and refuses. Returns the cluster."""
+        from opentenbase_tpu_torch.plan import serde
+
+        self.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        c = self.cluster
+        p = c.persistence
+        torn = 0
+        try:
+            end = os.path.getsize(p.wal.path)
+            if end > self.applied:
+                torn = end - self.applied
+                p.wal.truncate_to(self.applied)
+        except OSError:
+            pass
+        self.torn_bytes = torn
+        c.ha_promote_lsn = self.applied
+        if generation is None:
+            generation = c.node_generation + 1
+        p._finish_recovery()
+        relogged = 0
+        with c._exec_lock:
+            for gid, (cts, wire) in sorted(self.pending_relog.items(),
+                                           key=lambda kv: kv[1][0]):
+                sub, arrays = serde.frame_from_wire(wire)
+                p.wal.append(b"G", {"commit_ts": cts, "writes": sub,
+                                    "gid": gid}, arrays or None)
+                p._record_decision(gid, "commit", cts)
+                relogged += 1
+            self.pending_relog.clear()
+            p.log_ddl({"op": "ha_generation",
+                       "generation": int(generation)})
+            c.node_generation = int(generation)
+            self.relog_closed = True
+        c.ha_stats["promotions"] = c.ha_stats.get("promotions", 0) + 1
+        c.read_only = False
+        self.promoted = True
+        log.warning("standby promoted to read-write primary (applied %d, "
+                    "generation %d, re-logged 2PC %d, torn tail %d bytes)",
+                    self.applied, int(generation), relogged, torn)
+        return c
 
     def stop(self) -> None:
         self._stop.set()
@@ -490,13 +619,79 @@ class StandbyCluster:
 
 
 def probe_timeline(host: str, port: int, timeout: float = 10.0):
-    raise NotPorted("probe_timeline (HA)")
+    """(generation, promote_lsn) of the walsender at host:port: the
+    probe handshake, header only, no stream."""
+    sock = socket.create_connection((host, port), timeout=timeout)
+    try:
+        sock.sendall(pack_repl_hello(REPL_PROBE, 0))
+        return recv_repl_hello(sock)
+    finally:
+        shutdown_and_close(sock)
 
 
 def local_generation(wal_path: str) -> int:
-    raise NotPorted("local_generation (HA)")
+    """The highest ha_generation recorded in a WAL file (0 without
+    one), from the record headers alone."""
+    gen = 0
+    try:
+        for tag, header, _a, _off in WAL.read_records(
+                wal_path, decode_arrays=False):
+            if tag == "D" and header.get("op") == "ha_generation":
+                gen = max(gen, int(header.get("generation", 0)))
+    except OSError:
+        pass
+    return gen
 
 
 def rejoin_standby(data_dir: str, host: str, port: int,
-                   num_datanodes: int = 2, shard_groups: int = 256):
-    raise NotPorted("rejoin_standby (HA)")
+                   num_datanodes: int = 2, shard_groups: int = 256,
+                   device=None) -> StandbyCluster:
+    """The pg_rewind analog: a demoted ex-primary's data directory
+    follows the new primary's walsender at host:port, as a read-only
+    standby on ``device`` (cuda:0 unless the caller passes another).
+
+    A standby's WAL is a verbatim prefix of its primary's, so the new
+    primary's WAL and the ex-primary's agree byte for byte up to the
+    promotion point (the sender's ``promote_lsn``). What the ex-primary
+    logged past it belongs to the dead timeline: commits that never
+    streamed, which no client of the promoted cluster saw. They are
+    truncated, the stores rebuilt from the truncated log, and the
+    stream resumes from our own (now shared) offset. The standby's
+    ``truncated_bytes`` says how much went."""
+    gen, promote_lsn = probe_timeline(host, port)
+    wal_path = os.path.join(data_dir, "wal.log")
+    my_gen = local_generation(wal_path)
+    if my_gen > gen:
+        raise RuntimeError(
+            f"refusing rejoin: local generation {my_gen} is NEWER than "
+            f"the target's {gen} — the target is the stale node")
+    truncated = 0
+    try:
+        end = WAL.scan_end(wal_path)
+    except OSError:
+        end = 0
+    if my_gen < gen and end > promote_lsn >= 0:
+        truncated = end - promote_lsn
+        with open(wal_path, "r+b") as f:
+            f.truncate(promote_lsn)
+    # a checkpoint past the divergence point holds rows of the dead
+    # timeline
+    ckpt = os.path.join(data_dir, "checkpoint.json")
+    if truncated and os.path.exists(ckpt):
+        try:
+            with open(ckpt) as f:
+                if int(json.load(f).get("wal_position", 0)) > promote_lsn:
+                    os.unlink(ckpt)
+        except (OSError, ValueError):
+            pass
+    sb = StandbyCluster(data_dir, num_datanodes, shard_groups, device=device)
+    sb.truncated_bytes = truncated
+    try:
+        sb.start_replication(host, port)
+    except BaseException:
+        sb.close()
+        raise
+    log.warning("ex-primary rejoined as standby (truncated %d bytes, "
+                "generation %d, resumed from %d)", truncated, gen,
+                sb.applied)
+    return sb

@@ -48,14 +48,17 @@ def test_package_imports_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
         "import opentenbase_tpu_torch\n"
-        "from opentenbase_tpu_torch import carry, engine\n"
+        "from opentenbase_tpu_torch import carry, config, engine, ha\n"
         "from opentenbase_tpu_torch.ops import (\n"
         "    agg, cuda_build, expr, filter, join, radix_probe, scan_agg)\n"
         "from opentenbase_tpu_torch.plan import batchplan\n"
         "from opentenbase_tpu_torch.executor import fused, fused_dag, local\n"
         "from opentenbase_tpu_torch.storage import persist\n"
         "from opentenbase_tpu_torch.net import client, pgwire, server\n"
-        "from opentenbase_tpu_torch.cli import otb_bench, otb_psql, otb_server\n"
+        "from opentenbase_tpu_torch.cli import (\n"
+        "    otb_bench, otb_psql, otb_server, otb_standby)\n"
+        "from opentenbase_tpu_torch.dn import server as dn_server\n"
+        "from opentenbase_tpu_torch.storage import replication\n"
         "from opentenbase_tpu_torch.utils import rwlock\n"
         "bad = [m for m in sys.modules if m == 'opentenbase_tpu'\n"
         "       or m.startswith('opentenbase_tpu.')]\n"

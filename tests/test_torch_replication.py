@@ -14,13 +14,13 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 
 import pytest
 
 from opentenbase_tpu.engine import Cluster as RefCluster
 from opentenbase_tpu.storage.replication import StandbyCluster as RefStandby
 from opentenbase_tpu.storage.replication import WalSender as RefSender
-from opentenbase_tpu_torch import NotPorted
 from opentenbase_tpu_torch.engine import Cluster, SQLError
 from opentenbase_tpu_torch.storage.replication import StandbyCluster, WalSender
 
@@ -102,9 +102,45 @@ def test_standby_rejects_writes(primary):
             with pytest.raises(SQLError, match="read-only") as ei:
                 rs.execute(sql)
             assert ei.value.sqlstate == "25006"
-        with pytest.raises(NotPorted, match="HA"):
-            sb.promote()
+        # a promotion ends the refusals: the standby takes writes
+        sb.promote()
+        rs.execute("insert into x values (1)")
+        assert rs.query("select count(*) from x") == [(1,)]
     finally:
+        sb.close()
+
+
+def test_a_stopped_walsender_sends_nothing_more(primary):
+    """Once WalSender.stop() returns, no frame the WAL gains reaches a
+    standby, even from a stream thread already past its stop check (the
+    reference's sends it: ROADMAP C)."""
+    c, sender, tmp = primary
+    s = c.session()
+    s.execute("create table t (k bigint) distribute by shard(k)")
+    s.execute("insert into t values (1)")
+    sb = standby(tmp, sender)
+    try:
+        assert sb.wait_caught_up(c.persistence)
+        applied = sb.applied
+        parked, release = threading.Event(), threading.Event()
+        real = sender._note_position
+
+        def note():
+            # the stream thread, inside its loop, waits for the test
+            parked.set()
+            release.wait(10)
+            real()
+
+        sender._note_position = note
+        assert parked.wait(10)
+        sender.stop()
+        s.execute("insert into t values (2)")
+        release.set()
+        time.sleep(0.5)
+        assert sb.applied == applied
+        assert sb.session().query("select count(*) from t") == [(1,)]
+    finally:
+        release.set()
         sb.close()
 
 
@@ -314,13 +350,23 @@ def test_otb_server_wal_port_and_otb_standby(tmp_path):
                     break
             assert st == {"role": "standby", "applied": st["applied"],
                           "read_only": True} and st["applied"] >= wal_pos
-            f.write("promote\n")
-            f.flush()
-            assert "NotPorted" in json.loads(f.readline())["error"]
         with connect_tcp("127.0.0.1", sql_port, timeout=60) as rs:
             assert rs.query("select v, count(*) from t group by v "
                             "order by v") == [("a", 2), ("b", 1), ("c", 1)]
             with pytest.raises(Exception, match="read-only"):
                 rs.execute("insert into t values (9,'x')")
+        with socket.create_connection(("127.0.0.1", ctl_port),
+                                      timeout=60) as ctl:
+            f = ctl.makefile("rw")
+            f.write("promote\n")
+            f.flush()
+            assert json.loads(f.readline()) == {"promoted": True}
+            f.write("status\n")
+            f.flush()
+            st = json.loads(f.readline())
+            assert st["role"] == "primary" and st["read_only"] is False
+        with connect_tcp("127.0.0.1", sql_port, timeout=60) as rs:
+            rs.execute("insert into t values (9,'x')")
+            assert rs.query("select count(*) from t") == [(5,)]
     finally:
         reap(procs)
