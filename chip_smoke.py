@@ -118,8 +118,8 @@ neither jax nor the reference package.
    (default 30: 180 M rows, 2 datanodes) under the default 8 GB
    OTB_SCAN_HBM_BUDGET: each scan streams shard-row windows through the
    fragment program (Q1 in 3 windows, Q6 in 2), one resident at a time,
-   K1 never launched, each exact against numpy; one warm run, one
-   layered run and one traced run each, with no untimed trace before it
+   K1 never launched, each exact against numpy; one warm run and one
+   traced run each, with no untimed trace before it and no layered run
    (cuts that keep the whole script inside its time limit); the
    lineitem made by make_q3_spec, its columns drawn in threads.
 10. main path, the host executor and the distributed loop (no kernel:
@@ -136,8 +136,8 @@ neither jax nor the reference package.
    (phase 8a), after its INSERTs, Q6 and a count of orders. Each exact
    against numpy, with its route and declines, join modes, per
    fragment and node ms and rows, motions, coordinator ms, bytes
-   uploaded, the warm median of ``--repeats`` runs (ClickBench: 2; at
-   most 2 where the first run took over 1 s, a cut for the time limit), a
+   uploaded, the warm median of ``--repeats`` runs (ClickBench: 2; 1
+   where the first run took over 1 s, a cut for the time limit), a
    traced run's device busy time and idle share, and peak memory.
 11. the durable server: (a) after phase 9d, lineitem at ``--rows`` in a
    Cluster(num_datanodes=2, data_dir=D) on the card (D under
@@ -244,6 +244,26 @@ neither jax nor the reference package.
    row is present; each candidate's GTM lost dn1's registration and
    held a stale address for cn0 before the crash, and the promoted
    node's GTM lists the topology as it was built.
+15. the rest of the expression library and the query sugar, in phase
+   5c's SF10 cluster after phase 10b and before phase 8's writes, over
+   columns and tables make_phase15 adds as dbgen makes them (TPC-H rev.
+   3, 4.2.3; each random column from a stream of its own): nation,
+   region, supplier (100 000: s_name, s_address, s_nationkey, s_phone),
+   part (2 000 000: p_name of five P_NAME words, p_type), partsupp
+   (8 000 000: the spec's four suppliers a part, ps_supplycost),
+   lineitem's l_partkey and l_suppkey, customer's c_nationkey, c_phone
+   and c_acctbal (phase 12 loads none of them). TPC-H Q7, Q8 and Q9 as
+   the spec writes them (extract(year ...) on the card), Q15 in its
+   CREATE VIEW revenue0 / query / DROP VIEW form and as a WITH, Q22's
+   grouping core (substring(c_phone from 1 for 2): a text table over
+   1.5 M phone numbers built on the host), Q6 through a view over
+   lineitem (K1), CREATE TABLE AS of Q15's revenue rows, and an INSERT
+   ... SELECT of one month of lineitem (772 218 rows through the delta
+   plane) into an empty table of Q6's columns, then Q6 over it (K1).
+   Each exact against an independent numpy computation, with its route,
+   mode or rung, K1's and K2's launches, the text tables' build ms, the
+   warm median of ``--repeats`` runs (1 where the first run took over
+   1 s) and the layers of one run.
 """
 
 from __future__ import annotations
@@ -1995,10 +2015,13 @@ def layer_breakdown(cluster, sql: str, repeats: int, dag: bool = False):
     host, dev = ("dag", "dag_device") if dag else (
         "fragment", "fragment_device")
     out = {"plan": [], host: [], dev: [], "merge": []}
+    s = cluster.session()
     for _ in range(repeats):
         t0 = time.perf_counter()
+        # the session's rewrites (SQL functions, WITH, views) first
+        stmt = s._expand_views(s._expand_functions(parse_one(sql)))
         dplan = distribute_statement(optimize_statement(
-            analyze_statement(parse_one(sql), cat), cat), cat)
+            analyze_statement(stmt, cat), cat), cat)
         t1 = time.perf_counter()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -2480,13 +2503,14 @@ def run_topk_query(name: str, cluster, sql: str, want: list, mode: str,
 
 def measure_warm(name: str, cluster, sql: str, want: list, repeats: int,
                  card: str, dag: bool, note: str,
-                 trace_warm: bool = True) -> dict:
+                 trace_warm: bool = True, layered: bool = True) -> dict:
     """The rest of a query whose first run was checked: the median of
     ``repeats`` warm runs (each still equal to ``want``), the resident
     and peak device memory over them, the layers (the device path
-    through the fused DAG where ``dag``) and one traced run (after an
-    untimed one where ``trace_warm``), each printed; returned as {e2e,
-    layers, trace, resident_gb, peak_gb}."""
+    through the fused DAG where ``dag``; not run where ``layered`` is
+    False) and one traced run (after an untimed one where
+    ``trace_warm``), each printed; returned as {e2e, layers, trace,
+    resident_gb, peak_gb}."""
     import torch
 
     s = cluster.session()
@@ -2506,9 +2530,15 @@ def measure_warm(name: str, cluster, sql: str, want: list, repeats: int,
     print(f"memory: {name} resident {resident / 1e9:.3f} GB (the cluster's "
           f"planes), peak over the warm runs {peak / 1e9:.3f} GB [{card}]",
           flush=True)
-    layers = layer_breakdown(cluster, sql, repeats, dag=dag)
-    print(f"layers: {name} median ms " + ", ".join(
-        f"{k} {v:.3f}" for k, v in layers.items()) + f" [{card}]", flush=True)
+    layers = None
+    if layered:
+        layers = layer_breakdown(cluster, sql, repeats, dag=dag)
+        print(f"layers: {name} median ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in layers.items()) + f" [{card}]",
+            flush=True)
+    else:
+        print(f"layers: {name} not measured (a cut for the time limit)",
+              flush=True)
     tr = trace_query(s, sql, repeats, warm=trace_warm)
     idle = ("not measured (no device events in the trace)"
             if tr["idle_share"] is None else f"{tr['idle_share']:.4f}")
@@ -2551,22 +2581,31 @@ def run_q3_spec(args, device, card: str) -> dict:
 
     t0 = time.perf_counter()
     tables = make_q3_spec(args.q3_sf, args.seed)
-    # numpy's Q3 and Q1 while the stores load
+    # numpy's Q3 and Q1, and phase 15's columns, while the stores load
     answers = start_threads({
         "Q3": lambda: expected_q3(tables["lineitem"], tables["orders"],
                                   tables["customer"], "BUILDING"),
-        "Q1": lambda: expected_q1_spec(tables["lineitem"])})
+        "Q1": lambda: expected_q1_spec(tables["lineitem"]),
+        "p15": lambda: make_phase15(tables, args.q3_sf, args.seed)})
     cluster = Cluster(num_datanodes=2, device=device)
     s = cluster.session()
-    for ddl in Q3_SPEC_DDL:
+    for ddl in SPEC15_DDL:
         s.execute(ddl)
-    for name, arrays in tables.items():
-        bulk_append(cluster, name, arrays)
+    bulk_append(cluster, "orders", tables["orders"])
     got = answers()
-    want, want_q1 = got["Q3"], got["Q1"]
+    want, want_q1, p15 = got["Q3"], got["Q1"], got["p15"]
+    t1 = time.perf_counter()
+    for name in ("customer", "lineitem"):
+        bulk_append(cluster, name, {**tables[name], **p15[name]})
+    for name in P15_TABLES:
+        bulk_append(cluster, name, p15[name])
     print(f"load: TPC-H SF{args.q3_sf:g} for Q3: " + ", ".join(
         f"{k} {len(next(iter(v.values())))}" for k, v in tables.items())
-        + f" rows round robin in 2 datanodes, numpy Q3; "
+        + f" rows round robin in 2 datanodes, numpy Q3; phase 15's "
+        + ", ".join(f"{k} {len(next(iter(p15[k].values())))}"
+                    for k in P15_TABLES)
+        + f" rows (nation and region replicated), their load "
+        f"{time.perf_counter() - t1:.3f} s; "
         f"{time.perf_counter() - t0:.3f} s", flush=True)
     out = run_topk_query("TPC-H Q3 (spec keys)", cluster, Q3_SPEC, want,
                          "gsort", ("fold",), 1, args.repeats, card)
@@ -2574,7 +2613,7 @@ def run_q3_spec(args, device, card: str) -> dict:
     out["fragment"] = {"TPC-H Q1 (spec)": run_fragment_query(
         "TPC-H Q1 (spec)", cluster, Q1_SPEC, want_q1, args.repeats, card)}
     # phase 8 (a) writes into these tables after every earlier query
-    out["phase8"] = {"cluster": cluster, "tables": tables}
+    out["phase8"] = {"cluster": cluster, "tables": tables, "p15": p15}
     return out
 
 
@@ -3727,9 +3766,10 @@ def run_chunked_query(name: str, cluster, sql: str, want: list,
     return {"launches": launches, "first_ms": first_ms, "route":
             (fx.last_route, fx.last_rung), "windows": moved,
             # the tracer started in earlier phases: no untimed trace
-            # first (each run of a chunked scan takes 6-9 s)
+            # first, and no layered run (each run of a chunked scan
+            # takes 6-9 s)
             **measure_warm(name, cluster, sql, want, repeats, card, False,
-                           " (chunked)", trace_warm=False)}
+                           " (chunked)", trace_warm=False, layered=False)}
 
 
 # ---------------------------------------------------------------------------
@@ -3847,8 +3887,8 @@ def host_query(name: str, cluster, sql: str, check, repeats: int,
     by ``check`` (which raises on a wrong one); its route, declines,
     join modes, per fragment and node ms and rows, motions, coordinator
     ms and bytes uploaded printed; then the warm median of ``repeats``
-    runs (at most 2 where the first run took over 1 s, a cut that keeps
-    the whole script inside its time limit; each checked), the resident
+    runs (1 where the first run took over 1 s, a cut that keeps the
+    whole script inside its time limit; each checked), the resident
     and peak device memory over them, and one traced run's device busy
     time and idle share. With
     ``fresh_dag`` every run starts from a fresh DAG runner, so each
@@ -3884,7 +3924,7 @@ def host_query(name: str, cluster, sql: str, check, repeats: int,
     check(got)
     ex = s.last_executor
     if first_ms > 1000:
-        repeats = min(repeats, 2)
+        repeats = 1
     print(f"host path: {name} exact on the host route (declined: "
           f"{'; '.join(s.last_declines)}; join modes {ex.join_modes}; "
           f"scan_agg launches 0, radix_probe launches 0; {len(got)} rows; "
@@ -4007,6 +4047,539 @@ def run_phase10(q3: dict, args, card: str) -> dict:
             ("TPC-H Q3 (spec, fused off)", Q3_SPEC, ans["Q3 (spec)"])):
         out[name] = host_query(name, cluster, sql, equal_to(name, want),
                                args.repeats, card, session=s)
+    return out
+
+
+# -- phase 15: the expression library and the query sugar -----------------
+
+# TPC-H rev. 3, section 4.2.3: NATION and REGION, the P_NAME word list
+# and P_TYPE's syllables
+NATIONS = (
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1),
+    ("EGYPT", 4), ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3),
+    ("INDIA", 2), ("INDONESIA", 2), ("IRAN", 4), ("IRAQ", 4),
+    ("JAPAN", 2), ("JORDAN", 4), ("KENYA", 0), ("MOROCCO", 0),
+    ("MOZAMBIQUE", 0), ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3),
+    ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3),
+    ("UNITED KINGDOM", 3), ("UNITED STATES", 1),
+)
+REGIONS = ("AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST")
+P_NAME_WORDS = (
+    "almond", "antique", "aquamarine", "azure", "beige", "bisque",
+    "black", "blanched", "blue", "blush", "brown", "burlywood",
+    "burnished", "chartreuse", "chiffon", "chocolate", "coral",
+    "cornflower", "cornsilk", "cream", "cyan", "dark", "deep", "dim",
+    "dodger", "drab", "firebrick", "floral", "forest", "frosted",
+    "gainsboro", "ghost", "goldenrod", "green", "grey", "honeydew", "hot",
+    "indian", "ivory", "khaki", "lace", "lavender", "lawn", "lemon",
+    "light", "lime", "linen", "magenta", "maroon", "medium", "metallic",
+    "midnight", "mint", "misty", "moccasin", "navajo", "navy", "olive",
+    "orange", "orchid", "pale", "papaya", "peach", "peru", "pink", "plum",
+    "powder", "puff", "purple", "red", "rose", "rosy", "royal", "saddle",
+    "salmon", "sandy", "seashell", "sienna", "sky", "slate", "smoke",
+    "snow", "spring", "steel", "tan", "thistle", "tomato", "turquoise",
+    "violet", "wheat", "white", "yellow",
+)
+P_TYPES = tuple(f"{a} {b} {c}" for a in (
+    "STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO")
+    for b in ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED")
+    for c in ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER"))
+# phase 5c's SF10 tables with phase 15's columns (appended, so RF1's
+# positional INSERTs keep their meaning) and tables; phase 12 loads
+# Q3_SPEC_DDL's columns only
+SPEC15_DDL = (
+    Q3_SPEC_DDL[0].replace(
+        "c_name text)",
+        "c_name text, c_nationkey int, c_phone text, "
+        "c_acctbal numeric(12,2))"),
+    Q3_SPEC_DDL[1],
+    Q3_SPEC_DDL[2].replace(
+        "l_commitdate date)",
+        "l_commitdate date, l_partkey bigint, l_suppkey bigint)"),
+    "create table nation (n_nationkey int, n_name text, n_regionkey int) "
+    "distribute by replication",
+    "create table region (r_regionkey int, r_name text) "
+    "distribute by replication",
+    "create table supplier (s_suppkey bigint, s_name text, s_address text, "
+    "s_nationkey int, s_phone text) distribute by roundrobin",
+    "create table part (p_partkey bigint, p_name text, p_type text) "
+    "distribute by roundrobin",
+    "create table partsupp (ps_partkey bigint, ps_suppkey bigint, "
+    "ps_supplycost numeric(12,2)) distribute by roundrobin",
+)
+Q7 = (
+    "select supp_nation, cust_nation, l_year, sum(volume) as revenue "
+    "from (select n1.n_name as supp_nation, n2.n_name as cust_nation, "
+    "extract(year from l_shipdate) as l_year, "
+    "l_extendedprice * (1 - l_discount) as volume "
+    "from supplier, lineitem, orders, customer, nation n1, nation n2 "
+    "where s_suppkey = l_suppkey and o_orderkey = l_orderkey "
+    "and c_custkey = o_custkey and s_nationkey = n1.n_nationkey "
+    "and c_nationkey = n2.n_nationkey "
+    "and ((n1.n_name = 'FRANCE' and n2.n_name = 'GERMANY') "
+    "or (n1.n_name = 'GERMANY' and n2.n_name = 'FRANCE')) "
+    "and l_shipdate between date '1995-01-01' and date '1996-12-31'"
+    ") as shipping group by supp_nation, cust_nation, l_year "
+    "order by supp_nation, cust_nation, l_year"
+)
+Q8 = (
+    "select o_year, sum(case when nation = 'BRAZIL' then volume else 0 "
+    "end) / sum(volume) as mkt_share "
+    "from (select extract(year from o_orderdate) as o_year, "
+    "l_extendedprice * (1 - l_discount) as volume, n2.n_name as nation "
+    "from part, supplier, lineitem, orders, customer, nation n1, "
+    "nation n2, region where p_partkey = l_partkey "
+    "and s_suppkey = l_suppkey and l_orderkey = o_orderkey "
+    "and o_custkey = c_custkey and c_nationkey = n1.n_nationkey "
+    "and n1.n_regionkey = r_regionkey and r_name = 'AMERICA' "
+    "and s_nationkey = n2.n_nationkey "
+    "and o_orderdate between date '1995-01-01' and date '1996-12-31' "
+    "and p_type = 'ECONOMY ANODIZED STEEL') as all_nations "
+    "group by o_year order by o_year"
+)
+Q9 = (
+    "select nation, o_year, sum(amount) as sum_profit "
+    "from (select n_name as nation, extract(year from o_orderdate) "
+    "as o_year, l_extendedprice * (1 - l_discount) "
+    "- ps_supplycost * l_quantity as amount "
+    "from part, supplier, lineitem, partsupp, orders, nation "
+    "where s_suppkey = l_suppkey and ps_suppkey = l_suppkey "
+    "and ps_partkey = l_partkey and p_partkey = l_partkey "
+    "and o_orderkey = l_orderkey and s_nationkey = n_nationkey "
+    "and p_name like '%green%') as profit "
+    "group by nation, o_year order by nation, o_year desc"
+)
+# Q15's revenue0 over its quarter (1996-01-01 + interval '3' month
+# written as the date it folds to), as a view, a WITH and a table
+Q15_REVENUE = (
+    "select l_suppkey as supplier_no, "
+    "sum(l_extendedprice * (1 - l_discount)) as total_revenue "
+    "from lineitem where l_shipdate >= date '1996-01-01' "
+    "and l_shipdate < date '1996-04-01' group by l_suppkey"
+)
+Q15_QUERY = (
+    "select s_suppkey, s_name, s_address, s_phone, total_revenue "
+    "from supplier, revenue0 where s_suppkey = supplier_no "
+    "and total_revenue = (select max(total_revenue) from revenue0) "
+    "order by s_suppkey"
+)
+Q15_WITH = f"with revenue0 as ({Q15_REVENUE}) {Q15_QUERY}"
+Q22_CORE = (
+    "select substring(c_phone from 1 for 2) as cntrycode, count(*) "
+    "as numcust, sum(c_acctbal) as totacctbal from customer "
+    "group by substring(c_phone from 1 for 2) order by cntrycode"
+)
+Q6_VIEW = ("create view q6_lines as select l_extendedprice, l_discount, "
+           "l_shipdate, l_quantity from lineitem")
+Q6_MONTH_DDL = ("create table q6_month (l_extendedprice numeric(12,2), "
+                "l_discount numeric(4,2), l_shipdate date, "
+                "l_quantity numeric(10,2)) distribute by roundrobin")
+Q6_MONTH_INSERT = (
+    "insert into q6_month select l_extendedprice, l_discount, l_shipdate, "
+    "l_quantity from lineitem where l_shipdate >= date '1994-03-01' "
+    "and l_shipdate < date '1994-04-01'")
+
+
+def _text_rows(n: int, parts) -> np.ndarray:
+    """n strings assembled from byte columns: ``parts`` is a list of
+    [n, w] uint8 arrays (a literal is one row broadcast), joined left to
+    right into fixed-width bytes, decoded to str."""
+    cols = [np.broadcast_to(p, (n, p.shape[1])) for p in parts]
+    m = np.ascontiguousarray(np.concatenate(cols, axis=1))
+    return m.view(f"S{m.shape[1]}").reshape(-1).astype(str)
+
+
+def _digits(rng, n: int, k: int) -> np.ndarray:
+    """[n, k] ASCII digits of a uniform integer in [10^(k-1), 10^k)."""
+    v = rng.integers(10 ** (k - 1), 10 ** k, n)
+    out = np.empty((n, k), dtype=np.uint8)
+    for j in range(k - 1, -1, -1):
+        out[:, j] = 48 + v % 10
+        v //= 10
+    return out
+
+
+def _lit(s: str) -> np.ndarray:
+    return np.frombuffer(s.encode(), dtype=np.uint8).reshape(1, -1)
+
+
+def _phones(rng, nationkey) -> np.ndarray:
+    """dbgen's phone numbers: the country code (nation key + 10), then
+    three, three and four random digits."""
+    n = len(nationkey)
+    cc = np.stack([48 + (nationkey + 10) // 10, 48 + (nationkey + 10) % 10],
+                  axis=1).astype(np.uint8)
+    return _text_rows(n, [cc, _lit("-"), _digits(rng, n, 3), _lit("-"),
+                          _digits(rng, n, 3), _lit("-"),
+                          _digits(rng, n, 4)])
+
+
+def _suppkey(partkey, i, n_s: int):
+    """The spec's supplier of a part's i-th partsupp row (4.2.3)."""
+    return (partkey + i * (n_s // 4 + (partkey - 1) // n_s)) % n_s + 1
+
+
+def make_phase15(tables: dict, sf: float, seed: int = 42) -> dict:
+    """Phase 15's columns and tables as dbgen makes them (TPC-H rev. 3,
+    4.2.3) beside ``make_q3_spec(sf, seed)``'s ``tables``: lineitem's
+    l_partkey (the part make_q3_spec priced each line by, its stream
+    drawn again) and l_suppkey (one of the part's four suppliers,
+    uniform), customer's c_nationkey, c_phone and c_acctbal, nation,
+    region, supplier (10 000 x SF: s_name, s_address, s_nationkey,
+    s_phone), part (200 000 x SF: p_name of five distinct P_NAME words,
+    p_type) and partsupp (four rows a part, the spec's suppliers,
+    ps_supplycost). Each random column from a stream of its own
+    (``seed`` + 1501 ...), so the columns phases 5-14 read keep their
+    values. Left out (PERF.md's reduced list): every other column of
+    the five tables."""
+    n_c = len(tables["customer"]["c_custkey"])
+    n_l = len(tables["lineitem"]["l_orderkey"])
+    n_p = max(int(200_000 * sf), 1)
+    n_s = max(int(10_000 * sf), 4)
+
+    def rng(k):
+        return np.random.default_rng(seed + 1500 + k)
+
+    def partkey():
+        # make_q3_spec's own stream for the part behind each price
+        return np.random.default_rng(np.random.SeedSequence(seed).spawn(
+            11)[2]).integers(1, n_p + 1, n_l)
+
+    def customer():
+        nk = rng(2).integers(0, 25, n_c).astype(np.int32)
+        return {"c_nationkey": nk,
+                "c_phone": Text(_phones(rng(3), nk), np.arange(n_c)),
+                "c_acctbal": rng(4).integers(-99_999, 1_000_000, n_c)}
+
+    def supplier():
+        nk = rng(5).integers(0, 25, n_s).astype(np.int32)
+        k = np.arange(1, n_s + 1)
+        name = np.char.add("Supplier#", np.char.zfill(k.astype(str), 9))
+        r = rng(6)
+        length = r.integers(10, 41, n_s)
+        alnum = np.frombuffer(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMN"
+                              b"OPQRSTUVWXYZ0123456789,.", dtype=np.uint8)
+        addr = alnum[r.integers(0, len(alnum), (n_s, 40))]
+        addr[np.arange(40) >= length[:, None]] = 0
+        return {"s_suppkey": k.astype(np.int64),
+                "s_name": Text(name, np.arange(n_s)),
+                "s_address": Text(_text_rows(n_s, [addr]), np.arange(n_s)),
+                "s_nationkey": nk,
+                "s_phone": Text(_phones(rng(7), nk), np.arange(n_s))}
+
+    def part():
+        r = rng(8)
+        w = r.integers(0, len(P_NAME_WORDS), (n_p, 5))
+        while True:  # five distinct words a name
+            s = np.sort(w, axis=1)
+            dup = (s[:, 1:] == s[:, :-1]).any(axis=1)
+            if not dup.any():
+                break
+            w[dup] = r.integers(0, len(P_NAME_WORDS), (int(dup.sum()), 5))
+        key = w @ (len(P_NAME_WORDS) ** np.arange(5)).astype(np.int64)
+        uniq, first, inv = np.unique(key, return_index=True,
+                                     return_inverse=True)
+        words = np.asarray(P_NAME_WORDS)
+        vocab = words[w[first, 0]]
+        for j in range(1, 5):
+            vocab = np.char.add(np.char.add(vocab, " "), words[w[first, j]])
+        return {"p_partkey": np.arange(1, n_p + 1, dtype=np.int64),
+                "p_name": Text(vocab, inv.reshape(-1)),
+                "p_type": Text(np.asarray(P_TYPES),
+                               rng(9).integers(0, len(P_TYPES), n_p)),
+                "words": w}
+
+    def partsupp():
+        pk = np.repeat(np.arange(1, n_p + 1, dtype=np.int64), 4)
+        i = np.tile(np.arange(4, dtype=np.int64), n_p)
+        return {"ps_partkey": pk, "ps_suppkey": _suppkey(pk, i, n_s),
+                "ps_supplycost": rng(10).integers(100, 100_001, 4 * n_p)}
+
+    got = in_threads({"pk": partkey, "choice": lambda: rng(1).integers(
+        0, 4, n_l), "customer": customer, "supplier": supplier,
+        "part": part, "partsupp": partsupp}, workers=6)
+    pk, choice = got["pk"], got["choice"]
+    return {
+        "lineitem": {"l_partkey": pk,
+                     "l_suppkey": _suppkey(pk, choice, n_s)},
+        "choice": choice, "customer": got["customer"],
+        "nation": {"n_nationkey": np.arange(25, dtype=np.int32),
+                   "n_name": np.asarray([n for n, _r in NATIONS]),
+                   "n_regionkey": np.asarray([r for _n, r in NATIONS],
+                                             dtype=np.int32)},
+        "region": {"r_regionkey": np.arange(5, dtype=np.int32),
+                   "r_name": np.asarray(REGIONS)},
+        "supplier": got["supplier"], "part": got["part"],
+        "partsupp": got["partsupp"],
+    }
+
+
+P15_TABLES = ("nation", "region", "supplier", "part", "partsupp")
+
+
+def _years(days) -> np.ndarray:
+    return days.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+
+
+def _order_pos(okey):
+    """make_q3_spec's order index of each order key (k = i // 8 * 32 +
+    i % 8 + 1)."""
+    k = okey - 1
+    return k // 32 * 8 + k % 32
+
+
+def expected_q7(t, x) -> list:
+    li, o = t["lineitem"], t["orders"]
+    sn = x["supplier"]["s_nationkey"][x["lineitem"]["l_suppkey"] - 1]
+    op = _order_pos(li["l_orderkey"])
+    cn = x["customer"]["c_nationkey"][o["o_custkey"][op] - 1]
+    fr, de = 6, 7
+    ship = li["l_shipdate"]
+    m = (((sn == fr) & (cn == de)) | ((sn == de) & (cn == fr))) & (
+        ship >= _day("1995-01-01")) & (ship <= _day("1996-12-31"))
+    vol = li["l_extendedprice"][m] * (100 - li["l_discount"][m])
+    key = sn[m].astype(np.int64) * 100_000 + cn[m] * 10_000 + _years(ship[m])
+    rows = []
+    for k in np.unique(key):
+        s, c, y = k // 100_000, k // 10_000 % 10, k % 10_000
+        rows.append((NATIONS[s][0], NATIONS[c][0], int(y),
+                     int(vol[key == k].sum()) / 10**4))
+    return sorted(rows)
+
+
+def expected_q8(t, x) -> list:
+    li, o = t["lineitem"], t["orders"]
+    pk, sk = x["lineitem"]["l_partkey"], x["lineitem"]["l_suppkey"]
+    p_type = x["part"]["p_type"]
+    steel = P_TYPES.index("ECONOMY ANODIZED STEEL")
+    op = _order_pos(li["l_orderkey"])
+    odate = o["o_orderdate"][op]
+    cn = x["customer"]["c_nationkey"][o["o_custkey"][op] - 1]
+    america = np.asarray([r == 1 for _n, r in NATIONS])
+    m = (p_type.idx[pk - 1] == steel) & america[cn] & (
+        odate >= _day("1995-01-01")) & (odate <= _day("1996-12-31"))
+    vol = li["l_extendedprice"][m] * (100 - li["l_discount"][m])
+    brazil = x["supplier"]["s_nationkey"][sk[m] - 1] == 2
+    years = _years(odate[m])
+    rows = []
+    for y in np.unique(years):
+        g = years == y
+        num, den = int(vol[g & brazil].sum()), int(vol[g].sum())
+        # the analyzer's FLOAT8 quotient of two scale-4 sums: each cast
+        # to float32 on the device (its _dev_dtype), divided there
+        share = np.float32(num / 10**4) / np.float32(den / 10**4)
+        rows.append((int(y), float(share)))
+    return rows
+
+
+def expected_q9(t, x) -> list:
+    li, o = t["lineitem"], t["orders"]
+    pk = x["lineitem"]["l_partkey"]
+    green = (x["part"]["words"] == P_NAME_WORDS.index("green")).any(axis=1)
+    m = green[pk - 1]
+    cost = x["partsupp"]["ps_supplycost"][(pk[m] - 1) * 4
+                                          + x["choice"][m]]
+    amount = (li["l_extendedprice"][m] * (100 - li["l_discount"][m])
+              - cost * li["l_quantity"][m])
+    nk = x["supplier"]["s_nationkey"][x["lineitem"]["l_suppkey"][m] - 1]
+    years = _years(o["o_orderdate"][_order_pos(li["l_orderkey"][m])])
+    key = nk.astype(np.int64) * 10_000 + years
+    uk, inv = np.unique(key, return_inverse=True)
+    sums = np.zeros(len(uk), dtype=np.int64)
+    np.add.at(sums, inv, amount)
+    rows = [(NATIONS[k // 10_000][0], int(k % 10_000), int(s) / 10**4)
+            for k, s in zip(uk.tolist(), sums.tolist())]
+    return sorted(rows, key=lambda r: (r[0], -r[1]))
+
+
+def q15_revenue(t, x):
+    """Each supplier's Q15 revenue in the quarter (scale 4), and whether
+    it has lines there."""
+    li = t["lineitem"]
+    ship = li["l_shipdate"]
+    m = (ship >= _day("1996-01-01")) & (ship < _day("1996-04-01"))
+    sk = x["lineitem"]["l_suppkey"][m]
+    n_s = len(x["supplier"]["s_suppkey"])
+    rev = li["l_extendedprice"][m] * (100 - li["l_discount"][m])
+    # float64 sums are exact: each supplier's sum is far below 2^53
+    sums = np.rint(np.bincount(sk - 1, weights=rev, minlength=n_s)
+                   ).astype(np.int64)
+    return sums, np.bincount(sk - 1, minlength=n_s) > 0
+
+
+def expected_q15(t, x) -> list:
+    sums, has = q15_revenue(t, x)
+    top = sums[has].max()
+    sup = x["supplier"]
+    return [(int(k), str(sup["s_name"].vocab[k - 1]),
+             str(sup["s_address"].vocab[k - 1]),
+             str(sup["s_phone"].vocab[k - 1]), int(sums[k - 1]) / 10**4)
+            for k in (np.nonzero(has & (sums == top))[0] + 1).tolist()]
+
+
+def expected_q22_core(x) -> list:
+    c = x["customer"]
+    n = np.bincount(c["c_nationkey"], minlength=25)
+    bal = np.zeros(25, dtype=np.int64)
+    np.add.at(bal, c["c_nationkey"], c["c_acctbal"])
+    return [(str(k + 10), int(n[k]), int(bal[k]) / 100)
+            for k in range(25) if n[k]]
+
+
+def p15_query(name: str, s, sql: str, check, args, card: str,
+              k1: bool = False) -> dict:
+    """One phase-15 query: the first run exact (``check`` raises on a
+    wrong answer), K1's and K2's launches counted from 0 around it (K1
+    must launch where ``k1``), the route and the fused executors' mode
+    or rung, the host-text tables' build ms; then the warm median of
+    ``--repeats`` runs (1 where the first run took over 1 s), and the
+    layers of one more run: the plan on the host, and the device path
+    (fragment or DAG, CUDA events) or the host route's fragments,
+    motions and coordinator."""
+    import torch
+
+    from opentenbase_tpu_torch.ops import expr as ex
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    tables_ms: list = []
+    builders = {}
+    for fn in ("_str_transform_table", "_pair_concat_table"):
+        orig = builders[fn] = getattr(ex, fn)
+
+        def timed(*a, _orig=orig):
+            t0 = time.perf_counter()
+            try:
+                return _orig(*a)
+            finally:
+                tables_ms.append((time.perf_counter() - t0) * 1e3)
+        setattr(ex, fn, timed)
+    try:
+        rp.radix_probe.launches = 0
+        sa.scan_agg.launches = 0
+        t1 = time.perf_counter()
+        got = s.query(sql)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t1) * 1000
+        first_tables = list(tables_ms)
+    finally:
+        for fn, orig in builders.items():
+            setattr(ex, fn, orig)
+    launches = {"scan_agg": sa.scan_agg.launches,
+                "radix_probe": rp.radix_probe.launches}
+    check(got)
+    if k1 and not launches["scan_agg"]:
+        raise AssertionError(f"{name}: scan_agg never launched")
+    fx = s.cluster.fused_executor()
+    if s.last_route == "host":
+        how = (f"host route (declined: {'; '.join(s.last_declines)}; join "
+               f"modes {s.last_executor.join_modes})")
+    elif s._fused_via_dag:
+        how = (f"fused DAG (mode {fx._dag.last_mode}, join modes "
+               f"{fx._dag.last_join_modes})")
+    else:
+        how = f"fused fragment ({fx.last_route}, rung {fx.last_rung})"
+    repeats = 1 if first_ms > 1000 else args.repeats
+    ts = []
+    for _ in range(repeats):
+        t1 = time.perf_counter()
+        check(s.query(sql))
+        ts.append((time.perf_counter() - t1) * 1000)
+    e2e = statistics.median(ts)
+    if s.last_route == "host":
+        ex_ = s.last_executor
+        layers = {"fragments": sum(r["ms"] for r in ex_.instrumentation),
+                  "motions": sum(m["ms"] for m in
+                                 ex_.motion_stats.values()),
+                  "coordinator": ex_.coordinator_ms}
+    else:
+        layers = layer_breakdown(s.cluster, sql, 1, dag=s._fused_via_dag)
+    text = ("; text tables built " + ", ".join(
+        f"{m:.3f}" for m in first_tables) + " ms") if first_tables else ""
+    print(f"main path: {name} exact through the {how}; scan_agg launches "
+          f"{launches['scan_agg']}, radix_probe launches "
+          f"{launches['radix_probe']}; {len(got)} rows; first run "
+          f"{first_ms:.3f} ms{text}) {got[:2]}... [{card}]", flush=True)
+    print(f"end to end: {name} median {e2e:.3f} ms over {repeats} runs; "
+          f"layers " + ", ".join(f"{k} {v:.3f}" for k, v in layers.items())
+          + f" ms [{card}]", flush=True)
+    return {"route": s.last_route, "launches": launches,
+            "first_ms": first_ms, "e2e": e2e, "layers": layers,
+            "text_tables_ms": first_tables}
+
+
+def run_phase15(q3: dict, args, card: str) -> dict:
+    """Phase 15 in phase 5c's SF10 cluster, after phase 10b and before
+    phase 8's writes (see the module's docstring). Returns each query's
+    result ({route, launches, ...}) under its name."""
+    cluster, t, x = q3["cluster"], q3["tables"], q3["p15"]
+    t0 = time.perf_counter()
+    ans = in_threads({
+        "Q7": lambda: expected_q7(t, x), "Q8": lambda: expected_q8(t, x),
+        "Q9": lambda: expected_q9(t, x), "Q15": lambda: expected_q15(t, x),
+        "Q22": lambda: expected_q22_core(x),
+        "Q6": lambda: expected_q6(t["lineitem"]),
+        "revenue": lambda: q15_revenue(t, x)})
+    li = t["lineitem"]
+    month = (li["l_shipdate"] >= _day("1994-03-01")) & (
+        li["l_shipdate"] < _day("1994-04-01"))
+    copy_q6 = expected_q6(_select(
+        {k: li[k] for k in ("l_extendedprice", "l_discount", "l_shipdate",
+                            "l_quantity")}, month))
+    sums, has = ans["revenue"]
+    ctas_want = [(int(has.sum()), int(sums[has].sum()) / 10**4,
+                  int(sums[has].max()) / 10**4)]
+    print(f"load: phase 15 numpy answers in "
+          f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+    s = cluster.session()
+    out = {}
+    for name, sql, key in (("TPC-H Q7", Q7, "Q7"), ("TPC-H Q8", Q8, "Q8"),
+                           ("TPC-H Q9", Q9, "Q9"),
+                           ("TPC-H Q15 (WITH)", Q15_WITH, "Q15"),
+                           ("TPC-H Q22 core (substring)", Q22_CORE,
+                            "Q22")):
+        out[name] = p15_query(name, s, sql, equal_to(name, ans[key]),
+                              args, card)
+    # Q15 as the spec writes it: the view, the query, the view dropped
+    s.execute(f"create view revenue0 as {Q15_REVENUE}")
+    out["TPC-H Q15 (view)"] = p15_query(
+        "TPC-H Q15 (view)", s, Q15_QUERY, equal_to("Q15", ans["Q15"]),
+        args, card)
+    s.execute("drop view revenue0")
+    s.execute(Q6_VIEW)
+    out["TPC-H Q6 (view)"] = p15_query(
+        "TPC-H Q6 (view)", s, Q6.replace("from lineitem", "from q6_lines"),
+        equal_to("Q6 (view)", ans["Q6"]), args, card, k1=True)
+    s.execute("drop view q6_lines")
+    t1 = time.perf_counter()
+    r = s.execute(f"create table revenue_s15 as {Q15_REVENUE}")
+    ms = (time.perf_counter() - t1) * 1e3
+    if r.rowcount != ctas_want[0][0]:
+        raise AssertionError(f"CREATE TABLE AS: {r.rowcount} rows, numpy "
+                             f"{ctas_want[0][0]}")
+    print(f"write: CREATE TABLE AS of Q15's revenue rows, {r.rowcount} rows "
+          f"in {ms:.3f} ms [{card}]", flush=True)
+    out["CTAS revenue_s15 (read)"] = p15_query(
+        "CTAS revenue_s15 (read)", s, "select count(*), sum(total_revenue),"
+        " max(total_revenue) from revenue_s15",
+        equal_to("CTAS", ctas_want), args, card)
+    s.execute(Q6_MONTH_DDL)
+    t1 = time.perf_counter()
+    r = s.execute(Q6_MONTH_INSERT)
+    ms = (time.perf_counter() - t1) * 1e3
+    if r.rowcount != int(month.sum()):
+        raise AssertionError(f"INSERT ... SELECT: {r.rowcount} rows, numpy "
+                             f"{int(month.sum())}")
+    print(f"write: INSERT ... SELECT of one month of lineitem, {r.rowcount} "
+          f"rows through the delta plane in {ms:.3f} ms [{card}]",
+          flush=True)
+    out["TPC-H Q6 (INSERT ... SELECT copy)"] = p15_query(
+        "TPC-H Q6 (INSERT ... SELECT copy)", s,
+        Q6.replace("from lineitem", "from q6_month"),
+        equal_to("Q6 copy", copy_q6), args, card, k1=True)
+    for table in ("revenue_s15", "q6_month"):
+        s.execute(f"drop table {table}")
     return out
 
 
@@ -6033,6 +6606,10 @@ def main(argv=None) -> int:
     # phase 10 (b): the host route in the same cluster, before phase 8
     host = run_phase10(topk["Q3 spec"]["phase8"], args, card)
     done("phase 10b")
+    # phase 15: the expression library and the query sugar, in the same
+    # cluster before phase 8 writes into it
+    phase15 = run_phase15(topk["Q3 spec"]["phase8"], args, card)
+    done("phase 15")
     radix_rows += phase9["radix_rows"]
     ssb_launches.update(phase9["k2_launches"])
     # phase 8 (a): TPC-H's refresh functions into Q3's tables, after
@@ -6100,7 +6677,8 @@ def main(argv=None) -> int:
     for label in ("before RF1", "after RF1", "after RF2"):
         for q, r in refresh[label].items():
             (topk if "Q3" in q else frag)[q] = r
-    for q, r in {**durable["queries"], **topology["queries"]}.items():
+    for q, r in {**durable["queries"], **topology["queries"],
+                 **phase15}.items():
         for k, n in r["launches"].items():
             path_launches[k][q] = n
     path_launches["radix_probe"]["pgwire SSB Q1.1"] = pgwire["launches"][

@@ -135,7 +135,10 @@ from opentenbase_tpu_torch.lmgr import (
 from opentenbase_tpu_torch.plan import analyze_statement
 from opentenbase_tpu_torch.plan import logical as L
 from opentenbase_tpu_torch.plan.distribute import distribute_statement
-from opentenbase_tpu_torch.plan.optimize import optimize_statement
+from opentenbase_tpu_torch.plan.optimize import (
+    optimize_statement,
+    prune_columns,
+)
 from opentenbase_tpu_torch.sql import ast as A
 from opentenbase_tpu_torch.sql import parse
 from opentenbase_tpu_torch.storage.column import Column, column_from_python
@@ -449,6 +452,10 @@ class Cluster:
         self._fused: Optional[FusedExecutor] = None
         # role -> SCRAM verifier (CREATE USER); no roles: trust mode
         self.users: dict[str, dict] = {}
+        # view name -> (parsed body, its text); function name ->
+        # plan.functions.SqlFunction (both expanded before analysis)
+        self.views: dict[str, tuple] = {}
+        self.functions: dict = {}
         # (name, ts) of barriers read back from a WAL, carried into
         # each checkpoint: the reference's recovery reads them there
         self.barriers: list = []
@@ -1060,6 +1067,9 @@ class Session:
         A.SavepointStmt: "SAVEPOINT",
         A.RollbackToSavepoint: "ROLLBACK TO SAVEPOINT",
         A.ReleaseSavepoint: "RELEASE SAVEPOINT",
+        A.CreateMatview: "materialized views",
+        A.RefreshMatview: "materialized views",
+        A.DropMatview: "materialized views",
     }
 
     # the reference's FROM-less admin functions; the port takes
@@ -1128,6 +1138,11 @@ class Session:
             A.RollbackPrepared: self._x_rollbackprepared,
             A.CreateSequence: self._x_createsequence,
             A.DropSequence: self._x_dropsequence,
+            A.CreateView: self._x_createview,
+            A.DropView: self._x_dropview,
+            A.CreateTableAs: self._x_createtableas,
+            A.CreateFunction: self._x_createfunction,
+            A.DropFunction: self._x_dropfunction,
         }.get(type(stmt))
         if fn is None:
             raise NotPorted(self._REFUSED.get(
@@ -1142,7 +1157,11 @@ class Session:
                 admin = self._maybe_admin_function(stmt)
                 if admin is not None:
                     return admin
+            self._refuse_recursive_ctes(stmt)
             stmt = self._expand_sequences(stmt)
+            # the reference's rewrite order: SQL functions, then WITH
+            # and views (a CTE name shadows a same-named view)
+            stmt = self._expand_views(self._expand_functions(stmt))
             txn = self.txn
             if txn is None or not isinstance(
                 stmt, (A.Insert, A.Update, A.Delete)
@@ -1818,10 +1837,16 @@ class Session:
         schema: dict[str, t.SqlType] = {}
         for cd in stmt.columns:
             schema[cd.name] = t.type_from_name(cd.type_name, cd.type_args)
-        meta = cat.create_table(stmt.name, schema, self._dist_spec(stmt))
+        self._create_table(stmt.name, schema, self._dist_spec(stmt))
+        return Result("CREATE TABLE")
+
+    def _create_table(self, name: str, schema: dict,
+                      dist: DistributionSpec) -> TableMeta:
+        """A new table's catalog entry, its stores, and its 'D' record."""
+        meta = self.cluster.catalog.create_table(name, schema, dist)
         self.cluster.create_table_stores(meta)
         self._log_ddl({
-            "op": "create_table", "name": stmt.name,
+            "op": "create_table", "name": name,
             "schema": {k: _type_to_str(v) for k, v in schema.items()},
             "strategy": meta.dist.strategy.value,
             "key_columns": list(meta.dist.key_columns),
@@ -1829,18 +1854,28 @@ class Session:
             "constraints": {"not_null": [], "defaults": {},
                             "primary_key": None},
         })
-        return Result("CREATE TABLE")
+        return meta
 
     def _log_ddl(self, op: dict) -> None:
         if self.cluster.persistence is not None:
             self.cluster.persistence.log_ddl(op)
 
     def _x_droptable(self, stmt: A.DropTable) -> Result:
-        """DROP TABLE [IF EXISTS] (no dependent views exist in the
-        port, so CASCADE has nothing to drop). The table's stores and
-        device residency go with it."""
+        """DROP TABLE [IF EXISTS] [CASCADE]: refused while a view depends
+        on the table, unless CASCADE drops those views first. The table's
+        stores and device residency go with it."""
         cat = self.cluster.catalog
         for name in stmt.names:
+            if name in self.cluster.views:
+                raise SQLError(f'"{name}" is a view (use DROP VIEW)')
+            deps = self._dependent_views(name)
+            if deps and stmt.cascade:
+                self._drop_dependent_views(name)
+                deps = self._dependent_views(name)
+            if deps:
+                raise SQLError(
+                    f'cannot drop table "{name}": view(s) '
+                    f"{', '.join(sorted(deps))} depend on it", "2BP01")
             if not cat.has(name):
                 if stmt.if_exists:
                     continue
@@ -1936,6 +1971,239 @@ class Session:
             self.cluster.persistence.checkpoint()
         return Result("VACUUM", rowcount=removed)
 
+    # -- views, WITH, CREATE TABLE AS and SQL functions ------------------------
+    def _refuse_recursive_ctes(self, stmt: A.Statement) -> None:
+        """WITH RECURSIVE whose CTE reads itself is refused by name (the
+        reference materializes it by fixpoint into temporary tables);
+        RECURSIVE written over CTEs that do not recurse is a plain WITH,
+        as in the reference."""
+        sel = stmt if isinstance(stmt, A.Select) else (
+            stmt.query if isinstance(stmt, (A.CreateTableAs, A.Insert))
+            else None)
+        if sel is None or not (sel.ctes_recursive and sel.ctes):
+            return
+        from opentenbase_tpu_torch.plan.astwalk import relation_names
+
+        if any(name in relation_names(body) for name, _a, body in sel.ctes):
+            raise NotPorted("WITH RECURSIVE")
+
+    def _expand_functions(self, stmt: A.Statement):
+        """SQL-function calls inlined before analysis (the planner's
+        inline_function)."""
+        funcs = self.cluster.functions
+        if not funcs or isinstance(stmt, (A.CreateFunction,
+                                          A.DropFunction)):
+            return stmt
+        from opentenbase_tpu_torch.plan.functions import (
+            FunctionError,
+            expand_calls,
+        )
+
+        try:
+            return expand_calls(stmt, funcs)
+        except FunctionError as e:
+            raise SQLError(str(e)) from None
+
+    def _expand_ctes_stmt(self, stmt: A.Statement):
+        """WITH clauses expanded (statement-scoped views): before view
+        expansion, so a CTE name shadows a same-named view, and again
+        after it, for view bodies that carry WITH."""
+        from opentenbase_tpu_torch.plan.astwalk import walk_expr_subqueries
+        from opentenbase_tpu_torch.plan.views import (
+            ViewRecursionError,
+            expand_ctes,
+        )
+
+        try:
+            if isinstance(stmt, A.Select):
+                expand_ctes(stmt)
+            elif isinstance(stmt, A.CreateTableAs):
+                expand_ctes(stmt.query)
+            elif isinstance(stmt, (A.Update, A.Delete, A.Insert)):
+                if isinstance(stmt, A.Insert) and stmt.query is not None:
+                    expand_ctes(stmt.query)
+                exprs = []
+                if getattr(stmt, "where", None) is not None:
+                    exprs.append(stmt.where)
+                for _c, e in getattr(stmt, "assignments", ()):
+                    exprs.append(e)
+                for row in getattr(stmt, "values", ()):
+                    exprs.extend(row)
+                for e in exprs:
+                    walk_expr_subqueries(e, expand_ctes)
+        except ViewRecursionError as e:
+            raise SQLError(str(e)) from None
+        return stmt
+
+    def _expand_views(self, stmt: A.Statement):
+        """View references replaced by their bodies (the rewriter), and
+        writes into a view refused."""
+        stmt = self._expand_ctes_stmt(stmt)
+        views = self.cluster.views
+        if not views:
+            return stmt
+        from opentenbase_tpu_torch.plan.views import (
+            ViewRecursionError,
+            _expr_subqueries,
+            rewrite_views,
+        )
+
+        try:
+            if isinstance(stmt, A.Select):
+                rewrite_views(stmt, views)
+            elif isinstance(stmt, A.Insert):
+                if stmt.table in views:
+                    raise SQLError(
+                        f'cannot insert into view "{stmt.table}"')
+                if stmt.query is not None:
+                    rewrite_views(stmt.query, views)
+            elif isinstance(stmt, (A.Update, A.Delete)):
+                if stmt.table in views:
+                    verb = ("update" if isinstance(stmt, A.Update)
+                            else "delete from")
+                    raise SQLError(f'cannot {verb} view "{stmt.table}"')
+                if stmt.where is not None:
+                    _expr_subqueries(stmt.where, views, 0)
+            elif isinstance(stmt, A.CreateTableAs):
+                rewrite_views(stmt.query, views)
+        except ViewRecursionError as e:
+            raise SQLError(str(e)) from None
+        # view bodies may themselves carry WITH clauses
+        return self._expand_ctes_stmt(stmt)
+
+    def _refuse_system_views(self, sel: A.Select) -> None:
+        """A system view (pg_views, pg_proc, ...) that no table shadows
+        is refused by name."""
+        from opentenbase_tpu_torch.plan.astwalk import relation_names
+
+        for name in sorted(relation_names(sel) & _SYSTEM_VIEWS):
+            if not self.cluster.catalog.has(name):
+                raise NotPorted(f"system view {name}")
+
+    def _reserved_relation(self, name: str) -> None:
+        if name in _SYSTEM_VIEWS:
+            raise SQLError(
+                f'relation name "{name}" is reserved for a system view')
+
+    def _x_createview(self, stmt: A.CreateView) -> Result:
+        """CREATE [OR REPLACE] VIEW: the body must analyze now (view.c
+        checks the definition at CREATE time); its text is what the WAL
+        and checkpoints keep."""
+        import copy
+
+        from opentenbase_tpu_torch.plan.views import rewrite_views
+
+        c = self.cluster
+        self._reserved_relation(stmt.name)
+        if c.catalog.has(stmt.name):
+            raise SQLError(f'"{stmt.name}" already exists as a table')
+        if stmt.name in c.views and not stmt.replace:
+            raise SQLError(f'view "{stmt.name}" already exists')
+        probe = rewrite_views(copy.deepcopy(stmt.query), c.views)
+        probe = self._expand_views(self._expand_functions(probe))
+        self._refuse_system_views(probe)
+        prune_columns(analyze_statement(probe, c.catalog))
+        c.views[stmt.name] = (stmt.query, stmt.text)
+        self._log_ddl({"op": "create_view", "name": stmt.name,
+                       "text": stmt.text})
+        return Result("CREATE VIEW")
+
+    def _dependent_views(self, relname: str) -> list[str]:
+        """Views whose definitions reference ``relname`` (pg_depend)."""
+        from opentenbase_tpu_torch.plan.astwalk import relation_names
+
+        return [vname for vname, (q, _text) in self.cluster.views.items()
+                if vname != relname and relname in relation_names(q)]
+
+    def _drop_dependent_views(self, relname: str) -> None:
+        """CASCADE: every view depending on ``relname``, dependents
+        first."""
+        for v in self._dependent_views(relname):
+            if v in self.cluster.views:
+                self._drop_dependent_views(v)
+                self._x_dropview(A.DropView(v, if_exists=True))
+
+    def _x_dropview(self, stmt: A.DropView) -> Result:
+        c = self.cluster
+        if stmt.name not in c.views:
+            if stmt.if_exists:
+                return Result("DROP VIEW")
+            raise SQLError(f'view "{stmt.name}" does not exist')
+        deps = self._dependent_views(stmt.name)
+        if deps:
+            raise SQLError(
+                f'cannot drop view "{stmt.name}": view(s) '
+                f"{', '.join(sorted(deps))} depend on it", "2BP01")
+        del c.views[stmt.name]
+        self._log_ddl({"op": "drop_view", "name": stmt.name})
+        return Result("DROP VIEW")
+
+    def _x_createtableas(self, stmt: A.CreateTableAs) -> Result:
+        """CREATE TABLE ... AS SELECT: a round-robin table of the query's
+        output columns, its rows re-encoded through the new table's
+        dictionaries and appended in one transaction."""
+        c = self.cluster
+        self._reserved_relation(stmt.name)
+        if c.catalog.has(stmt.name) or stmt.name in c.views:
+            if stmt.if_not_exists:
+                return Result("CREATE TABLE")
+            raise SQLError(f'relation "{stmt.name}" already exists')
+        batch = self._run_select(stmt.query)
+        schema: dict[str, t.SqlType] = {}
+        for name, col in batch.columns.items():
+            if name in schema or not name:
+                raise SQLError(
+                    "CREATE TABLE AS needs unique, named output columns")
+            schema[name] = col.type
+        if not schema:
+            raise SQLError("CREATE TABLE AS needs at least one column")
+        meta = self._create_table(
+            stmt.name, schema, DistributionSpec(DistStrategy.ROUNDROBIN))
+        full = ColumnBatch.from_pydict(
+            {name: col.to_python() for name, col in batch.columns.items()},
+            meta.schema, meta.dictionaries)
+        txn, implicit = self._begin_implicit()
+        n = self._finish(txn, implicit, lambda: self._locked_append(
+            meta, full, txn))
+        return Result("CREATE TABLE AS", rowcount=n)
+
+    def _x_createfunction(self, stmt: A.CreateFunction) -> Result:
+        """CREATE [OR REPLACE] FUNCTION ... LANGUAGE SQL (PL/pgSQL is
+        refused by name)."""
+        from opentenbase_tpu_torch.plan.functions import (
+            FunctionError,
+            SqlFunction,
+        )
+
+        funcs = self.cluster.functions
+        if not stmt.replace and stmt.name in funcs:
+            raise SQLError(f'function "{stmt.name}" already exists')
+        if stmt.name in self._SEQ_FUNCS or stmt.name in self._ADMIN_FUNCS:
+            raise SQLError(f'"{stmt.name}" is a reserved function name')
+        if stmt.language == "plpgsql":
+            raise NotPorted("PL/pgSQL functions")
+        try:
+            fn = SqlFunction.create(stmt.name, stmt.args, stmt.rettype,
+                                    stmt.body)
+        except FunctionError as e:
+            raise SQLError(str(e)) from None
+        funcs[stmt.name] = fn
+        self._log_ddl({
+            "op": "create_function", "name": stmt.name,
+            "args": list(map(list, stmt.args)), "rettype": stmt.rettype,
+            "body": stmt.body, "language": stmt.language,
+        })
+        return Result("CREATE FUNCTION")
+
+    def _x_dropfunction(self, stmt: A.DropFunction) -> Result:
+        if stmt.name not in self.cluster.functions:
+            if stmt.if_exists:
+                return Result("DROP FUNCTION")
+            raise SQLError(f'function "{stmt.name}" does not exist')
+        del self.cluster.functions[stmt.name]
+        self._log_ddl({"op": "drop_function", "name": stmt.name})
+        return Result("DROP FUNCTION")
+
     # -- INSERT ... VALUES ---------------------------------------------------
     _LITERAL_OK = {
         t.TypeId.BOOL: (bool,),
@@ -1958,12 +2226,15 @@ class Session:
     def _x_insert(self, stmt: A.Insert) -> Result:
         """VALUES rows of plain literals build per-column arrays directly
         (the reference's bulk-insert rewrite, engine.py
-        _bulk_insert_batch), route by the table's locator and park as
-        delta batches at PENDING_TS; the commit stamps them."""
-        if stmt.query is not None or not stmt.values:
-            raise NotPorted("INSERT ... SELECT")
+        _bulk_insert_batch); INSERT ... SELECT runs its query through the
+        one dispatch point, cast and encoded into the table's types and
+        dictionaries by the analyzer's projection. Either batch routes by
+        the table's locator and parks as delta batches at PENDING_TS; the
+        commit stamps them."""
         if stmt.returning or stmt.on_conflict is not None:
             raise NotPorted("INSERT ... RETURNING / ON CONFLICT")
+        if stmt.query is not None:
+            return self._insert_select(stmt)
         meta = self._table_meta(stmt.table)
         columns = list(stmt.columns) if stmt.columns else list(meta.schema)
         arity = len(stmt.values[0])
@@ -2005,18 +2276,44 @@ class Session:
                 )
         batch = ColumnBatch({k: cols[k] for k in meta.schema}, n)
         txn, implicit = self._begin_implicit()
+        return Result("INSERT", rowcount=self._finish(
+            txn, implicit, lambda: self._locked_append(meta, batch, txn)))
 
-        def write():
-            # a shared table lock: coexists with other writers
-            self.cluster.locks.acquire(
-                self.session_id, txn.gxid,
-                [(node, meta.name) for node in meta.node_indices],
-                TABLE_SHARED,
-            )
-            return self._route_and_append(meta, batch, txn)
+    def _insert_select(self, stmt: A.Insert) -> Result:
+        """INSERT ... SELECT: the source (the analyzer's projection into
+        the target's column types and dictionaries) read at the
+        statement's snapshot, its columns completed with NULLs in table
+        order, then appended as INSERT VALUES appends."""
+        self._refuse_system_views(stmt.query)
+        splan = analyze_statement(stmt, self.cluster.catalog)
+        iplan = splan.root
+        meta = self._table_meta(iplan.table)
+        src = self._run_statement_plan(optimize_statement(
+            L.StatementPlan(iplan.source, splan.subplans),
+            self.cluster.catalog))
+        given = dict(zip(iplan.columns, src.columns.values()))
+        cols: dict[str, Column] = {}
+        for name, ty in meta.schema.items():
+            col = given.get(name)
+            cols[name] = (
+                Column(ty, col.data, col.validity, col.dictionary)
+                if col is not None else column_from_python(
+                    [None] * src.nrows, ty, meta.dictionaries.get(name)))
+        batch = ColumnBatch(cols, src.nrows)
+        txn, implicit = self._begin_implicit()
+        return Result("INSERT", rowcount=self._finish(
+            txn, implicit, lambda: self._locked_append(meta, batch, txn)))
 
-        return Result("INSERT",
-                      rowcount=self._finish(txn, implicit, write))
+    def _locked_append(self, meta: TableMeta, batch: ColumnBatch,
+                       txn: Transaction) -> int:
+        """``_route_and_append`` under a shared table lock, which
+        coexists with other writers."""
+        self.cluster.locks.acquire(
+            self.session_id, txn.gxid,
+            [(node, meta.name) for node in meta.node_indices],
+            TABLE_SHARED,
+        )
+        return self._route_and_append(meta, batch, txn)
 
     def _route_and_append(
         self, meta: TableMeta, batch: ColumnBatch, txn: Transaction
@@ -2316,13 +2613,22 @@ class Session:
     def _x_select(self, stmt: A.Select) -> Result:
         if stmt.for_update is not None:
             raise NotPorted("SELECT ... FOR UPDATE")
-        catalog = self.cluster.catalog
-        splan = optimize_statement(analyze_statement(stmt, catalog), catalog)
-        dplan = distribute_statement(splan, catalog)
-        batch = self._execute_dplan(dplan, self._snapshot())
+        batch = self._run_select(stmt)
         return Result(
             "SELECT", batch.to_rows(), batch.column_names(), batch.nrows
         )
+
+    def _run_select(self, stmt: A.Select) -> ColumnBatch:
+        """A (rewritten) SELECT planned and run at the session's
+        snapshot."""
+        self._refuse_system_views(stmt)
+        catalog = self.cluster.catalog
+        return self._run_statement_plan(optimize_statement(
+            analyze_statement(stmt, catalog), catalog))
+
+    def _run_statement_plan(self, splan: L.StatementPlan) -> ColumnBatch:
+        dplan = distribute_statement(splan, self.cluster.catalog)
+        return self._execute_dplan(dplan, self._snapshot())
 
     def _execute_dplan(self, dplan, snapshot) -> ColumnBatch:
         """The one dispatch point for a planned statement (the
@@ -2428,6 +2734,25 @@ class Session:
         return LocalExecutor(
             self.cluster.catalog, {final_idx: out},
             device=merge_device(self.cluster, out.nrows)).run_plan(dplan.root)
+
+
+# the reference's system views (engine.py _SYSTEM_VIEWS): reserved names
+# for CREATE VIEW and CREATE TABLE AS, and refused by name when read
+_SYSTEM_VIEWS = frozenset({
+    "pg_audit_actions", "pg_audit_log", "pg_cluster_health", "pg_locks",
+    "pg_matviews", "pg_partitions", "pg_prepared_xacts", "pg_proc",
+    "pg_publication", "pg_resgroup_role", "pg_stat_2pc",
+    "pg_stat_cluster_activity", "pg_stat_concentrator",
+    "pg_stat_device_cache", "pg_stat_dml", "pg_stat_faults",
+    "pg_stat_fused", "pg_stat_matview", "pg_stat_memory", "pg_stat_pallas",
+    "pg_stat_plan_cache", "pg_stat_progress_checkpoint",
+    "pg_stat_progress_recovery", "pg_stat_progress_refresh",
+    "pg_stat_query_phases", "pg_stat_rebalance", "pg_stat_result_cache",
+    "pg_stat_statements", "pg_stat_user_tables", "pg_stat_wait_events",
+    "pg_stat_wal", "pg_stat_wlm", "pg_stat_wlm_queue", "pg_subscription",
+    "pg_views", "pgxc_group", "pgxc_gtm_nodes", "pgxc_node",
+    "pgxc_node_health", "pgxc_shard_map",
+})
 
 
 def _subst_params(node, values):

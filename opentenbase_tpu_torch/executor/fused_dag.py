@@ -1716,8 +1716,11 @@ class DagRunner:
         grow)."""
         host = [resolve_param_host(s, self.fx.catalog.dictionary)
                 for s in comp.params]
-        return host, tuple(torch.from_numpy(p).to(self.fx.device)
-                           for p in host)
+        dev = self.fx.device
+        return host, tuple(
+            tuple(torch.from_numpy(a).to(dev) for a in p)
+            if isinstance(p, tuple) else torch.from_numpy(p).to(dev)
+            for p in host)
 
     def _cached(self, key, compile_fn):
         """The program cache: ``compile_fn()`` on a miss, the oldest
@@ -2953,7 +2956,8 @@ def _params_sig(host_params) -> tuple:
     """Hashable digest of the resolved literal params: a remembered
     group capacity must not alias across literal values."""
     return tuple((a.shape, str(a.dtype), hash(a.tobytes()))
-                 for a in host_params)
+                 for p in host_params
+                 for a in (p if isinstance(p, tuple) else (p,)))
 
 
 def _first_true(flags) -> Optional[int]:

@@ -31,17 +31,29 @@ A scalar subquery's value (``SubqueryParam``) binds as a (value,
 valid) pair from the list of subplan results the executor passes to
 ``resolve_param``.
 
+String functions stay off the device: a ``StrTransformParam`` is a
+per-code table the host builds once over the base argument's dictionary
+(upper, substr, lpad, length, to_date, ... composed innermost-first into
+one chain), and the device gathers from it at each row's code; ``||`` of
+two non-constant TEXT values is a ``PairConcatParam``, a 2-D table over
+the two source dictionaries. Either table carries a validity table: a
+value the host function refuses (an unparseable date) is NULL.
+
 The subset: column references, lifted literals, NULL, the six
 comparisons, AND/OR/NOT, unary minus, ``+ - * / // %`` (decimals in
 scaled-int64 form), IS [NOT] NULL, CASE, casts between the numeric,
-decimal, date and timestamp types, IN lists, LIKE/ILIKE, coalesce,
-nullif and date_add_days; TEXT compared
+decimal, date and timestamp types, IN lists, LIKE/ILIKE, every scalar
+function of the reference's compiler (numeric, date, Oracle shims, the
+dictionary-transform text functions and ``concat_pair``); TEXT compared
 with a constant, equality of two columns of one dictionary, and TEXT
-values carried across dictionaries. Anything else raises NotPorted.
+values carried across dictionaries. Anything else raises NotPorted, as
+the reference's compiler refuses it.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
+import os
 import re
 from dataclasses import dataclass
 from functools import reduce
@@ -118,6 +130,43 @@ class DictTranslateParam:
 
     src: str
     dst: str
+
+
+@dataclass(frozen=True)
+class StrTransformParam:
+    """Per-code table of a host string function chain over dictionary
+    ``src``'s values, padded to a power of two, with a validity table (a
+    value the chain refuses is NULL). A TEXT-valued chain (upper, substr,
+    lpad, ...) encodes its results into dictionary ``dst``; a
+    scalar-valued one (length, instr, to_date, ...) has ``dst`` None and
+    its values in ``out_dtype``. ``steps`` ((fn, args), ...) applies
+    innermost-first over the BASE dictionary, so upper(lower(x)) is one
+    table over x's codes; ``fn``/``args`` name the outermost step."""
+
+    src: str
+    dst: object  # str | None
+    fn: str
+    args: tuple = ()
+    out_dtype: str = "int32"
+    steps: tuple = ()
+
+
+@dataclass(frozen=True)
+class PairConcatParam:
+    """2-D int32 table for ``pre || a || mid || b || post`` over two
+    non-constant TEXT values: entry [code_a, code_b] is the ``dst`` code
+    of the joined string, both axes padded to powers of two, with a
+    validity table. ``steps_a``/``steps_b`` are host chains applied to
+    each axis first (upper(x) || y). Built on the host and cached on the
+    ``dst`` dictionary by the source sizes (dictionaries only grow);
+    refused past OTB_CONCAT_PAIR_MAX entries (default 2^20)."""
+
+    src_a: str
+    src_b: str
+    dst: str
+    segs: tuple = ("", "", "")  # (pre, mid, post)
+    steps_a: tuple = ()
+    steps_b: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -514,6 +563,11 @@ class ExprCompiler:
 
     def _func(self, e: E.FuncE, dids, want=None) -> CompiledExpr:
         name = e.name
+        if name == "concat_pair":
+            return self._concat_pair(e, dids, want)
+        if name in _HOST_TEXT_FNS:
+            # its argument's codes stay in the SOURCE dictionary
+            return self._text_func(e, dids, want)
         if name not in _FUNCS:
             raise NotPorted(f"function {name}")
         # a TEXT-valued function passes its target dictionary on
@@ -539,12 +593,261 @@ class ExprCompiler:
                     eq = eq & bv
                 return (ad, ~eq if av is None else (av & ~eq))
             return run_nullif
-        # date_add_days: date +/- an integer the analyzer left unfolded
-        def run_dad(cols, params):
+        if name in _UNARY:
+            fn = _UNARY[name]
+
+            def run_unary(cols, params):
+                d, v = argfs[0](cols, params)
+                return (fn(d), v)
+            return run_unary
+        if name == "round":
+            return self._round(e, argfs)
+        if name in ("extract_year", "extract_month", "extract_day"):
+            part = ("year", "month", "day").index(name.split("_")[1])
+            is_ts = e.args[0].type.id == t.TypeId.TIMESTAMP
+
+            def run_extract(cols, params):
+                d, v = argfs[0](cols, params)
+                days = (_floor_div(d, _US_DAY) if is_ts else d).to(
+                    torch.int32)
+                return (_civil_from_days(days)[part].to(torch.int32), v)
+            return run_extract
+        if name == "date_trunc_year":
+            def run_trunc_year(cols, params):
+                d, v = argfs[0](cols, params)
+                y, _m, _d = _civil_from_days(d.to(torch.int32))
+                one = torch.ones_like(y)
+                return (_days_from_civil(y, one, one).to(torch.int32), v)
+            return run_trunc_year
+        if name in ("greatest", "least"):
+            red = torch.maximum if name == "greatest" else torch.minimum
+
+            def run_gl(cols, params):
+                d, v = argfs[0](cols, params)
+                for f in argfs[1:]:
+                    nd, nv = f(cols, params)
+                    d = red(*_promote(d, nd))
+                    v = _and_valid(v, nv)
+                return (d, v)
+            return run_gl
+        if name == "date_add_days":
+            # date +/- an integer the analyzer left unfolded
+            def run_dad(cols, params):
+                d, v = argfs[0](cols, params)
+                nd, nv = argfs[1](cols, params)
+                return ((d + nd).to(torch.int32), _and_valid(v, nv))
+            return run_dad
+        if name == "power":
+            def run_pow(cols, params):
+                ad, av = argfs[0](cols, params)
+                bd, bv = argfs[1](cols, params)
+                return (torch.pow(*_promote(ad, bd)), _and_valid(av, bv))
+            return run_pow
+        if name == "trunc_num":
+            digits = 0
+            if len(e.args) > 1 and isinstance(e.args[1], E.Const):
+                digits = int(e.args[1].value)
+            factor = 10.0 ** digits
+
+            def run_trunc(cols, params):
+                d, v = argfs[0](cols, params)
+                if digits == 0:
+                    return (torch.trunc(d), v)
+                return (torch.trunc(d * factor) / factor, v)
+            return run_trunc
+        if name == "bitand":
+            def run_bitand(cols, params):
+                ad, av = argfs[0](cols, params)
+                bd, bv = argfs[1](cols, params)
+                return (torch.bitwise_and(*_promote(ad, bd)),
+                        _and_valid(av, bv))
+            return run_bitand
+        if name == "nanvl":
+            def run_nanvl(cols, params):
+                ad, av = argfs[0](cols, params)
+                bd, bv = argfs[1](cols, params)
+                nan = torch.isnan(ad)
+                if bv is not None:
+                    a_ok = torch.ones_like(nan) if av is None else av
+                    av = torch.where(nan, bv, a_ok)
+                return (torch.where(nan, *_promote(bd, ad)), av)
+            return run_nanvl
+        if name == "add_months":
+            return self._add_months(e, argfs)
+        if name == "months_between":
+            def run_mb(cols, params):
+                ad, av = argfs[0](cols, params)
+                bd, bv = argfs[1](cols, params)
+                y1, m1, d1 = _civil_from_days(ad.to(torch.int32))
+                y2, m2, d2 = _civil_from_days(bd.to(torch.int32))
+                y1, m1, d1, y2, m2, d2 = torch.broadcast_tensors(
+                    y1, m1, d1, y2, m2, d2)
+                # Oracle: a whole number when the days of the month are
+                # equal or both are their months' last days
+                whole = (d1 == d2) | ((d1 == _month_len(y1, m1))
+                                      & (d2 == _month_len(y2, m2)))
+                f64 = torch.float64  # jnp's int32 with a Python float
+                frac = torch.where(whole, torch.zeros((), dtype=f64),
+                                   (d1 - d2).to(f64) / 31.0)
+                out = (y1 - y2).to(f64) * 12.0 + (m1 - m2).to(f64) + frac
+                return (out.to(torch.float32), _and_valid(av, bv))
+            return run_mb
+        if name == "last_day":
+            def run_last_day(cols, params):
+                d, v = argfs[0](cols, params)
+                y, m, _d = _civil_from_days(d.to(torch.int32))
+                ny, nm = _next_month(y, m)
+                out = _days_from_civil(ny, nm, torch.ones_like(nm)) - 1
+                return (out.to(torch.int32), v)
+            return run_last_day
+        # trunc_date_day / _month / _year
+        unit = name.rsplit("_", 1)[1]
+
+        def run_trunc_date(cols, params):
+            d, v = argfs[0](cols, params)
+            days = d.to(torch.int32)
+            if unit == "day":
+                return (days, v)
+            y, m, _d = _civil_from_days(days)
+            one = torch.ones_like(m)
+            out = _days_from_civil(y, m if unit == "month" else one, one)
+            return (out.to(torch.int32), v)
+        return run_trunc_date
+
+    def _round(self, e: E.FuncE, argfs) -> CompiledExpr:
+        """round(x[, digits]): a DECIMAL stays exact (half away from zero
+        at the digit, over its scale); a float rounds half to even, with
+        digits through a power of ten in its own dtype."""
+        arg_t = e.args[0].type
+        if arg_t.id == t.TypeId.DECIMAL:
+            digits = 0
+            if len(e.args) > 1 and isinstance(e.args[1], E.Const):
+                digits = int(e.args[1].value)
+            shift = 10 ** max(arg_t.scale - digits, 0)
+
+            def run_round_dec(cols, params):
+                d, v = argfs[0](cols, params)
+                if shift == 1:
+                    return (d, v)
+                return (_div_round(d, shift) * shift, v)
+            return run_round_dec
+
+        def run_round(cols, params):
+            d, v = argfs[0](cols, params)
+            if len(argfs) > 1:
+                nd, _nv = argfs[1](cols, params)
+                # jnp's 10.0 ** digits is a weakly typed float: it takes
+                # a float operand's own dtype
+                dt = (d.dtype if d.dtype.is_floating_point
+                      else torch.float64)
+                f = torch.pow(torch.tensor(10.0, dtype=torch.float64,
+                                           device=nd.device),
+                              nd.to(torch.float64)).to(dt)
+                return (torch.round(d.to(dt) * f) / f, v)
+            return (torch.round(d), v)
+        return run_round
+
+    def _add_months(self, e: E.FuncE, argfs) -> CompiledExpr:
+        """add_months: the day clamped to the target month's length
+        (Oracle); a TIMESTAMP keeps its time of day."""
+        is_ts = e.args[0].type.id == t.TypeId.TIMESTAMP
+
+        def run_add_months(cols, params):
             d, v = argfs[0](cols, params)
             nd, nv = argfs[1](cols, params)
-            return ((d + nd).to(torch.int32), _and_valid(v, nv))
-        return run_dad
+            days = (_floor_div(d, _US_DAY) if is_ts else d).to(torch.int32)
+            y, m, dd = _civil_from_days(days)
+            total = y * 12 + (m - 1) + nd.to(torch.int32)
+            ny = _floor_div(total, 12)
+            nm = total - ny * 12 + 1
+            cd = torch.minimum(dd, _month_len(ny, nm))
+            out = _days_from_civil(ny, nm, cd)
+            if is_ts:
+                rem = d - days.to(torch.int64) * _US_DAY
+                out = out.to(torch.int64) * _US_DAY + rem
+            else:
+                out = out.to(torch.int32)
+            return (out, _and_valid(v, nv))
+        return run_add_months
+
+    # -- || of two non-constant TEXT values --------------------------------
+    def _concat_pair(self, e: E.FuncE, dids, want) -> CompiledExpr:
+        """pre || a || mid || b || post: a gather from a 2-D table over
+        the two source dictionaries (``PairConcatParam``); a host chain
+        on a side (upper(x) || y) composes into the table over its BASE
+        dictionary."""
+        segs = tuple(a.value for a in e.args[2:]) or ("", "", "")
+        fns, srcs, chains = [], [], []
+        for a in e.args[:2]:
+            base, steps = _host_chain(a)
+            src = self._text_src_did(base, dids)
+            if src is None:
+                # a computed side that is no chain (a CASE): its codes
+                # canonicalised through the literal dictionary
+                src = LITERAL_DICT
+                fns.append(self._c(a, dids, src))
+                steps = ()
+            else:
+                fns.append(self._c(base, dids, None))
+            srcs.append(src)
+            chains.append(steps)
+        pi = self._param(PairConcatParam(
+            srcs[0], srcs[1], want or LITERAL_DICT, segs, chains[0],
+            chains[1]))
+
+        def run_pair(cols, params):
+            a, av = fns[0](cols, params)
+            b, bv = fns[1](cols, params)
+            tbl, tvalid = params[pi]
+            ia = a.long().clamp(0, tbl.shape[0] - 1)
+            ib = b.long().clamp(0, tbl.shape[1] - 1)
+            return (tbl[ia, ib], _and_valid(av, bv, tvalid[ia, ib]))
+
+        return run_pair
+
+    # -- host-evaluated text functions (dictionary transforms) ---------------
+    def _text_func(self, e: E.FuncE, dids, want) -> CompiledExpr:
+        """A host function chain as a per-code table over the base
+        argument's dictionary (``StrTransformParam``), read on the device
+        at each row's code."""
+        textual = e.type.is_text
+        base, steps = _host_chain(e)
+        if not steps:
+            raise NotPorted(
+                f"{e.name}: non-constant arguments beyond the first")
+        src = self._text_src_did(base, dids)
+        if src is None:
+            src = want or LITERAL_DICT
+            argf = self._c(base, dids, src)
+        else:
+            argf = self._c(base, dids, None)
+        dst = (want or LITERAL_DICT) if textual else None
+        out_dtype = "int32"
+        if not textual:
+            out_dtype = {t.TypeId.TIMESTAMP: "int64",
+                         t.TypeId.FLOAT8: "float64"}.get(e.type.id, "int32")
+        pi = self._param(StrTransformParam(
+            src, dst, e.name, steps[-1][1], out_dtype, steps))
+
+        def run_text(cols, params):
+            d, v = argf(cols, params)
+            tbl, tvalid = params[pi]
+            idx = d.long().clamp(0, tbl.shape[0] - 1)
+            return (tbl[idx], _and_valid(v, tvalid[idx]))
+
+        return run_text
+
+    @staticmethod
+    def _text_src_did(a: E.TExpr, dids):
+        """The dictionary a chain's base reads its codes in: a column's
+        own, the literal dictionary for a constant; None for anything
+        computed."""
+        if isinstance(a, E.Col):
+            did = dids[a.index] if a.index < len(dids) else None
+            return did or LITERAL_DICT
+        if isinstance(a, E.Const):
+            return LITERAL_DICT
+        return None
 
     def _cast(self, e: E.CastE, dids, want=None) -> CompiledExpr:
         src, dst = e.operand.type, e.type
@@ -561,8 +864,73 @@ class ExprCompiler:
         return run_cast
 
 
-_FUNCS = frozenset(("coalesce", "nullif", "date_add_days"))
+_UNARY = {
+    "abs": torch.abs,
+    "floor": torch.floor,
+    "ceil": torch.ceil,
+    "ceiling": torch.ceil,
+    "sqrt": torch.sqrt,
+    "exp": torch.exp,
+    "ln": torch.log,
+    # jnp's sign keeps a NaN, torch's gives 0
+    "sign": lambda d: torch.where(torch.isnan(d), d, torch.sign(d))
+    if d.dtype.is_floating_point else torch.sign(d),
+}
+# the reference's ``_func`` (ops/expr.py), beside the text functions of
+# _HOST_TEXT_FNS and concat_pair: every other name is refused there too
+_FUNCS = frozenset((
+    "coalesce", "nullif", *_UNARY, "round", "extract_year",
+    "extract_month", "extract_day", "date_trunc_year", "greatest", "least",
+    "date_add_days", "power", "trunc_num", "bitand", "nanvl", "add_months",
+    "months_between", "last_day", "trunc_date_day", "trunc_date_month",
+    "trunc_date_year",
+))
 _US_DAY = 86_400_000_000
+
+
+def _floor_div(a, b):
+    """Integer division rounding toward minus infinity (jnp's ``//``)."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _civil_from_days(z):
+    """(year, month, day) of int32 day numbers since 1970-01-01 (Howard
+    Hinnant's civil_from_days, as the reference vectorizes it): the
+    proleptic Gregorian calendar, before 1970 and past 2100 alike."""
+    z = z.to(torch.int32) + 719468
+    era = _floor_div(torch.where(z >= 0, z, z - 146096), 146097)
+    doe = z - era * 146097
+    yoe = _floor_div(doe - _floor_div(doe, 1460) + _floor_div(doe, 36524)
+                     - _floor_div(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floor_div(yoe, 4) - _floor_div(yoe, 100))
+    mp = _floor_div(5 * doy + 2, 153)
+    d = doy - _floor_div(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d
+
+
+def _days_from_civil(y, m, d):
+    """Day numbers since 1970-01-01 of (year, month, day) tensors, the
+    inverse of ``_civil_from_days``."""
+    y = y - (m <= 2).to(y.dtype)
+    era = _floor_div(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _floor_div(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _floor_div(yoe, 4) - _floor_div(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def _next_month(y, m):
+    return (torch.where(m == 12, y + 1, y), torch.where(m == 12, 1, m + 1))
+
+
+def _month_len(y, m):
+    ny, nm = _next_month(y, m)
+    one = torch.ones_like(m)
+    return _days_from_civil(ny, nm, one) - _days_from_civil(y, m, one)
 
 
 def _dev_dtype(ty: t.SqlType) -> torch.dtype:
@@ -640,10 +1008,226 @@ def _lookup(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return table[codes.long().clamp(0, table.shape[0] - 1)]
 
 
-def resolve_param_host(spec, dictionary=None) -> np.ndarray:
+def _py_pad(s: str, n, fill=" ", left=True):
+    n = int(n)
+    if n <= 0:
+        return None  # Oracle: NULL for a target length below one
+    fill = str(fill) or " "
+    if len(s) >= n:
+        return s[:n]
+    pad = (fill * ((n - len(s)) // len(fill) + 1))[: n - len(s)]
+    return pad + s if left else s + pad
+
+
+def _py_substr(s: str, start, length=None) -> str:
+    start = int(start)
+    if start > 0:
+        i = start - 1
+    elif start == 0:
+        i = 0
+    else:
+        i = max(len(s) + start, 0)
+    if length is None:
+        return s[i:]
+    return s[i: i + max(int(length), 0)]
+
+
+def _py_instr(s: str, sub, start=1) -> int:
+    sub, start = str(sub), int(start)
+    if start < 0:
+        # Oracle: a negative position searches backward; the match must
+        # start at or before len(s) + start
+        return s.rfind(sub, 0, len(s) + start + 1) + 1
+    return s.find(sub, max(start - 1, 0)) + 1
+
+
+def _py_to_date(s: str) -> int:
+    d = _dt.date.fromisoformat(s.strip()[:10])
+    return (d - _dt.date(1970, 1, 1)).days
+
+
+def _py_to_timestamp(s: str) -> int:
+    ts = _dt.datetime.fromisoformat(s.strip())
+    if ts.tzinfo is None:
+        ts = ts.replace(tzinfo=_dt.timezone.utc)
+    epoch = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+    return int((ts - epoch).total_seconds() * 1_000_000)
+
+
+# The dictionary-transform functions, on the host: each takes the string
+# and its constant extra arguments and gives the new value (None: NULL).
+_HOST_TEXT_FNS = {
+    "upper": lambda s: s.upper(),
+    "lower": lambda s: s.lower(),
+    "initcap": lambda s: s.title(),
+    "reverse": lambda s: s[::-1],
+    "trim": lambda s, ch=None: s.strip(ch),
+    "ltrim": lambda s, ch=None: s.lstrip(ch),
+    "rtrim": lambda s, ch=None: s.rstrip(ch),
+    "replace": lambda s, a, b: s.replace(str(a), str(b)),
+    "substr": _py_substr,
+    "substring": _py_substr,
+    "lpad": lambda s, n, fill=" ": _py_pad(s, n, fill, left=True),
+    "rpad": lambda s, n, fill=" ": _py_pad(s, n, fill, left=False),
+    "length": len,
+    "char_length": len,
+    "instr": _py_instr,
+    # the constant segments of x || 'c' (the analyzer stringifies them)
+    "concat_seg": lambda s, pre, post: pre + s + post,
+    "to_number": lambda s: float(s),
+    "to_date": _py_to_date,
+    "to_timestamp": _py_to_timestamp,
+}
+
+
+def _host_chain(e):
+    """(base expression, steps): the nested host text functions with
+    constant extra arguments peeled off ``e``, ``steps`` ((fn, extras),
+    ...) innermost first. Inner links are TEXT-valued (each feeds the
+    next one's string); the outermost may be scalar (length, to_date).
+    A bare column or constant gives (e, ())."""
+    steps = []
+    cur = e
+    while (
+        isinstance(cur, E.FuncE)
+        and cur.name in _HOST_TEXT_FNS
+        and cur.args
+        and all(isinstance(a, E.Const) for a in cur.args[1:])
+        and (cur is e or cur.type.is_text)
+    ):
+        steps.append((cur.name, tuple(a.value for a in cur.args[1:])))
+        cur = cur.args[0]
+    steps.reverse()
+    return cur, tuple(steps)
+
+
+def _run_chain(value, steps):
+    """A string threaded through a host chain (None once a step gives
+    NULL)."""
+    for fname, fargs in steps:
+        value = _HOST_TEXT_FNS[fname](value, *fargs)
+        if value is None:
+            return None
+    return value
+
+
+def _chain_values(values, steps) -> list:
+    """Each value through the chain, with try_cast semantics: the table
+    covers every dictionary entry, rows a WHERE clause drops and the
+    NULL placeholder '' too, so a value the chain refuses is NULL rather
+    than an error."""
+    out = []
+    for v in values:
+        try:
+            out.append(_run_chain(v, steps))
+        except (ValueError, TypeError, OverflowError):
+            out.append(None)
+    return out
+
+
+def _str_transform_table(spec: StrTransformParam, dictionary):
+    """The (table, validity) pair of ``spec``, cached on the source
+    dictionary by its size: dictionaries only grow, so the table over
+    the same values is the same (its TEXT results already hold their
+    codes in ``dst``, the dictionary object the entry names)."""
+    src = dictionary(spec.src)
+    dst = dictionary(spec.dst) if spec.dst is not None else None
+    cache = getattr(src, "_pair_cache", None)
+    if cache is None:
+        cache = {}
+        try:
+            src._pair_cache = cache
+        except AttributeError:
+            cache = None
+    ckey = (spec, len(src.values))
+    hit = cache.get(ckey) if cache is not None else None
+    if hit is not None and hit[0] is dst:
+        return hit[1]
+    out = _build_str_transform(spec, src, dst)
+    if cache is not None:
+        if len(cache) > 32:
+            cache.clear()
+        cache[ckey] = (dst, out)
+    return out
+
+
+def _build_str_transform(spec: StrTransformParam, src, dst):
+    outs = _chain_values(src.values, spec.steps or ((spec.fn, spec.args),))
+    n = bucket_size(len(outs), 1)
+    valid = np.zeros(n, dtype=np.bool_)
+    valid[: len(outs)] = [o is not None for o in outs]
+    if dst is not None:  # TEXT results: codes in dst
+        table = np.zeros(n, dtype=np.int32)
+        if outs:
+            table[: len(outs)] = dst.encode(
+                ["" if o is None else str(o) for o in outs])
+    else:
+        table = np.zeros(n, dtype=np.dtype(spec.out_dtype))
+        for i, o in enumerate(outs):
+            if o is not None:
+                table[i] = o
+    return table, valid
+
+
+def _pair_concat_table(spec: PairConcatParam, dictionary):
+    da, db = dictionary(spec.src_a), dictionary(spec.src_b)
+    dst = dictionary(spec.dst)
+    na, nb = len(da.values), len(db.values)
+    if na == 0 or nb == 0:
+        return (np.zeros((1, 1), dtype=np.int32),
+                np.zeros((1, 1), dtype=np.bool_))
+    # append-only dictionaries make the table a function of (spec, na,
+    # nb): cached on the dst dictionary
+    cache = getattr(dst, "_pair_cache", None)
+    if cache is None:
+        cache = {}
+        try:
+            dst._pair_cache = cache
+        except AttributeError:
+            cache = None
+    ckey = (spec, na, nb)
+    if cache is not None and ckey in cache:
+        return cache[ckey]
+    cap = int(os.environ.get("OTB_CONCAT_PAIR_MAX", str(1 << 20)))
+    if na * nb > cap:
+        raise RuntimeError(
+            f"|| of two columns needs a {na}x{nb} pairwise table, over "
+            f"OTB_CONCAT_PAIR_MAX={cap}")
+    pre, mid, post = spec.segs
+    ta = _chain_values(da.values, spec.steps_a)
+    tb = _chain_values(db.values, spec.steps_b)
+    table = np.zeros((bucket_size(na, 1), bucket_size(nb, 1)),
+                     dtype=np.int32)
+    valid = np.zeros(table.shape, dtype=np.bool_)
+    joined, slots = [], []
+    for i, a in enumerate(ta):
+        if a is None:
+            continue
+        for j, b in enumerate(tb):
+            if b is not None:
+                joined.append(pre + a + mid + b + post)
+                slots.append((i, j))
+    if joined:
+        ii, jj = np.asarray(slots, dtype=np.int64).T
+        table[ii, jj] = dst.encode(joined)
+        valid[ii, jj] = True
+    out = (table, valid)
+    if cache is not None:
+        if len(cache) > 32:
+            cache.clear()
+        cache[ckey] = out
+    return out
+
+
+def resolve_param_host(spec, dictionary=None):
     """The runtime value of a param spec as a numpy array (0-d for a
-    scalar). ``dictionary``: dict_id -> Dictionary (a function), for the
-    TEXT params."""
+    scalar; a (table, validity) pair for a text transform or a pairwise
+    concatenation). ``dictionary``: dict_id -> Dictionary (a function),
+    for the TEXT params."""
+    if isinstance(spec, StrTransformParam):
+        return _str_transform_table(spec, dictionary)
+    if isinstance(spec, PairConcatParam):
+        return _pair_concat_table(spec, dictionary)
     if isinstance(spec, ScalarConstParam):
         return np.asarray(spec.value, dtype=spec.type.np_dtype).reshape(())
     if isinstance(spec, ArrayConstParam):
@@ -704,5 +1288,7 @@ def resolve_param(spec, device, dictionary=None, subquery_values=None):
                           dtype=ty.np_dtype).reshape(())
         return (torch.from_numpy(data).to(device),
                 torch.tensor(value is not None, device=device))
-    return torch.from_numpy(resolve_param_host(spec, dictionary)).to(
-        device)
+    host = resolve_param_host(spec, dictionary)
+    if isinstance(host, tuple):
+        return tuple(torch.from_numpy(a).to(device) for a in host)
+    return torch.from_numpy(host).to(device)

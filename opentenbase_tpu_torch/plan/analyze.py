@@ -313,11 +313,15 @@ class Analyzer:
             # WITH needs no engine state — expanding here makes CTEs
             # work for every analyzer consumer, not just the session
             # pipeline (which also runs this; it is idempotent)
-            # the reference expands WITH through plan/views.py, which
-            # this package has not ported
-            from opentenbase_tpu_torch.errors import NotPorted
+            from opentenbase_tpu_torch.plan.views import (
+                ViewRecursionError,
+                expand_ctes,
+            )
 
-            raise NotPorted("WITH (common table expressions)")
+            try:
+                expand_ctes(sel)
+            except ViewRecursionError as e:
+                raise AnalyzeError(str(e)) from None
         if sel.set_ops:
             return self._set_ops(sel)
         return self._select_core(sel)
@@ -1355,12 +1359,37 @@ class Analyzer:
                     t.TEXT,
                 )
             if len(exprs) == 2:
-                # the reference checks both sides through its expression
-                # compiler (ops/expr.py), which this package has not
-                # ported
-                from opentenbase_tpu_torch.errors import NotPorted
+                # both pairwise axes must be stable column
+                # dictionaries: a literal-pool axis would re-enumerate
+                # its own past outputs and grow the pool every run
+                from opentenbase_tpu_torch.ops import LITERAL_DICT
+                from opentenbase_tpu_torch.ops.expr import _host_chain
 
-                raise NotPorted("|| of two text expressions")
+                for side in exprs:
+                    sbase, _steps = _host_chain(side)
+                    if (
+                        not isinstance(sbase, E.Col)
+                        or _texpr_dict_id(sbase, ctx.scope)
+                        in (None, LITERAL_DICT)
+                    ):
+                        raise AnalyzeError(
+                            "|| of two computed text values is not "
+                            "supported — make one side a column or "
+                            "a constant"
+                        )
+                i0 = merged.index(exprs[0])
+                i1 = merged.index(exprs[1], i0 + 1)
+                return E.FuncE(
+                    "concat_pair",
+                    (
+                        exprs[0],
+                        exprs[1],
+                        E.Const(pre, t.TEXT),
+                        E.Const(seg_after(i0), t.TEXT),
+                        E.Const(seg_after(i1), t.TEXT),
+                    ),
+                    t.TEXT,
+                )
             raise AnalyzeError(
                 "|| of more than two non-constant values is not "
                 "supported"

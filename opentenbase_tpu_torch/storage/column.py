@@ -40,8 +40,9 @@ class Dictionary:
     paths.
     """
 
-    # _pair_cache: pairwise-concat tables cached by resolve_param
-    # (ops/expr.py PairConcatParam) — lazily set, keyed by source sizes
+    # _pair_cache: pairwise-concat and text-transform tables cached by
+    # resolve_param (ops/expr.py PairConcatParam, StrTransformParam) —
+    # lazily set, keyed by source sizes
     __slots__ = ("_values", "_index", "_lock", "_hashes", "_pair_cache")
 
     def __init__(self, values: list[str] | None = None):

@@ -615,12 +615,13 @@ class ClusterPersistence:
                 for gid, txn in c._prepared.items()
             },
             # what the reference's checkpoint also carries, empty: the
-            # port has no node groups, rebalance, partitions, views or
-            # materialized views
+            # port has no node groups, rebalance, partitions or
+            # materialized views. (SQL functions ride the WAL only, as
+            # in the reference's checkpoint.)
             "groups": [],
             "rebalance": [],
             "partitions": {},
-            "views": {},
+            "views": {name: text for name, (_q, text) in c.views.items()},
             "matviews": {},
             "users": dict(c.users),
             # a checkpoint past an ha_generation record must carry the
@@ -807,7 +808,7 @@ class ClusterPersistence:
         g = int(meta.get("node_generation", 0))
         if g > c.node_generation:
             c.node_generation = g
-        for key in ("views", "matviews", "partitions", "rebalance"):
+        for key in ("matviews", "partitions", "rebalance"):
             if meta.get(key):
                 raise NotPorted(f"checkpoint with {key}")
         for g in meta.get("groups", []):
@@ -871,6 +872,10 @@ class ClusterPersistence:
                             max_ts = max(max_ts, int(stamps[
                                 stamps < RESERVED_TS].max(initial=0)))
                 c.stores.setdefault(node, {})[name] = store
+        from opentenbase_tpu_torch.sql.parser import Parser
+
+        for name, text in meta.get("views", {}).items():
+            c.views[name] = (Parser(text).parse_select(), text)
         c.gts_advance_to(max_ts)
         # the in-doubt transactions this checkpoint holds are pending
         # again, their stable row ids mapped back to restored positions
@@ -935,6 +940,23 @@ class ClusterPersistence:
                     c.node_generation = g
             elif op == "seq_event":
                 self._apply_seq_event(header["event"], header["payload"])
+            elif op == "create_view":
+                from opentenbase_tpu_torch.sql.parser import Parser
+
+                c.views[header["name"]] = (
+                    Parser(header["text"]).parse_select(), header["text"])
+            elif op == "drop_view":
+                c.views.pop(header["name"], None)
+            elif op == "create_function":
+                if header.get("language") == "plpgsql":
+                    raise NotPorted("PL/pgSQL functions")
+                from opentenbase_tpu_torch.plan.functions import SqlFunction
+
+                c.functions[header["name"]] = SqlFunction.create(
+                    header["name"], [tuple(a) for a in header["args"]],
+                    header["rettype"], header["body"])
+            elif op == "drop_function":
+                c.functions.pop(header["name"], None)
             else:
                 raise NotPorted(f"WAL DDL record {op!r}")
             return

@@ -319,15 +319,21 @@ def test_text_min_max_collation_order(ndn):
 
 
 @pytest.mark.parametrize("sql,shape", [
-    ("select extract(year from ship), count(*) from item "
-     "group by extract(year from ship)", "function"),
-    ("select nm || '!' from cc", None),
-    ("insert into cc values (9, 'x', 1) returning k", "RETURNING"),
-    ("update cc set v = 1 returning k", "RETURNING"),
-    ("update cc set v = u2.w from u2 where cc.k = u2.k", "UPDATE ... FROM"),
-    ("delete from cc using u2 where cc.k = u2.k", "DELETE ... USING"),
-], ids=["extract_year", "concat", "insert_returning", "update_returning",
-        "update_from", "delete_using"])
+    # once refused; answered now, as the reference answers them (the
+    # cases keep their earlier names)
+    pytest.param("select extract(year from ship), count(*) from item "
+                 "group by extract(year from ship)", [(2024, 1)],
+                 id="extract_year"),
+    pytest.param("select nm || '!' from cc", [("ada!",)], id="concat"),
+    pytest.param("insert into cc values (9, 'x', 1) returning k",
+                 "RETURNING", id="insert_returning"),
+    pytest.param("update cc set v = 1 returning k", "RETURNING",
+                 id="update_returning"),
+    pytest.param("update cc set v = u2.w from u2 where cc.k = u2.k",
+                 "UPDATE ... FROM", id="update_from"),
+    pytest.param("delete from cc using u2 where cc.k = u2.k",
+                 "DELETE ... USING", id="delete_using"),
+])
 def test_still_refused_by_name(sql, shape):
     ps = Cluster(num_datanodes=2, shard_groups=16, device="cpu").session()
     ps.execute("create table item (id bigint, ship date) "
@@ -339,6 +345,9 @@ def test_still_refused_by_name(sql, shape):
     ps.execute("insert into cc values (1, 'ada', 10)")
     for fused in ("on", "off"):
         ps.execute(f"set enable_fused_execution = {fused}")
+        if isinstance(shape, list):
+            assert ps.query(sql) == shape
+            continue
         with pytest.raises(NotPorted, match=shape):
             ps.execute(sql)
 

@@ -403,8 +403,9 @@ def test_drop_and_create_one_name_logs_the_new_dictionary(tmp_path,
 
 def test_not_ported_records_refused_by_name(tmp_path):
     """A reference WAL holding a record the port does not take (a
-    CREATE VIEW) is refused by name, as is PITR; a PREPARE TRANSACTION
-    record, once refused, is recovered as the reference recovers it."""
+    CREATE MATERIALIZED VIEW; a CREATE VIEW once, recovered since) is
+    refused by name, as is PITR; a PREPARE TRANSACTION record, once
+    refused, is recovered as the reference recovers it."""
     rd, pd = _dirs(tmp_path)
     r = RefCluster(num_datanodes=2, shard_groups=32, data_dir=rd)
     s = r.session()
@@ -418,6 +419,10 @@ def test_not_ported_records_refused_by_name(tmp_path):
     assert c.session().query("select k from t") == [(1,)]
     c.close()
     s.execute("create view v as select k from t")
+    c = Cluster.recover(rd, 2, 32, device="cpu")
+    assert c.session().query("select k from v") == [(1,)]
+    c.close()
+    s.execute("create materialized view mv as select k from t")
     with pytest.raises(NotPorted, match="view"):
         Cluster.recover(rd, 2, 32, device="cpu")
     Cluster(num_datanodes=2, shard_groups=32, data_dir=pd,
@@ -469,3 +474,82 @@ def test_synchronous_commit_and_group_flush(tmp_path, mode):
     rs = r.session()
     assert [rs.query(f"select k from t{i}") for i in range(n)] == [
         [(i,)] for i in range(n)]
+
+
+VIEWS_AND_FUNCTIONS = [
+    "create table t (k bigint, v text) distribute by shard(k)",
+    "insert into t values (1, 'a'), (2, 'b'), (3, null)",
+    "create view recent as select k, v from t where k > 1",
+    "create view doomed as select k from t",
+    "drop view doomed",
+    "create function inc(x bigint) returns bigint as 'select x + 1'",
+    "create function gone(x bigint) returns bigint as 'select x'",
+    "drop function gone",
+    "create function tot() returns bigint as 'select sum(k) from t'",
+]
+VIEWS_AND_FUNCTIONS_Q = [
+    "select k, v from recent order by k",
+    "select inc(k) from t order by k",
+    "select inc(k), tot() from recent order by k",
+]
+
+
+@pytest.mark.parametrize("checkpoint", [False, True],
+                         ids=["wal", "checkpoint"])
+def test_views_and_functions_cross_recovery(tmp_path, checkpoint):
+    """Views and SQL functions in the 'D' records (and views in the
+    checkpoint) in the reference's format: each package recovers the
+    data directory the other wrote, with the answers of the live
+    clusters. Functions ride the WAL only, as in the reference: a
+    checkpoint taken after them leaves them out in both packages
+    (ROADMAP C), so the checkpoint case creates them after it."""
+    cs = _make(tmp_path)
+    ss = [c.session() for c in cs]
+    body = VIEWS_AND_FUNCTIONS
+    if checkpoint:
+        for sql in body[:5]:
+            _both(ss, sql)
+        for c in cs:
+            c.persistence.checkpoint()
+        body = body[5:]
+    for sql in body:
+        _both(ss, sql)
+    want = {q: _same(cs, q) for q in VIEWS_AND_FUNCTIONS_Q}
+    rd, pd = _dirs(tmp_path)
+    port_of_ref = Cluster.recover(rd, 2, 32, device="cpu")
+    ref_of_port = RefCluster.recover(pd, 2, 32)
+    for c in (port_of_ref, ref_of_port):
+        assert sorted(c.views) == ["recent"]
+        assert sorted(c.functions) == ["inc", "tot"]
+        for q in VIEWS_AND_FUNCTIONS_Q:
+            assert c.session().query(q) == want[q], q
+    port_of_ref.close()
+
+
+def test_functions_before_a_checkpoint_are_lost_in_both(tmp_path):
+    """The reference's checkpoint carries views but no SQL functions, and
+    recovery replays only the WAL past it: a function created before
+    the checkpoint is gone after recovery. The port keeps that
+    behaviour (ROADMAP C, found in the reference)."""
+    cs = _make(tmp_path)
+    ss = [c.session() for c in cs]
+    for sql in VIEWS_AND_FUNCTIONS[:6]:
+        _both(ss, sql)
+    for c in cs:
+        c.persistence.checkpoint()
+    for c in _recover(tmp_path):
+        assert sorted(c.views) == ["recent"]
+        assert c.functions == {}
+
+
+def test_plpgsql_function_record_refused_by_name(tmp_path):
+    """A reference WAL holding a PL/pgSQL function's 'D' record is
+    refused by name at the port's recovery (the port takes LANGUAGE SQL
+    only)."""
+    rd, _pd = _dirs(tmp_path)
+    r = RefCluster(num_datanodes=2, shard_groups=32, data_dir=rd)
+    r.session().execute(
+        "create function fib(n bigint) returns bigint as '"
+        "declare a bigint := 0; begin return a; end' language plpgsql")
+    with pytest.raises(NotPorted, match="PL/pgSQL"):
+        Cluster.recover(rd, 2, 32, device="cpu")
