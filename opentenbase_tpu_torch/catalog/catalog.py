@@ -36,6 +36,12 @@ class TableMeta:
     # foreign-table spec (server + options) — scans materialize via
     # fdw.foreign_store instead of shard stores (src/backend/foreign)
     foreign: dict | None = None
+    # column constraints (CREATE TABLE): NOT NULL columns, DEFAULT
+    # constants, the PRIMARY KEY column (unique where duplicates are
+    # colocated; it implies NOT NULL)
+    not_null: set = field(default_factory=set)
+    defaults: dict = field(default_factory=dict)
+    primary_key: str | None = None
 
     @property
     def column_names(self) -> list[str]:

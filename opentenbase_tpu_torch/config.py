@@ -110,14 +110,20 @@ GUCS: dict = {
     "enable_group_commit": (_bool, True),
     "commit_delay_us": (_int, 0),
     "commit_siblings": (_int, 5),
+    # row and table lock waits (lmgr.py); 0 = no lock timeout
+    "lock_timeout": (_duration, 0),
+    "deadlock_timeout": (_duration, 1000),
+    # the background delta compaction job (storage/compaction.py); 0 =
+    # none: deltas fold at VACUUM, past MAX_DELTAS or by compact_deltas
+    "delta_compaction_naptime_ms": (_duration, 0),
 }
 
 # the reference's settings the port does not act on
 NOT_ACTED_ON = frozenset((
     "ssl_cert_file", "ssl_key_file", "enable_pallas_scan",
     "enable_pallas_join", "join_mode", "device_memory_limit",
-    "enable_fast_query_shipping", "dn_parallel_workers", "lock_timeout",
-    "deadlock_timeout", "work_mem", "resource_group", "wlm_queue_timeout",
+    "enable_fast_query_shipping", "dn_parallel_workers", "work_mem",
+    "resource_group", "wlm_queue_timeout",
     "search_path", "session_authorization", "role", "application_name",
     "client_min_messages", "log_min_messages", "log_destination",
     "log_directory", "metrics_port", "auto_explain_min_duration_ms",
@@ -125,8 +131,7 @@ NOT_ACTED_ON = frozenset((
     "log_min_duration_statement", "enable_plan_cache", "plan_cache_size",
     "enable_result_cache", "result_cache_size", "enable_matview_rewrite",
     "trace_queries", "expected_device_platform", "fault_injection",
-    "gtm_standby_addr", "enable_bulk_insert_rewrite",
-    "delta_compaction_naptime_ms", "enable_delta_scan",
+    "gtm_standby_addr", "enable_bulk_insert_rewrite", "enable_delta_scan",
     "rebalance_rate_limit", "read_routing", "max_staleness",
     "replica_read_fallback", "replica_read_wait_ms", "autovacuum",
     "autovacuum_naptime_s", "autovacuum_scale_factor_pct",

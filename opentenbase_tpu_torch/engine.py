@@ -2,11 +2,16 @@
 reference's opentenbase_tpu/engine.py).
 
 Statements: ``create table ... distribute by
-roundrobin|shard(...)|replication``; ``insert ... values`` of literals,
-``delete`` and ``update`` (no FROM/USING, no RETURNING), each in an
-implicit transaction or inside ``begin ... commit|rollback``;
-``vacuum``; ``create index`` (zone maps: the columns register for the
-fragment program's block pruning); ``analyze`` (the planner's row and
+roundrobin|shard(...)|hash(...)|modulo(...)|replication`` with NOT
+NULL, PRIMARY KEY and DEFAULT; ``insert ... values|select`` with ``on
+conflict`` and ``returning``, ``delete [using]`` and ``update [from]``
+with ``returning``, each in an implicit transaction or inside ``begin
+... commit|rollback`` with ``savepoint``, ``rollback to savepoint`` and
+``release savepoint``; ``select ... for update|for share [nowait]`` and
+``lock table``; ``truncate``; ``alter table ... add column|drop
+column|distribute by``; ``vacuum``; ``create index`` (zone maps: the
+columns register for the fragment program's block pruning);
+``analyze`` (the planner's row and
 distinct-value estimates); ``set`` / ``reset enable_fused_execution``;
 ``prepare transaction``, ``commit prepared`` and ``rollback prepared``;
 ``create`` / ``drop sequence`` with ``nextval``, ``currval`` and
@@ -57,9 +62,12 @@ Durability (``Cluster(..., data_dir=D)``, storage/persist.py): every
 commit is one WAL 'G' frame, written inside the stamping fence and
 made durable by the group flush before the statement returns
 (``synchronous_commit`` ``local``; ``off`` skips the fsync wait); DDL
-(CREATE TABLE, CREATE INDEX, DROP TABLE, CREATE/DROP USER) and
-dictionary growth are 'D' records; a VACUUM that removed rows takes a
-checkpoint. ``Cluster.recover(D, ...)`` restores the checkpoint and
+(CREATE TABLE with its constraints, CREATE INDEX, DROP TABLE, TRUNCATE,
+ALTER TABLE, CREATE/DROP USER) and dictionary growth are 'D' records; a
+VACUUM that removed rows and an ALTER TABLE ... DISTRIBUTE BY take a
+checkpoint. With ``delta_compaction_naptime_ms`` in the conf file a
+background job folds pending delta batches (storage/compaction.py).
+``Cluster.recover(D, ...)`` restores the checkpoint and
 replays the WAL tail. ``cluster._exec_lock`` is the wire servers'
 statement lock (net/), ``cluster._fused_lock`` serializes the fused
 executors' shared device state between concurrent readers.
@@ -109,6 +117,7 @@ from opentenbase_tpu_torch.errors import NotPorted
 from opentenbase_tpu_torch.executor.dist import (
     DistExecutor,
     StatementTimeout,
+    concat_batches,
 )
 from opentenbase_tpu_torch.executor.fused import (
     FusedExecutor,
@@ -127,10 +136,14 @@ from opentenbase_tpu_torch.gtm.gts import (
     stamp_lead_ms,
 )
 from opentenbase_tpu_torch.lmgr import (
+    ROW_SHARE,
     ROW_UPDATE,
     TABLE_SHARED,
     DeadlockError,
     LockManager,
+    LockNotAvailable,
+    LockTimeout,
+    table_lock_mode,
 )
 from opentenbase_tpu_torch.plan import analyze_statement
 from opentenbase_tpu_torch.plan import logical as L
@@ -145,6 +158,7 @@ from opentenbase_tpu_torch.storage.column import Column, column_from_python
 from opentenbase_tpu_torch.storage.persist import (
     ClusterPersistence,
     _type_to_str,
+    apply_constraints,
 )
 from opentenbase_tpu_torch.storage.table import (
     INF_TS,
@@ -304,6 +318,8 @@ class Transaction:
         # clean2pc staleness rule reads it)
         self.prepared_gid: Optional[str] = None
         self.prepared_at = 0.0
+        # SAVEPOINT's (name, write-set mark) stack, newest last
+        self.savepoints: list[tuple[str, dict]] = []
 
     def w(self, node: int, table: str) -> _TableWrites:
         return self.writes.setdefault(node, {}).setdefault(
@@ -328,7 +344,29 @@ class Transaction:
                 del tw.ins_ranges[n_ins:]
                 del tw.del_idx[n_del:]
 
+    # -- savepoints (xact.c's subtransaction stack as write-set marks) ---
+    def mark_savepoint(self, name: str) -> None:
+        self.savepoints.append((name, self.mark()))
+
+    def _find_savepoint(self, name: str) -> int:
+        for i in range(len(self.savepoints) - 1, -1, -1):
+            if self.savepoints[i][0] == name:
+                return i
+        raise SQLError(f'savepoint "{name}" does not exist')
+
+    def rollback_to_savepoint(self, name: str, stores) -> None:
+        """Undo the writes after the savepoint; the savepoint stays (PG),
+        the later ones go."""
+        i = self._find_savepoint(name)
+        self.rollback_to(self.savepoints[i][1], stores)
+        del self.savepoints[i + 1:]
+
+    def release_savepoint(self, name: str) -> None:
+        del self.savepoints[self._find_savepoint(name):]
+
     def touched_nodes(self) -> list[int]:
+        """Nodes holding surviving writes: a node whose writes a
+        ROLLBACK TO SAVEPOINT undid is no 2PC participant."""
         return [
             n for n, tabs in self.writes.items()
             if any(tw.ins_ranges or tw.del_idx for tw in tabs.values())
@@ -489,6 +527,17 @@ class Cluster:
         self.serving_lease = None
         # remote read fragments retried and failed over to local stores
         self.frag_heal_stats: dict = {"retries": 0, "failovers": 0}
+        # the background delta compaction job, where the conf asks for
+        # one (storage/compaction.py)
+        self._compaction_stop = None
+        naptime = int(self.conf_gucs.get("delta_compaction_naptime_ms") or 0)
+        if naptime > 0:
+            from opentenbase_tpu_torch.storage.compaction import (
+                start_compaction,
+            )
+
+            self._compaction_stop = start_compaction(
+                self, interval_s=naptime / 1000.0)
 
     @classmethod
     def recover(
@@ -515,8 +564,12 @@ class Cluster:
         return c
 
     def close(self) -> None:
-        """Close the datanode channels, make the WAL's tail durable and
-        close it, and stop a native GTM process. Idempotent."""
+        """Stop the compaction job, close the datanode channels, make the
+        WAL's tail durable and close it, and stop a native GTM process.
+        Idempotent."""
+        if self._compaction_stop is not None:
+            self._compaction_stop()
+            self._compaction_stop = None
         for node in list(self.dn_channels):
             self.detach_datanode(node)
         if self.persistence is not None:
@@ -991,6 +1044,13 @@ class Cluster:
             tabs.pop(name, None)
         if self.persistence is not None:
             self.persistence.forget_dicts(name)
+        self.forget_device_table(name)
+
+    def forget_device_table(self, name: str) -> None:
+        """Free ``name``'s device planes and the fused executors' state
+        keyed by its store versions: DDL that replaces or reshapes its
+        stores (DROP, TRUNCATE, ALTER TABLE) starts their versions over
+        or changes the columns a plane was built from."""
         if self._fused is not None:
             with self._fused_lock:
                 self._fused.forget_table(name)
@@ -1001,17 +1061,113 @@ class Cluster:
                 meta.schema, meta.dictionaries
             )
 
+    def _refuse_pinned(self, name: str, what: str) -> None:
+        """A rewrite renumbers every row position, and an open or
+        prepared transaction holds positions into the old stores (PG's
+        AccessExclusiveLock would wait; the reference refuses)."""
+        meta = self.catalog.get(name)
+        for node in meta.node_indices:
+            store = self.stores.get(node, {}).get(name)
+            if store is not None and store._pins > 0:
+                raise SQLError(
+                    f'cannot {what} "{name}": open or prepared '
+                    "transactions still reference it")
+
+    def truncate_table(self, name: str) -> None:
+        """TRUNCATE: fresh empty stores (the dictionaries stay), and the
+        old planes freed."""
+        meta = self.catalog.get(name)
+        self.create_table_stores(meta)
+        self.forget_device_table(name)
+
+    # -- ALTER TABLE (tablecmds.c, redistrib.c), shared with WAL redo ----
+    def alter_add_column(self, name: str, col: str, ty) -> None:
+        """A new column, NULL in every existing row."""
+        from opentenbase_tpu_torch.storage.column import Dictionary
+
+        meta = self.catalog.get(name)
+        if col in meta.schema:
+            raise SQLError(f'column "{col}" already exists')
+        meta.schema[col] = ty
+        if ty.id == t.TypeId.TEXT and col not in meta.dictionaries:
+            meta.dictionaries[col] = Dictionary()
+        for node in meta.node_indices:
+            store = self.stores.get(node, {}).get(name)
+            if store is not None:
+                store.add_column(col, ty)
+        self.forget_device_table(name)
+
+    def alter_drop_column(self, name: str, col: str) -> None:
+        meta = self.catalog.get(name)
+        if col in meta.dist.key_columns:
+            raise SQLError(f'cannot drop distribution key "{col}"')
+        if col not in meta.schema:
+            raise SQLError(f'column "{col}" does not exist')
+        meta.schema.pop(col)
+        meta.dictionaries.pop(col, None)
+        meta.not_null.discard(col)
+        meta.defaults.pop(col, None)
+        if meta.primary_key == col:
+            meta.primary_key = None
+        # a TEXT column added again under the name starts a fresh
+        # dictionary: its WAL watermark restarts at zero with it
+        if self.persistence is not None:
+            self.persistence._dict_synced.pop(f"{name}.{col}", None)
+        for node in meta.node_indices:
+            store = self.stores.get(node, {}).get(name)
+            if store is not None:
+                store.drop_column(col)
+        self.forget_device_table(name)
+
+    def redistribute_table(self, name: str, dist: DistributionSpec) -> int:
+        """ALTER TABLE ... DISTRIBUTE BY: every live row rewritten through
+        the new locator into fresh stores (dead versions are dropped, as
+        a PG table rewrite drops them). Returns the rows written."""
+        from opentenbase_tpu_torch.catalog.locator import Locator
+
+        self._refuse_pinned(name, "redistribute")
+        meta = self.catalog.get(name)
+        snapshot = self.gts.snapshot_ts()
+        commit_ts = self.gts.get_gts()
+        src_nodes = (meta.node_indices[:1] if meta.dist.is_replicated
+                     else meta.node_indices)
+        batches = []
+        for node in src_nodes:
+            store = self.stores.get(node, {}).get(name)
+            if store is None or store.nrows == 0:
+                continue
+            idx = store.live_index(snapshot)
+            if len(idx):
+                batches.append(store.take_batch(idx))
+        meta.dist = dist
+        meta.locator = Locator(
+            dist, meta.node_indices,
+            self.shardmap if dist.strategy == DistStrategy.SHARD else None,
+            key_types={k: meta.schema[k] for k in dist.key_columns})
+        self.create_table_stores(meta)
+        moved = 0
+        for batch in batches:
+            if dist.is_replicated:
+                for node in meta.node_indices:
+                    self.stores[node][name].append_batch(batch, commit_ts)
+                moved += batch.nrows
+                continue
+            routes = meta.locator.route_insert(
+                {k: batch.columns[k] for k in dist.key_columns}, batch.nrows)
+            for node in np.unique(routes):
+                sub = batch.take(np.nonzero(routes == node)[0])
+                self.stores[int(node)][name].append_batch(sub, commit_ts)
+                moved += sub.nrows
+        self.forget_device_table(name)
+        return moved
+
     def compact_deltas(self) -> int:
         """Fold every store's pending delta batches into its base arrays
-        (positions kept, so the device cache stays valid). Returns the
-        batches folded."""
-        folded = 0
-        for stores in list(self.stores.values()):
-            for store in list(stores.values()):
-                compact = getattr(store, "compact", None)
-                if compact is not None and store.pending_delta_rows:
-                    folded += compact()
-        return folded
+        (positions kept, so the device cache stays valid): the
+        compaction job's verb. Returns the batches folded."""
+        from opentenbase_tpu_torch.storage.compaction import compact_cluster
+
+        return compact_cluster(self)
 
     def session(self) -> "Session":
         return Session(self)
@@ -1064,9 +1220,6 @@ class Session:
         return self.execute(sql).rows
 
     _REFUSED = {
-        A.SavepointStmt: "SAVEPOINT",
-        A.RollbackToSavepoint: "ROLLBACK TO SAVEPOINT",
-        A.ReleaseSavepoint: "RELEASE SAVEPOINT",
         A.CreateMatview: "materialized views",
         A.RefreshMatview: "materialized views",
         A.DropMatview: "materialized views",
@@ -1091,7 +1244,8 @@ class Session:
     # what a hot standby runs (the reference's _READONLY_OK, of the
     # statements the port takes)
     _READONLY_OK = (A.Select, A.SetStmt, A.BeginStmt, A.CommitStmt,
-                    A.RollbackStmt)
+                    A.RollbackStmt, A.SavepointStmt, A.RollbackToSavepoint,
+                    A.ReleaseSavepoint)
 
     def _execute_one(self, stmt: A.Statement) -> Result:
         c = self.cluster
@@ -1143,6 +1297,12 @@ class Session:
             A.CreateTableAs: self._x_createtableas,
             A.CreateFunction: self._x_createfunction,
             A.DropFunction: self._x_dropfunction,
+            A.SavepointStmt: self._x_savepointstmt,
+            A.RollbackToSavepoint: self._x_rollbacktosavepoint,
+            A.ReleaseSavepoint: self._x_releasesavepoint,
+            A.TruncateTable: self._x_truncatetable,
+            A.AlterTable: self._x_altertable,
+            A.LockTable: self._x_locktable,
         }.get(type(stmt))
         if fn is None:
             raise NotPorted(self._REFUSED.get(
@@ -1184,6 +1344,8 @@ class Session:
                 self.txn = None
             self.cluster.locks.release_all(self.session_id)
             raise SQLError(str(e), "40P01")
+        except (LockTimeout, LockNotAvailable) as e:
+            raise SQLError(str(e)) from None
         except StatementTimeout as e:
             raise SQLError(str(e), "57014") from None
         finally:
@@ -1231,6 +1393,25 @@ class Session:
         self._abort_txn(self.txn)
         self.txn = None
         return Result("ROLLBACK")
+
+    # -- savepoints ----------------------------------------------------------
+    def _txn_block(self, what: str) -> Transaction:
+        if self.txn is None:
+            raise SQLError(f"{what} can only be used in transaction blocks")
+        return self.txn
+
+    def _x_savepointstmt(self, stmt: A.SavepointStmt) -> Result:
+        self._txn_block("SAVEPOINT").mark_savepoint(stmt.name)
+        return Result("SAVEPOINT")
+
+    def _x_rollbacktosavepoint(self, stmt: A.RollbackToSavepoint) -> Result:
+        self._txn_block("ROLLBACK TO SAVEPOINT").rollback_to_savepoint(
+            stmt.name, self.cluster.stores)
+        return Result("ROLLBACK")
+
+    def _x_releasesavepoint(self, stmt: A.ReleaseSavepoint) -> Result:
+        self._txn_block("RELEASE SAVEPOINT").release_savepoint(stmt.name)
+        return Result("RELEASE")
 
     # -- explicit two-phase commit ----------------------------------------
     def _x_preparetransaction(self, stmt: A.PrepareTransaction) -> Result:
@@ -1504,8 +1685,13 @@ class Session:
         return dataclasses.replace(stmt, items=[
             A.SelectItem(bind(it.expr), it.alias) for it in stmt.items])
 
+    def _lock_opts(self) -> dict:
+        return {"lock_timeout_ms": self.gucs["lock_timeout"],
+                "deadlock_timeout_ms": self.gucs["deadlock_timeout"]}
+
     def _acquire_row_locks(
         self, txn: Transaction, table: str, node: int, idx, mode: str,
+        nowait: bool = False,
     ) -> None:
         """Row locks on store positions ``idx``, keyed by the stable row
         ids (VACUUM is fenced out by the store pin, taken BEFORE the
@@ -1521,7 +1707,8 @@ class Session:
         txn.pin(store)
         try:
             self.cluster.locks.acquire(self.session_id, txn.gxid, keys,
-                                       mode)
+                                       mode, nowait=nowait,
+                                       **self._lock_opts())
         except Exception:
             if newly_pinned:
                 store.unpin()
@@ -1827,9 +2014,7 @@ class Session:
             raise NotPorted("partitioned table")
         if stmt.to_group is not None:
             raise NotPorted("CREATE TABLE ... TO GROUP")
-        for cd in stmt.columns:
-            if cd.not_null or cd.primary_key or cd.default is not None:
-                raise NotPorted("column constraints and defaults")
+        self._reserved_relation(stmt.name)
         if cat.has(stmt.name):
             if stmt.if_not_exists:
                 return Result("CREATE TABLE")
@@ -1837,13 +2022,52 @@ class Session:
         schema: dict[str, t.SqlType] = {}
         for cd in stmt.columns:
             schema[cd.name] = t.type_from_name(cd.type_name, cd.type_args)
-        self._create_table(stmt.name, schema, self._dist_spec(stmt))
+        dist = self._dist_spec(stmt)
+        self._create_table(stmt.name, schema, dist,
+                           self._column_constraints(stmt, schema))
         return Result("CREATE TABLE")
 
+    def _column_constraints(self, stmt: A.CreateTable, schema) -> dict:
+        """NOT NULL, PRIMARY KEY (which implies NOT NULL: a NULL key
+        would be stored as 0 and collide with a real 0) and DEFAULT
+        constants, each default checked against its column type now."""
+        from opentenbase_tpu_torch.storage.column import Dictionary
+
+        not_null, defaults, pk = [], {}, None
+        for cd in stmt.columns:
+            if cd.not_null:
+                not_null.append(cd.name)
+            if cd.primary_key:
+                pk = cd.name
+                if cd.name not in not_null:
+                    not_null.append(cd.name)
+            if cd.default is not None:
+                try:
+                    v = self._const_arg(cd.default)
+                except SQLError:
+                    raise SQLError(f'default for column "{cd.name}" must '
+                                   "be a constant") from None
+                ty = schema[cd.name]
+                try:
+                    column_from_python(
+                        [v], ty,
+                        Dictionary() if ty.id == t.TypeId.TEXT else None)
+                except (ValueError, TypeError):
+                    raise SQLError(f'default for column "{cd.name}" is not '
+                                   f"valid for type {ty}") from None
+                defaults[cd.name] = v
+        return {"not_null": not_null, "defaults": defaults,
+                "primary_key": pk}
+
     def _create_table(self, name: str, schema: dict,
-                      dist: DistributionSpec) -> TableMeta:
-        """A new table's catalog entry, its stores, and its 'D' record."""
+                      dist: DistributionSpec,
+                      constraints: Optional[dict] = None) -> TableMeta:
+        """A new table's catalog entry, its constraints, its stores, and
+        its 'D' record."""
+        constraints = constraints or {"not_null": [], "defaults": {},
+                                      "primary_key": None}
         meta = self.cluster.catalog.create_table(name, schema, dist)
+        apply_constraints(meta, constraints)
         self.cluster.create_table_stores(meta)
         self._log_ddl({
             "op": "create_table", "name": name,
@@ -1851,8 +2075,7 @@ class Session:
             "strategy": meta.dist.strategy.value,
             "key_columns": list(meta.dist.key_columns),
             "group": meta.dist.group,
-            "constraints": {"not_null": [], "defaults": {},
-                            "primary_key": None},
+            "constraints": constraints,
         })
         return meta
 
@@ -1930,25 +2153,96 @@ class Session:
                        "table": stmt.table, "columns": list(stmt.columns)})
         return Result("CREATE INDEX")
 
+    @classmethod
+    def _dist_spec(cls, stmt: A.CreateTable) -> DistributionSpec:
+        """The named strategy, else the reference's default: SHARD on the
+        primary key, else on the first column."""
+        if stmt.distribute_strategy:
+            return cls._dist_spec_named(stmt.distribute_strategy,
+                                        stmt.distribute_keys)
+        key = next((cd.name for cd in stmt.columns if cd.primary_key),
+                   stmt.columns[0].name)
+        return DistributionSpec(DistStrategy.SHARD, (key,))
+
     @staticmethod
-    def _dist_spec(stmt: A.CreateTable) -> DistributionSpec:
-        s = (stmt.distribute_strategy or "").lower()
+    def _dist_spec_named(strategy: str, keys) -> DistributionSpec:
+        """The one strategy name -> DistributionSpec mapper (CREATE TABLE
+        and ALTER TABLE ... DISTRIBUTE BY)."""
+        s = (strategy or "").lower()
         if s in ("replication", "replicated"):
             return DistributionSpec(DistStrategy.REPLICATED)
         if s == "roundrobin":
             return DistributionSpec(DistStrategy.ROUNDROBIN)
-        if s == "shard":
-            if not stmt.distribute_keys:
-                raise SQLError("shard distribution requires a key column")
-            return DistributionSpec(
-                DistStrategy.SHARD, tuple(stmt.distribute_keys)
-            )
-        if not s:
-            # the reference's default: SHARD on the first column
-            return DistributionSpec(
-                DistStrategy.SHARD, (stmt.columns[0].name,)
-            )
-        raise NotPorted(f"distribute by {s}")
+        if s in ("shard", "hash", "modulo"):
+            if not keys:
+                raise SQLError(f"{s} distribution requires a key column")
+            strat = {"shard": DistStrategy.SHARD, "hash": DistStrategy.HASH,
+                     "modulo": DistStrategy.MODULO}[s]
+            return DistributionSpec(strat, tuple(keys))
+        raise SQLError(f"unknown distribution strategy {strategy!r}")
+
+    # -- TRUNCATE, ALTER TABLE, LOCK TABLE ------------------------------------
+    def _x_truncatetable(self, stmt: A.TruncateTable) -> Result:
+        """Every named table gets fresh empty stores, and its 'D' record.
+        Refused while a transaction holds positions in the table."""
+        for name in stmt.names:
+            self._table_meta(name)
+            self.cluster._refuse_pinned(name, "truncate")
+        for name in stmt.names:
+            self.cluster.truncate_table(name)
+            self._log_ddl({"op": "truncate", "name": name})
+        return Result("TRUNCATE TABLE")
+
+    def _x_altertable(self, stmt: A.AlterTable) -> Result:
+        """ADD COLUMN, DROP COLUMN and DISTRIBUTE BY, each with its 'D'
+        record (a redistribution then takes a checkpoint: its stores were
+        rewritten whole). ADD PARTITIONS is outside the port."""
+        c = self.cluster
+        meta = self._table_meta(stmt.table)
+        if stmt.action == "add_column":
+            cd = stmt.column
+            ty = t.type_from_name(cd.type_name, cd.type_args)
+            c.alter_add_column(stmt.table, cd.name, ty)
+            self._log_ddl({"op": "add_column", "name": stmt.table,
+                           "column": cd.name, "type": _type_to_str(ty)})
+            return Result("ALTER TABLE")
+        if stmt.action == "drop_column":
+            c.alter_drop_column(stmt.table, stmt.column_name)
+            self._log_ddl({"op": "drop_column", "name": stmt.table,
+                           "column": stmt.column_name})
+            return Result("ALTER TABLE")
+        if stmt.action == "distribute":
+            for k in stmt.keys:
+                if k not in meta.schema:
+                    raise SQLError(f'distribution key "{k}" is not a column')
+            dist = self._dist_spec_named(stmt.strategy, stmt.keys)
+            n = c.redistribute_table(stmt.table, dist)
+            if c.persistence is not None:
+                c.persistence.log_ddl({
+                    "op": "redistribute", "name": stmt.table,
+                    "strategy": dist.strategy.value,
+                    "key_columns": list(dist.key_columns)})
+                c.persistence.checkpoint()
+            return Result("ALTER TABLE", rowcount=n)
+        if stmt.action == "add_partitions":
+            raise NotPorted("ALTER TABLE ... ADD PARTITIONS")
+        raise SQLError(f"unsupported ALTER TABLE action {stmt.action}")
+
+    def _x_locktable(self, stmt: A.LockTable) -> Result:
+        """LOCK TABLE (lockcmds.c): a table lock in the mode's class on
+        every node holding the table, to the end of the transaction."""
+        if self.txn is None:
+            raise SQLError("LOCK TABLE can only be used in transaction "
+                           "blocks")
+        if not self.cluster.catalog.has(stmt.table):
+            raise SQLError(f'table "{stmt.table}" does not exist')
+        meta = self.cluster.catalog.get(stmt.table)
+        self.cluster.locks.acquire(
+            self.session_id, self.txn.gxid,
+            [(node, stmt.table) for node in meta.node_indices],
+            table_lock_mode(stmt.mode), nowait=stmt.nowait,
+            **self._lock_opts())
+        return Result("LOCK TABLE")
 
     def _x_vacuumstmt(self, stmt: A.VacuumStmt) -> Result:
         """Reclaim rows deleted before the newest timestamp, store by
@@ -2204,7 +2498,8 @@ class Session:
         self._log_ddl({"op": "drop_function", "name": stmt.name})
         return Result("DROP FUNCTION")
 
-    # -- INSERT ... VALUES ---------------------------------------------------
+    # -- INSERT ------------------------------------------------------------
+    # the literal Python types the bulk path takes per column type
     _LITERAL_OK = {
         t.TypeId.BOOL: (bool,),
         t.TypeId.INT4: (int,),
@@ -2223,106 +2518,138 @@ class Session:
             raise SQLError(f'relation "{name}" does not exist')
         return cat.get(name)
 
-    def _x_insert(self, stmt: A.Insert) -> Result:
-        """VALUES rows of plain literals build per-column arrays directly
-        (the reference's bulk-insert rewrite, engine.py
-        _bulk_insert_batch); INSERT ... SELECT runs its query through the
-        one dispatch point, cast and encoded into the table's types and
-        dictionaries by the analyzer's projection. Either batch routes by
-        the table's locator and parks as delta batches at PENDING_TS; the
-        commit stamps them."""
-        if stmt.returning or stmt.on_conflict is not None:
-            raise NotPorted("INSERT ... RETURNING / ON CONFLICT")
-        if stmt.query is not None:
-            return self._insert_select(stmt)
-        meta = self._table_meta(stmt.table)
+    def _bulk_insert_batch(self, stmt: A.Insert):
+        """VALUES rows of plain literals as per-column arrays, with no
+        plan (the reference's bulk-insert rewrite, engine.py
+        _bulk_insert_batch): (meta, the batch in table order), or None
+        where the general pipeline answers (an expression, a cast, a
+        literal of another type, a bad name or arity: that pipeline
+        alone defines the semantics and the errors)."""
+        if stmt.query is not None or not stmt.values:
+            return None
+        cat = self.cluster.catalog
+        if not cat.has(stmt.table):
+            return None
+        meta = cat.get(stmt.table)
         columns = list(stmt.columns) if stmt.columns else list(meta.schema)
         arity = len(stmt.values[0])
-        if not stmt.columns and arity < len(columns):
+        if not stmt.columns and arity < len(columns) and all(
+                len(row) == arity for row in stmt.values):
             columns = columns[:arity]  # PG: short VALUES fill leading cols
-        if len(set(columns)) != len(columns):
-            raise SQLError("column specified more than once")
-        for c in columns:
-            if c not in meta.schema:
-                raise SQLError(f'column "{c}" of "{meta.name}" does not exist')
-        for row in stmt.values:
-            if len(row) != len(columns):
-                raise SQLError("VALUES lists must all be the same length")
+        if len(set(columns)) != len(columns) or any(
+                c not in meta.schema for c in columns) or any(
+                len(row) != len(columns) for row in stmt.values):
+            return None
         cols: dict[str, Column] = {}
         for j, name in enumerate(columns):
             ty = meta.schema[name]
             ok = self._LITERAL_OK.get(ty.id)
             if ok is None:
-                raise NotPorted(f"insert into a {ty.id.value} column")
+                return None
             vals = []
             for row in stmt.values:
                 v = row[j]
-                if type(v) is not A.Literal or (
-                    v.value is not None and (
-                        not isinstance(v.value, ok)
-                        or (isinstance(v.value, bool)
-                            and ty.id is not t.TypeId.BOOL)
-                    )
-                ):
-                    raise NotPorted("INSERT values other than plain literals")
-                vals.append(v.value)
-            cols[name] = column_from_python(
-                vals, ty, meta.dictionaries.get(name))
-        n = len(stmt.values)
-        for name, ty in meta.schema.items():  # absent columns are NULL
-            if name not in cols:
+                if type(v) is not A.Literal:
+                    return None
+                pv = v.value
+                if pv is not None and (
+                        not isinstance(pv, ok)
+                        or (isinstance(pv, bool)
+                            and ty.id is not t.TypeId.BOOL)):
+                    return None
+                vals.append(pv)
+            try:
                 cols[name] = column_from_python(
-                    [None] * n, ty, meta.dictionaries.get(name)
-                )
-        batch = ColumnBatch({k: cols[k] for k in meta.schema}, n)
-        txn, implicit = self._begin_implicit()
-        return Result("INSERT", rowcount=self._finish(
-            txn, implicit, lambda: self._locked_append(meta, batch, txn)))
+                    vals, ty, meta.dictionaries.get(name))
+            except (ValueError, TypeError, OverflowError):
+                return None  # an unparseable date, an overflowing int
+        src = ColumnBatch(cols, len(stmt.values))
+        return meta, self._complete_insert_batch(meta, columns, src)
 
-    def _insert_select(self, stmt: A.Insert) -> Result:
-        """INSERT ... SELECT: the source (the analyzer's projection into
-        the target's column types and dictionaries) read at the
-        statement's snapshot, its columns completed with NULLs in table
-        order, then appended as INSERT VALUES appends."""
-        self._refuse_system_views(stmt.query)
-        splan = analyze_statement(stmt, self.cluster.catalog)
-        iplan = splan.root
-        meta = self._table_meta(iplan.table)
-        src = self._run_statement_plan(optimize_statement(
-            L.StatementPlan(iplan.source, splan.subplans),
-            self.cluster.catalog))
-        given = dict(zip(iplan.columns, src.columns.values()))
-        cols: dict[str, Column] = {}
+    def _complete_insert_batch(self, meta: TableMeta, columns,
+                               src: ColumnBatch) -> ColumnBatch:
+        """``src`` (the given ``columns``, in order) in table column
+        order; an absent column takes its DEFAULT, else NULL."""
+        given = dict(zip(columns, src.columns.values()))
+        out: dict[str, Column] = {}
         for name, ty in meta.schema.items():
             col = given.get(name)
-            cols[name] = (
+            out[name] = (
                 Column(ty, col.data, col.validity, col.dictionary)
                 if col is not None else column_from_python(
-                    [None] * src.nrows, ty, meta.dictionaries.get(name)))
-        batch = ColumnBatch(cols, src.nrows)
-        txn, implicit = self._begin_implicit()
-        return Result("INSERT", rowcount=self._finish(
-            txn, implicit, lambda: self._locked_append(meta, batch, txn)))
+                    [meta.defaults.get(name)] * src.nrows, ty,
+                    meta.dictionaries.get(name)))
+        return ColumnBatch(out, src.nrows)
 
-    def _locked_append(self, meta: TableMeta, batch: ColumnBatch,
-                       txn: Transaction) -> int:
-        """``_route_and_append`` under a shared table lock, which
-        coexists with other writers."""
+    def _x_insert(self, stmt: A.Insert) -> Result:
+        """INSERT ... VALUES | SELECT [ON CONFLICT ...] [RETURNING ...].
+        VALUES of plain literals build per-column arrays directly
+        (``_bulk_insert_batch``); anything else runs its source through
+        the one dispatch point, cast and encoded into the table's types
+        and dictionaries by the analyzer's projection. The batch takes
+        its defaults, routes by the table's locator, must pass NOT NULL
+        and the primary key, and parks as delta batches at PENDING_TS;
+        the commit stamps them."""
+        fast = self._bulk_insert_batch(stmt)
+        if fast is not None:
+            meta, full = fast
+        else:
+            if stmt.query is not None:
+                self._refuse_system_views(stmt.query)
+            splan = analyze_statement(stmt, self.cluster.catalog)
+            iplan = splan.root
+            meta = self._table_meta(iplan.table)
+        ret = (self._validate_returning(meta, stmt.returning)
+               if stmt.returning else None)
+        if fast is None:
+            src = self._run_statement_plan(optimize_statement(
+                L.StatementPlan(iplan.source, splan.subplans),
+                self.cluster.catalog))
+            full = self._complete_insert_batch(meta, iplan.columns, src)
+        txn, implicit = self._begin_implicit()
+        # the rows the statement inserts, and an upsert's new images
+        affected: list[ColumnBatch] = [full]
+
+        def write() -> int:
+            self._lock_table_shared(meta, txn)
+            n_upd = 0
+            if stmt.on_conflict is not None:
+                affected[0], n_upd, upd = self._apply_on_conflict(
+                    meta, stmt.on_conflict, full, txn)
+                affected.extend(upd)
+            return self._route_and_append(meta, affected[0], txn) + n_upd
+
+        n = self._finish(txn, implicit, write)
+        if ret is not None:
+            return self._returning_result(
+                "INSERT", ret, self._concat_affected(meta, affected), n)
+        return Result("INSERT", rowcount=n)
+
+    def _lock_table_shared(self, meta: TableMeta, txn: Transaction) -> None:
+        """INSERT's table lock: coexists with other writers, waits for a
+        LOCK TABLE ... EXCLUSIVE."""
         self.cluster.locks.acquire(
             self.session_id, txn.gxid,
             [(node, meta.name) for node in meta.node_indices],
-            TABLE_SHARED,
-        )
+            TABLE_SHARED, **self._lock_opts())
+
+    def _locked_append(self, meta: TableMeta, batch: ColumnBatch,
+                       txn: Transaction) -> int:
+        """``_route_and_append`` under INSERT's table lock."""
+        self._lock_table_shared(meta, txn)
         return self._route_and_append(meta, batch, txn)
 
     def _route_and_append(
         self, meta: TableMeta, batch: ColumnBatch, txn: Transaction
     ) -> int:
         """Append ``batch`` where the locator puts each row (every
-        replica of a replicated table), as pending delta batches."""
+        replica of a replicated table), as pending delta batches, after
+        the NOT NULL and primary key checks."""
         if batch.nrows == 0:
             return 0
+        self._check_not_null(meta, batch)
         if meta.dist.is_replicated:
+            self._check_unique_pk(meta, meta.node_indices[0], batch, txn)
             for node in meta.node_indices:
                 self._append_one(meta, node, batch, txn)
             return batch.nrows
@@ -2330,6 +2657,7 @@ class Session:
         routes = meta.locator.route_insert(key_cols, batch.nrows)
         for node in np.unique(routes):
             sub = batch.take(np.nonzero(routes == node)[0])
+            self._check_unique_pk(meta, int(node), sub, txn)
             self._append_one(meta, int(node), sub, txn)
         return batch.nrows
 
@@ -2339,6 +2667,203 @@ class Session:
         txn.pin(store)
         s, e = store.append_delta(batch, PENDING_TS)
         txn.w(node, meta.name).ins_ranges.append((s, e))
+
+    # -- constraints -------------------------------------------------------
+    @staticmethod
+    def _check_not_null(meta: TableMeta, batch: ColumnBatch) -> None:
+        for col in meta.not_null:
+            c = batch.columns.get(col)
+            if c is not None and c.validity is not None and not bool(
+                    np.all(c.validity)):
+                raise SQLError(f'null value in column "{col}" violates '
+                               "not-null constraint")
+
+    @staticmethod
+    def _pk_colocated(meta: TableMeta, pk: str) -> bool:
+        """Equal keys always land on one node: the one rule of primary
+        key enforcement and of the ON CONFLICT arbiter (a cross-node
+        unique index is refused in the reference too)."""
+        return meta.dist.is_replicated or tuple(
+            meta.dist.key_columns) == (pk,)
+
+    def _live_keys(self, store: ShardStore, txn: Transaction, node: int,
+                   table: str, pk: str):
+        """(the store's key column, the mask of its rows no commit or
+        this transaction deleted: other writers' pending rows count)."""
+        v = store.scan_view()
+        live = v.xmax() == INF_TS
+        tw = txn.writes.get(node, {}).get(table)
+        if tw is not None and tw.del_idx:
+            live[np.asarray(tw.del_idx, dtype=np.int64)] = False
+        return v.col(pk), live
+
+    def _check_unique_pk(self, meta: TableMeta, node: int,
+                         batch: ColumnBatch, txn: Transaction) -> None:
+        pk = meta.primary_key
+        if pk is None or not self._pk_colocated(meta, pk):
+            return
+        vals = np.asarray(batch.columns[pk].data)
+        dup = len(np.unique(vals)) != len(vals)
+        store = self.cluster.stores[node].get(meta.name)
+        if not dup and store is not None and store.nrows:
+            keycol, live = self._live_keys(store, txn, node, meta.name, pk)
+            dup = bool(np.isin(vals, keycol[live]).any())
+        if dup:
+            raise SQLError(f'duplicate key value violates primary key "{pk}"')
+
+    # -- ON CONFLICT ---------------------------------------------------------
+    def _apply_on_conflict(self, meta: TableMeta, oc, full: ColumnBatch,
+                           txn: Transaction):
+        """INSERT ... ON CONFLICT over the primary key arbiter
+        (nodeModifyTable.c's ExecOnConflictUpdate): a conflicting
+        proposed row is dropped (DO NOTHING) or becomes an update of the
+        existing row (DO UPDATE, ``excluded.col`` naming the proposed
+        values). Returns (the rows still to insert, rows updated, their
+        new images)."""
+        target, action, sets = oc
+        pk = meta.primary_key
+        if pk is None or not self._pk_colocated(meta, pk) or (
+                target is not None and target != pk):
+            if action == "nothing" and target is None:
+                return full, 0, []  # no arbiter: a plain insert (PG)
+            raise SQLError("there is no unique or exclusion constraint "
+                           "matching the ON CONFLICT specification")
+        vals = np.asarray(full.columns[pk].data)
+        pv = full.columns[pk].validity
+        notnull = (np.ones(len(vals), dtype=bool) if pv is None
+                   else np.asarray(pv))
+        nn_vals = vals[notnull]
+        if action == "update" and len(np.unique(nn_vals)) != len(nn_vals):
+            raise SQLError("ON CONFLICT DO UPDATE command cannot affect "
+                           "row a second time")
+        conflict = np.zeros(len(vals), dtype=bool)
+        n_updated = 0
+        newbs: list[ColumnBatch] = []
+        for node in meta.node_indices:
+            store = self.cluster.stores[node].get(meta.name)
+            if store is None or store.nrows == 0:
+                continue
+            keycol, live = self._live_keys(store, txn, node, meta.name, pk)
+            # a NULL key conflicts with nothing: the NOT NULL check
+            # refuses it on the insert path
+            hit = np.isin(vals, keycol[live]) & notnull
+            if action == "update" and hit.any():
+                pos_live = np.nonzero(live)[0]
+                idx = pos_live[np.isin(keycol[pos_live], vals[hit])]
+                old = store.take_batch(idx)
+                prop = {k: i for i, k in enumerate(vals.tolist())}
+                align = np.asarray(
+                    [prop[k] for k in np.asarray(
+                        old.columns[pk].data).tolist()], dtype=np.int64)
+                self._acquire_row_locks(txn, meta.name, node, idx,
+                                        ROW_UPDATE)
+                txn.pin(store)
+                txn.w(node, meta.name).del_idx.extend(idx.tolist())
+                newbs.append(self._upsert_new_batch(meta, old, full, align,
+                                                    sets))
+                n_updated += len(idx)
+                if meta.dist.is_replicated:
+                    # one replica's images; the insert fans them out
+                    newbs = newbs[:1]
+                    n_updated = len(idx)
+            conflict |= hit
+        for nb in newbs:
+            self._route_and_append(meta, nb, txn)
+        keep = full.take(np.nonzero(~conflict)[0])
+        if action == "nothing" and keep.nrows:
+            # duplicates within the statement: the first proposed row
+            # inserts, the later ones conflict with it (NULL keys never)
+            kv = np.asarray(keep.columns[pk].data)
+            kvalid = keep.columns[pk].validity
+            seen: set = set()
+            sel = []
+            for i in range(keep.nrows):
+                if kvalid is not None and not kvalid[i]:
+                    sel.append(i)
+                elif kv[i] not in seen:
+                    seen.add(kv[i])
+                    sel.append(i)
+            if len(sel) != keep.nrows:
+                keep = keep.take(np.asarray(sel, dtype=np.int64))
+        return keep, n_updated, newbs
+
+    def _upsert_new_batch(self, meta: TableMeta, old: ColumnBatch,
+                          full: ColumnBatch, align: np.ndarray,
+                          sets) -> ColumnBatch:
+        """DO UPDATE's row images: the existing rows with each SET item
+        applied, ``excluded.col`` (the proposed row), a bare column (the
+        existing row) or a constant."""
+        out = dict(old.columns)
+        n = old.nrows
+        for col, expr in sets:
+            if col not in meta.schema:
+                raise SQLError(f'column "{col}" does not exist')
+            ty = meta.schema[col]
+            if isinstance(expr, A.ColumnRef) and expr.table == "excluded":
+                if expr.name not in full.columns:
+                    raise SQLError(
+                        f'column "excluded.{expr.name}" does not exist')
+                src = full.columns[expr.name]
+                out[col] = Column(
+                    ty, np.asarray(src.data)[align],
+                    None if src.validity is None
+                    else np.asarray(src.validity)[align], src.dictionary)
+            elif isinstance(expr, A.ColumnRef) and expr.table in (
+                    None, meta.name):
+                if expr.name not in old.columns:
+                    raise SQLError(f'column "{expr.name}" does not exist')
+                src = old.columns[expr.name]
+                out[col] = Column(ty, src.data, src.validity,
+                                  src.dictionary)
+            elif isinstance(expr, A.Literal):
+                out[col] = column_from_python(
+                    [expr.value] * n, ty, meta.dictionaries.get(col))
+            else:
+                raise SQLError("ON CONFLICT DO UPDATE supports excluded.col, "
+                               "column, and constant assignments")
+        return ColumnBatch(out, n)
+
+    # -- RETURNING -----------------------------------------------------------
+    @staticmethod
+    def _validate_returning(meta: TableMeta, items):
+        """The RETURNING list as (column names, labels), checked before
+        the statement writes, so a bad list writes nothing. Column
+        references and ``*``, as the reference takes."""
+        names: list[str] = []
+        labels: list[str] = []
+        for item in items:
+            e = item.expr
+            qual = getattr(e, "table", None)
+            if qual is not None and qual != meta.name:
+                raise SQLError(f'invalid reference to table "{qual}" in '
+                               "RETURNING")
+            if isinstance(e, A.Star):
+                names.extend(meta.schema)
+                labels.extend(meta.schema)
+            elif isinstance(e, A.ColumnRef):
+                if e.name not in meta.schema:
+                    raise SQLError(f'column "{e.name}" does not exist')
+                names.append(e.name)
+                labels.append(item.alias or e.name)
+            else:
+                raise SQLError("RETURNING supports column references and *")
+        return names, labels
+
+    @staticmethod
+    def _concat_affected(meta: TableMeta, batches) -> ColumnBatch:
+        if not batches:
+            return ColumnBatch({
+                n: column_from_python([], ty, meta.dictionaries.get(n))
+                for n, ty in meta.schema.items()}, 0)
+        return batches[0] if len(batches) == 1 else concat_batches(batches)
+
+    @staticmethod
+    def _returning_result(verb: str, resolved, batch: ColumnBatch,
+                          rowcount: int) -> Result:
+        names, labels = resolved
+        cols = [batch.columns[n].to_python() for n in names]
+        return Result(verb, list(zip(*cols)) if cols else [], labels,
+                      rowcount)
 
     # -- UPDATE / DELETE -------------------------------------------------
     @staticmethod
@@ -2377,85 +2902,343 @@ class Session:
             stmt.where = walk(stmt.where)
         for i, (c, e) in enumerate(getattr(stmt, "assignments", []) or []):
             stmt.assignments[i] = (c, walk(e))
+        for i, item in enumerate(stmt.returning or []):
+            ne = walk(item.expr)
+            if ne is not item.expr:
+                stmt.returning[i] = dataclasses.replace(item, expr=ne)
 
-    def _dml_plan(self, stmt, what: str):
-        """(the analyzed UpdatePlan/DeletePlan, the table's meta)."""
-        if stmt.from_table is not None:
-            join = "FROM" if what == "UPDATE" else "USING"
-            raise NotPorted(f"{what} ... {join}")
-        if stmt.returning:
-            raise NotPorted(f"{what} ... RETURNING")
+    def _dml_plan(self, stmt):
+        """(the analyzed statement plan, the table's meta, the resolved
+        RETURNING list or None)."""
         self._fold_dml_alias(stmt)
         self._table_meta(stmt.table)
         splan = analyze_statement(stmt, self.cluster.catalog)
-        if splan.subplans:
-            raise NotPorted("scalar subqueries")
-        return splan.root, self.cluster.catalog.get(splan.root.table)
+        meta = self.cluster.catalog.get(splan.root.table)
+        ret = (self._validate_returning(meta, stmt.returning)
+               if stmt.returning else None)
+        return splan, meta, ret
 
-    def _target_rows(self, txn, meta, node, predicate) -> np.ndarray:
-        """This node's rows the statement changes, locked."""
+    def _subquery_values(self, splan: L.StatementPlan) -> list:
+        """Each scalar subquery's value (the InitPlans), run through the
+        one dispatch point: (value or None, type)."""
+        vals = []
+        for sp in splan.subplans:
+            b = self._run_statement_plan(optimize_statement(
+                L.StatementPlan(sp, []), self.cluster.catalog))
+            ty = sp.schema[0].type
+            if b.nrows > 1:
+                raise SQLError("more than one row returned by a subquery "
+                               "used as an expression")
+            if b.nrows == 0:
+                vals.append((None, ty))
+            else:
+                col = next(iter(b.columns.values()))
+                vals.append((col.data[0] if col.valid_mask[0] else None, ty))
+        return vals
+
+    def _target_rows(self, txn, meta, node, predicate, subq=None,
+                     mode: str = ROW_UPDATE,
+                     nowait: bool = False) -> np.ndarray:
+        """This node's rows the statement changes (or locks), locked."""
         idx = predicate_rows(
             self.cluster.catalog, self.cluster.stores[node][meta.name],
             meta.name, predicate, txn.snapshot_ts,
             txn.own_writes_view().get(node, {}).get(meta.name),
-            self.cluster.device,
+            self.cluster.device, subquery_values=subq,
         )
         if len(idx):
-            self._acquire_row_locks(txn, meta.name, node, idx, ROW_UPDATE)
+            self._acquire_row_locks(txn, meta.name, node, idx, mode,
+                                    nowait=nowait)
         return idx
 
     def _x_delete(self, stmt: A.Delete) -> Result:
-        dplan, meta = self._dml_plan(stmt, "DELETE")
+        if stmt.from_table is not None:
+            return self._dml_from(stmt, update=False)
+        splan, meta, ret = self._dml_plan(stmt)
         txn, implicit = self._begin_implicit()
+        old: list[ColumnBatch] = []  # RETURNING's rows, one copy each
 
         def write():
+            subq = self._subquery_values(splan)
             total = 0
             for node in meta.node_indices:
-                idx = self._target_rows(txn, meta, node, dplan.predicate)
-                if len(idx):
-                    txn.pin(self.cluster.stores[node][meta.name])
-                    txn.w(node, meta.name).del_idx.extend(idx.tolist())
-                    total += len(idx)
+                idx = self._target_rows(txn, meta, node,
+                                        splan.root.predicate, subq)
+                if not len(idx):
+                    continue
+                store = self.cluster.stores[node][meta.name]
+                if ret is not None and (not meta.dist.is_replicated
+                                        or not old):
+                    old.append(store.take_batch(idx))
+                txn.pin(store)
+                txn.w(node, meta.name).del_idx.extend(idx.tolist())
+                total += len(idx)
             if meta.dist.is_replicated and meta.node_indices:
                 total //= len(meta.node_indices)
             return total
 
-        return Result("DELETE", rowcount=self._finish(txn, implicit, write))
+        n = self._finish(txn, implicit, write)
+        if ret is not None:
+            return self._returning_result(
+                "DELETE", ret, self._concat_affected(meta, old), n)
+        return Result("DELETE", rowcount=n)
 
     def _x_update(self, stmt: A.Update) -> Result:
         """Each changed row is deleted and its new image appended, routed
         by the locator: a row whose distribution key changes moves to
         its new node."""
-        uplan, meta = self._dml_plan(stmt, "UPDATE")
-        assigned = dict(uplan.assignments)
+        if stmt.from_table is not None:
+            return self._dml_from(stmt, update=True)
+        splan, meta, ret = self._dml_plan(stmt)
+        assigned = dict(splan.root.assignments)
         txn, implicit = self._begin_implicit()
+        new_batches: list[ColumnBatch] = []
 
         def write():
+            subq = self._subquery_values(splan)
             total = 0
-            new_batches: list[ColumnBatch] = []
             for node in meta.node_indices:
-                idx = self._target_rows(txn, meta, node, uplan.predicate)
+                idx = self._target_rows(txn, meta, node,
+                                        splan.root.predicate, subq)
                 if not len(idx):
                     continue
                 store = self.cluster.stores[node][meta.name]
                 new_batches.append(self._apply_assignments(
-                    meta, store.take_batch(idx), assigned))
+                    meta, store.take_batch(idx), assigned, subq))
                 txn.pin(store)
                 txn.w(node, meta.name).del_idx.extend(idx.tolist())
                 total += len(idx)
                 if meta.dist.is_replicated:
                     # one copy's new image; the append fans out again
-                    new_batches = new_batches[:1]
+                    del new_batches[1:]
             for nb in new_batches:
                 self._route_and_append(meta, nb, txn)
             if meta.dist.is_replicated and meta.node_indices:
                 total //= len(meta.node_indices)
             return total
 
-        return Result("UPDATE", rowcount=self._finish(txn, implicit, write))
+        n = self._finish(txn, implicit, write)
+        if ret is not None:
+            return self._returning_result(
+                "UPDATE", ret, self._concat_affected(meta, new_batches), n)
+        return Result("UPDATE", rowcount=n)
+
+    def _dml_from(self, stmt, update: bool) -> Result:
+        """UPDATE ... FROM / DELETE ... USING: the target joined with ONE
+        source table, and the matched target rows updated or deleted
+        (the reference plans it as a join feeding ModifyTable). Per
+        target node an ordinary executor join on the cluster's device:
+        the target's live rows, only the columns the statement reads and
+        their positions (``__pos``), against the source gathered once
+        through the one dispatch point, so SET and WHERE take any
+        expression over both sides. An equality conjunct pairing the two
+        sides is the join key and is required. A target row matched
+        more than once changes once (its first match)."""
+        from opentenbase_tpu_torch.plan import texpr as TE
+        from opentenbase_tpu_torch.plan.analyze import (
+            Analyzer,
+            ExprContext,
+            Scope,
+            ScopeCol,
+            _bool_type,
+            _cast,
+            _common_input_type,
+            _split_and,
+        )
+        from opentenbase_tpu_torch.plan.distribute import RemoteSource
+
+        meta = self._table_meta(stmt.table)
+        src_name, src_alias = stmt.from_table
+        smeta = self._table_meta(src_name)
+        if stmt.where is None:
+            raise SQLError("UPDATE ... FROM / DELETE ... USING require a "
+                           "WHERE join condition")
+        ret = (self._validate_returning(meta, stmt.returning)
+               if stmt.returning else None)
+        tq = stmt.alias or stmt.table
+        sq = src_alias or src_name
+
+        def dictid(table, col, ty):
+            return f"{table}.{col}" if ty.id == t.TypeId.TEXT else None
+
+        tcols = list(meta.schema.items())
+        scols = list(smeta.schema.items())
+        nt = len(tcols)
+        an = Analyzer(self.cluster.catalog)
+        ctx = ExprContext(Scope(
+            [ScopeCol(tq, c, ty, dictid(stmt.table, c, ty))
+             for c, ty in tcols]
+            + [ScopeCol(sq, c, ty, dictid(src_name, c, ty))
+               for c, ty in scols]), an)
+
+        def cols_of(te) -> set:
+            out = set()
+
+            def walk(e):
+                if isinstance(e, TE.Col):
+                    out.add(e.index)
+                for ch in e.children():
+                    walk(ch)
+
+            walk(te)
+            return out
+
+        def side(te) -> str:
+            cols = cols_of(te)
+            if not cols:
+                return "none"
+            if min(cols) >= nt:
+                return "s"
+            return "t" if max(cols) < nt else "mixed"
+
+        lkeys: list = []
+        rkeys: list = []
+        residual = None
+        for conj in _split_and(stmt.where):
+            te = _bool_type(an.expr(conj, ctx))
+            pair = None
+            if isinstance(te, TE.BinE) and te.op == "=":
+                sides = (side(te.left), side(te.right))
+                if sides == ("t", "s"):
+                    pair = (te.left, te.right)
+                elif sides == ("s", "t"):
+                    pair = (te.right, te.left)
+            if pair is None:
+                residual = (te if residual is None
+                            else TE.BinE("and", residual, te, t.BOOL))
+                continue
+            lk, rk = pair
+            if lk.type != rk.type:
+                ct = _common_input_type(lk.type, rk.type, "=")
+                lk, rk = _cast(lk, ct), _cast(rk, ct)
+            lkeys.append(lk)
+            rkeys.append(rk)
+        if an.subplans:
+            raise SQLError("subqueries are not supported in UPDATE ... FROM "
+                           "/ DELETE ... USING conditions")
+        if not lkeys:
+            raise SQLError("UPDATE ... FROM / DELETE ... USING need an "
+                           "equality condition joining the two tables")
+        sets = []
+        if update:
+            for col, e_ast in dict(stmt.assignments).items():
+                if col not in meta.schema:
+                    raise SQLError(f'column "{col}" does not exist')
+                sets.append((col, _cast(an.expr(e_ast, ctx),
+                                        meta.schema[col])))
+            if an.subplans:
+                raise SQLError("subqueries are not supported in UPDATE ... "
+                               "FROM SET expressions")
+        # the target's columns the statement reads: the join side gathers
+        # only these (the reference gathers every column)
+        exprs = [*lkeys, *(e for _c, e in sets)]
+        if residual is not None:
+            exprs.append(residual)
+        used = sorted({i for e in exprs for i in cols_of(e) if i < nt})
+        nu = len(used)
+        tpos = {i: j for j, i in enumerate(used)}
+        # analysis positions are [target][source]; the join's output is
+        # [used target columns][__pos][source], its right child [source]
+        to_out = (lambda i: tpos[i] if i < nt else i - nt + nu + 1)
+        lkeys = [_rewrite_cols(k, to_out) for k in lkeys]
+        rkeys = [_rewrite_cols(k, lambda i: i - nt) for k in rkeys]
+        t_schema = tuple(
+            L.OutCol(tcols[i][0], tcols[i][1],
+                     dictid(stmt.table, *tcols[i])) for i in used
+        ) + (L.OutCol("__pos", t.INT8),)
+        s_schema = tuple(L.OutCol(c, ty, dictid(src_name, c, ty))
+                         for c, ty in scols)
+        plan: L.LogicalPlan = L.Join(
+            RemoteSource(0, t_schema), RemoteSource(1, s_schema), "inner",
+            tuple(lkeys), tuple(rkeys), None, t_schema + s_schema)
+        if residual is not None:
+            plan = L.Filter(plan, _rewrite_cols(residual, to_out),
+                            plan.schema)
+        plan = L.Project(
+            plan,
+            (TE.Col(nu, t.INT8, "__pos"),
+             *(_rewrite_cols(e, to_out) for _c, e in sets)),
+            (L.OutCol("__pos", t.INT8),
+             *(L.OutCol(f"__set_{col}", meta.schema[col],
+                        dictid(stmt.table, col, meta.schema[col]))
+               for col, _e in sets)))
+        src_batch = self._run_select(parse(f"select * from {src_name}")[0])
+        replicated = meta.dist.is_replicated
+        txn, implicit = self._begin_implicit()
+        # UPDATE's new images, or DELETE's old rows for RETURNING
+        affected: list[ColumnBatch] = []
+
+        def write():
+            total = 0
+            for node in meta.node_indices:
+                store = self.cluster.stores[node][stmt.table]
+                view = store.scan_view()
+                store.note_delta_read(view.delta_rows())
+                n0 = view.nrows
+                snap = np.int64(txn.snapshot_ts)
+                live = (view.xmin() <= snap) & (snap < view.xmax())
+                ow = txn.own_writes_view().get(node, {}).get(stmt.table)
+                if ow is not None:
+                    for s0, e0 in ow[0]:
+                        live[s0:min(e0, n0)] = True
+                    if len(ow[1]):
+                        live[ow[1]] = False
+                pos = np.nonzero(live)[0]
+                if not len(pos):
+                    continue
+                cols = {c: Column(ty, view.col_at(c, pos),
+                                  view.validity_at(c, pos),
+                                  meta.dictionaries.get(c))
+                        for c, ty in (tcols[i] for i in used)}
+                cols["__pos"] = Column(t.INT8, pos.astype(np.int64))
+                out = LocalExecutor(
+                    self.cluster.catalog,
+                    {0: ColumnBatch(cols, len(pos)), 1: src_batch},
+                    device=self.cluster.device).run_plan(plan)
+                if out.nrows == 0:
+                    continue
+                opos = np.asarray(out.columns["__pos"].data, dtype=np.int64)
+                # one change per target row: its first match
+                sel = np.sort(np.unique(opos, return_index=True)[1])
+                opos = opos[sel]
+                self._acquire_row_locks(txn, stmt.table, node, opos,
+                                        ROW_UPDATE)
+                txn.pin(store)
+                txn.w(node, stmt.table).del_idx.extend(opos.tolist())
+                total += len(opos)
+                if update:
+                    old = store.take_batch(opos)
+                    newc = dict(old.columns)
+                    outcols = list(out.columns.values())
+                    for i, (col, _e) in enumerate(sets):
+                        c = outcols[1 + i]
+                        newc[col] = Column(
+                            meta.schema[col], np.asarray(c.data)[sel],
+                            None if c.validity is None
+                            else np.asarray(c.validity)[sel],
+                            meta.dictionaries.get(col))
+                    affected.append(ColumnBatch(newc, len(opos)))
+                    if replicated:
+                        # one copy's images; the append fans them out
+                        del affected[1:]
+                elif ret is not None and (not replicated or not affected):
+                    affected.append(store.take_batch(opos))
+            if update:
+                for nb in affected:
+                    self._route_and_append(meta, nb, txn)
+            if replicated and meta.node_indices:
+                total //= len(meta.node_indices)
+            return total
+
+        n = self._finish(txn, implicit, write)
+        verb = "UPDATE" if update else "DELETE"
+        if ret is not None:
+            return self._returning_result(
+                verb, ret, self._concat_affected(meta, affected), n)
+        return Result(verb, rowcount=n)
 
     def _apply_assignments(self, meta: TableMeta, old: ColumnBatch,
-                           assigned) -> ColumnBatch:
+                           assigned, subq=None) -> ColumnBatch:
         """The SET expressions over the changed rows: in numpy where
         every one is simple (``np_expr_eval``), else all through the
         port's ExprCompiler over CPU tensors (the coordinator's
@@ -2487,7 +3270,8 @@ class Session:
                          if ty.id == t.TypeId.TEXT else None)
                 for name, ty in meta.schema.items()
             )
-            ex = LocalExecutor(self.cluster.catalog, {}, device="cpu")
+            ex = LocalExecutor(self.cluster.catalog, {}, device="cpu",
+                               subquery_values=subq)
             names = list(assigned)
             fns, params = ex._bind(
                 [assigned[n] for n in names], schema,
@@ -2517,6 +3301,8 @@ class Session:
         "statement_timeout": 0,
         "fragment_retries": 2,
         "fragment_retry_backoff_ms": 25,
+        "lock_timeout": 0,
+        "deadlock_timeout": 1000,
     }
 
     def _x_setstmt(self, stmt: A.SetStmt) -> Result:
@@ -2530,6 +3316,7 @@ class Session:
         and ``commit_siblings``, ``statement_timeout`` (ms or a
         duration string; 0 is none), and the read fragments' retry
         ladder, ``fragment_retries`` and ``fragment_retry_backoff_ms``,
+        and the lock waits' ``lock_timeout`` and ``deadlock_timeout``,
         parsed and validated as the reference's config.py does. RESET
         restores the conf file's value. Any other setting is outside
         the port."""
@@ -2543,6 +3330,12 @@ class Session:
             return Result("SET")
         if name in ("statement_timeout", "fragment_retry_backoff_ms"):
             self.gucs[name] = _duration_ms(v, name)
+            return Result("SET")
+        if name in ("lock_timeout", "deadlock_timeout"):
+            try:
+                self.gucs[name] = _config.validate(name, v)
+            except _config.GucError as e:
+                raise SQLError(str(e)) from None
             return Result("SET")
         if isinstance(v, str):  # the reference's spelling normalization
             low = v.lower()
@@ -2612,11 +3405,53 @@ class Session:
     # -- SELECT ----------------------------------------------------------------
     def _x_select(self, stmt: A.Select) -> Result:
         if stmt.for_update is not None:
-            raise NotPorted("SELECT ... FOR UPDATE")
+            return self._select_for_update(stmt)
         batch = self._run_select(stmt)
         return Result(
             "SELECT", batch.to_rows(), batch.column_names(), batch.nrows
         )
+
+    def _select_for_update(self, stmt: A.Select) -> Result:
+        """SELECT ... FOR UPDATE / FOR SHARE [NOWAIT]: the rows WHERE
+        picks are locked on every node holding them, then the query runs
+        at the transaction's snapshot. An implicit transaction releases
+        the locks at the statement's end, an explicit one at COMMIT or
+        ROLLBACK."""
+        c = self.cluster
+        if c.read_only:
+            raise SQLError("cannot execute SELECT FOR UPDATE in a read-only "
+                           "(hot standby) cluster", "25006")
+        fc = stmt.from_clause
+        if (not isinstance(fc, A.RelRef) or stmt.group_by or stmt.distinct
+                or stmt.set_ops or not c.catalog.has(fc.name)
+                or fc.name in _SYSTEM_VIEWS):
+            raise SQLError("FOR UPDATE is only allowed on a single base "
+                           "table without DISTINCT/GROUP BY/set operations")
+        meta = c.catalog.get(fc.name)
+        mode = ROW_UPDATE if stmt.for_update == "update" else ROW_SHARE
+        txn, implicit = self._begin_implicit()
+        prev = self.txn
+        try:
+            splan = analyze_statement(
+                A.Delete(table=fc.name, where=stmt.where), c.catalog)
+            subq = self._subquery_values(splan)
+            for node in meta.node_indices:
+                self._target_rows(txn, meta, node, splan.root.predicate,
+                                  subq, mode=mode, nowait=stmt.lock_nowait)
+                if meta.dist.is_replicated:
+                    break  # one copy's locks stand for the row
+            self.txn = txn
+            batch = self._run_select(stmt)
+        except Exception:
+            self.txn = prev
+            if implicit:
+                self._abort_txn(txn)
+            raise
+        if implicit:
+            self.txn = None
+            self._commit_txn(txn)
+        return Result("SELECT", batch.to_rows(), batch.column_names(),
+                      batch.nrows)
 
     def _run_select(self, stmt: A.Select) -> ColumnBatch:
         """A (rewritten) SELECT planned and run at the session's
@@ -2753,6 +3588,31 @@ _SYSTEM_VIEWS = frozenset({
     "pg_views", "pgxc_group", "pgxc_gtm_nodes", "pgxc_node",
     "pgxc_node_health", "pgxc_shard_map",
 })
+
+
+def _rewrite_cols(te, fn):
+    """``te`` with every column reference's index ``i`` made ``fn(i)``."""
+    from opentenbase_tpu_torch.plan import texpr as TE
+
+    if isinstance(te, TE.Col):
+        ni = fn(te.index)
+        return te if ni == te.index else dataclasses.replace(te, index=ni)
+    if dataclasses.is_dataclass(te) and not isinstance(te, type):
+        ch = {}
+        for f in dataclasses.fields(te):
+            v = getattr(te, f.name)
+            if isinstance(v, TE.TExpr):
+                nv = _rewrite_cols(v, fn)
+                if nv is not v:
+                    ch[f.name] = nv
+            elif isinstance(v, tuple) and any(
+                    isinstance(x, TE.TExpr) for x in v):
+                ch[f.name] = tuple(
+                    _rewrite_cols(x, fn) if isinstance(x, TE.TExpr) else x
+                    for x in v)
+        if ch:
+            return dataclasses.replace(te, **ch)
+    return te
 
 
 def _subst_params(node, values):

@@ -1257,7 +1257,8 @@ def _predicate_bounds(pred, scan: L.Scan) -> dict:
 
 
 def predicate_rows(catalog, store, table: str, predicate, snapshot_ts,
-                   own_writes=None, device="cpu") -> np.ndarray:
+                   own_writes=None, device="cpu",
+                   subquery_values=None) -> np.ndarray:
     """Positions in ``store`` (one node's shard of ``table``) of the rows
     matching ``predicate`` under ``snapshot_ts``, with the transaction's
     own writes (``own_writes``: (insert ranges, deleted positions))
@@ -1268,7 +1269,8 @@ def predicate_rows(catalog, store, table: str, predicate, snapshot_ts,
     rows and its delta tail, so DML on fresh rows never folds the store.
     Anything else (TEXT, IN lists, CASE, decimals, / and %) runs through
     the port's ExprCompiler over the columns it reads, on ``device``:
-    that path alone defines the semantics."""
+    that path alone defines the semantics. ``subquery_values``: the
+    statement's scalar subqueries' values, (value, type) each."""
     view = store.scan_view()
     store.note_delta_read(view.delta_rows())  # a whole-table read
     n0 = view.nrows
@@ -1285,7 +1287,7 @@ def predicate_rows(catalog, store, table: str, predicate, snapshot_ts,
             res = _np_pred_eval(predicate, view, cols, s0, e0)
             if res is None:
                 pred = _device_pred(catalog, view, table, predicate,
-                                    n0, device)
+                                    n0, device, subquery_values)
                 break
             d, v = res
             keep = d if v is None else (d & v)
@@ -1303,7 +1305,8 @@ def predicate_rows(catalog, store, table: str, predicate, snapshot_ts,
     return np.nonzero(pred & vis)[0]
 
 
-def _device_pred(catalog, view, table, predicate, n0, device) -> np.ndarray:
+def _device_pred(catalog, view, table, predicate, n0, device,
+                 subquery_values=None) -> np.ndarray:
     """The predicate's verdict over rows [0, n0) of ``view`` through the
     ExprCompiler on ``device``: only the columns it reads upload."""
     meta = catalog.get(table)
@@ -1318,7 +1321,8 @@ def _device_pred(catalog, view, table, predicate, n0, device) -> np.ndarray:
                   None if vm is None else _tensor(vm).to(device))
     comp = ExprCompiler(device)
     fn = comp.compile(predicate, dids)
-    params = tuple(resolve_param(s, device, catalog.dictionary)
+    params = tuple(resolve_param(s, device, catalog.dictionary,
+                                 subquery_values)
                    for s in comp.params)
     d, v = fn(env, params)
     keep = d if v is None else (d & v)

@@ -3,11 +3,14 @@ opentenbase_tpu/lmgr.py).
 
 A cluster-wide lock table keyed by (datanode, table, row_id) for row
 locks and (datanode, table) for table locks. UPDATE and DELETE take row
-locks on the rows they are about to mark, INSERT a shared table lock. A
-waiter parks on a condition variable; after ``deadlock_timeout_ms`` it
-looks for a cycle through itself in the wait-for graph and, finding
-one, raises DeadlockError (PG's policy: the detecting backend aborts
-itself).
+locks on the rows they are about to mark, SELECT ... FOR UPDATE / FOR
+SHARE on the rows it reads, INSERT a shared table lock, LOCK TABLE a
+table lock in its mode's class (``table_lock_mode``). A waiter parks on
+a condition variable; after ``deadlock_timeout_ms`` it looks for a
+cycle through itself in the wait-for graph and, finding one, raises
+DeadlockError (PG's policy: the detecting backend aborts itself). A
+wait longer than ``lock_timeout_ms`` raises LockTimeout; NOWAIT raises
+LockNotAvailable instead of waiting.
 
 Blocking and the engine statement lock: the wire servers (net/) run
 each statement under ``cluster._exec_lock`` (utils/rwlock.py), shared
@@ -16,8 +19,7 @@ its slot would wedge the server: the holder of the awaited row lock
 could never take the lock to COMMIT. So ``acquire`` releases whatever
 slot the calling thread holds for the duration of the wait and takes
 it back before returning, as the reference's does. Not ported: the
-operator's cycle breaker (pg_unlock), lock timeouts, NOWAIT and the
-pg_locks view.
+operator's cycle breaker (pg_unlock) and the pg_locks view.
 """
 
 from __future__ import annotations
@@ -33,6 +35,14 @@ class DeadlockError(RuntimeError):
     aborts the victim's whole transaction before surfacing it."""
 
 
+class LockTimeout(RuntimeError):
+    pass
+
+
+class LockNotAvailable(RuntimeError):
+    """NOWAIT could not acquire at once."""
+
+
 # Row locks: "update" (exclusive) vs "share". Table locks: "shared"
 # coexists with everything but exclusive; "exclusive" conflicts with
 # every other lock on that table, row locks included.
@@ -40,6 +50,14 @@ ROW_UPDATE = "update"
 ROW_SHARE = "share"
 TABLE_SHARED = "shared"
 TABLE_EXCLUSIVE = "exclusive"
+
+# LOCK TABLE's modes that take the exclusive class; the others share
+_EXCLUSIVE_TABLE_MODES = {
+    "exclusive",
+    "access exclusive",
+    "share update exclusive",
+    "share row exclusive",
+}
 
 
 @dataclass
@@ -113,23 +131,35 @@ class LockManager:
         gxid: int,
         keys: list[tuple],
         mode: str,
+        nowait: bool = False,
+        lock_timeout_ms: int = 0,
         deadlock_timeout_ms: int = 1000,
     ) -> None:
         """Grant ``keys`` in ``mode`` to the session, waiting as long as
-        a conflicting holder keeps them (no lock timeout: the
-        reference's default), with a deadlock check every
-        ``deadlock_timeout_ms`` of waiting."""
+        a conflicting holder keeps them (at most ``lock_timeout_ms``
+        where it is not 0; not at all with ``nowait``), with a deadlock
+        check every ``deadlock_timeout_ms`` of waiting."""
         keys = tuple(keys)
         engine_lock = getattr(self._cluster, "_exec_lock", None)
         park_token = None
-        dl_check_at = time.monotonic() + deadlock_timeout_ms / 1000.0
+        start = time.monotonic()
+        deadline = (start + lock_timeout_ms / 1000.0 if lock_timeout_ms
+                    else None)
+        dl_check_at = start + deadlock_timeout_ms / 1000.0
         try:
             with self._cv:
                 while True:
                     if not self._blockers(keys, mode, session_id):
                         self._grant(session_id, gxid, keys, mode)
                         return
+                    if nowait:
+                        raise LockNotAvailable(
+                            "could not obtain lock on row in relation "
+                            f"{keys[0][1]!r}")
                     now = time.monotonic()
+                    if deadline is not None and now >= deadline:
+                        raise LockTimeout(
+                            "canceling statement due to lock timeout")
                     self._waiters[session_id] = _Waiter(
                         session_id, gxid, mode, keys
                     )
@@ -146,8 +176,10 @@ class LockManager:
                     # asleep (see the module docstring)
                     if park_token is None and engine_lock is not None:
                         park_token = engine_lock.park_release()
-                    self._cv.wait(timeout=max(
-                        min(0.05, dl_check_at - now), 0.005))
+                    wait = min(0.05, dl_check_at - now)
+                    if deadline is not None:
+                        wait = min(wait, deadline - now)
+                    self._cv.wait(timeout=max(wait, 0.005))
         finally:
             with self._cv:
                 self._waiters.pop(session_id, None)
@@ -211,3 +243,12 @@ class LockManager:
             return None
         # every cycle member has an outgoing wait edge: all are waiters
         return [self._waiters[s].gxid for s in cyc if s in self._waiters]
+
+
+def table_lock_mode(sql_mode: Optional[str]) -> str:
+    """LOCK TABLE ... IN <mode> MODE as a conflict class (no mode:
+    ACCESS EXCLUSIVE, PG's default)."""
+    if sql_mode is None:
+        return TABLE_EXCLUSIVE
+    return (TABLE_EXCLUSIVE if sql_mode.lower() in _EXCLUSIVE_TABLE_MODES
+            else TABLE_SHARED)

@@ -61,8 +61,9 @@ def classify(cluster, sql: str, session):
     - ("read", None): a single plain SELECT (no FOR UPDATE) outside a
       transaction: shares the data plane with other readers.
     - ("write", tables): a single autocommit INSERT/UPDATE/DELETE of one
-      known table with no subquery: shares the data plane with writers
-      of other tables.
+      known table (and UPDATE ... FROM's or DELETE ... USING's known
+      source) with no subquery: shares the data plane with writers of
+      other tables.
     - ("excl", None): everything else, parse errors included (they then
       surface from the statement's own execution)."""
     if session.txn is not None:
@@ -94,9 +95,13 @@ def classify(cluster, sql: str, session):
             if isinstance(node, (A.InSubquery, A.ExistsSubquery,
                                  A.ScalarSubquery)):
                 return "excl", None
-        if not cluster.catalog.has(st.table):
+        # UPDATE ... FROM / DELETE ... USING: the source's mutex too
+        tables = {st.table}
+        if getattr(st, "from_table", None) is not None:
+            tables.add(st.from_table[0])
+        if not all(cluster.catalog.has(t) for t in tables):
             return "excl", None
-        return "write", {st.table}
+        return "write", tables
     return "excl", None
 
 

@@ -37,13 +37,17 @@ materializes them at PENDING_TS), COMMIT / ROLLBACK PREPARED are 'C' /
 transaction's rows and names them under "prepared". After redo a
 transaction still undecided is parked again (``_finish_recovery``:
 its delete targets reserved at RESERVED_TS, registered in the GTM).
-The GTM's sequence events are 'D' records (``seq_event``).
+The GTM's sequence events are 'D' records (``seq_event``). A CREATE
+TABLE record and a checkpoint carry the table's constraints; TRUNCATE,
+ALTER TABLE ADD / DROP COLUMN and DISTRIBUTE BY are 'D' records
+(``truncate``, ``add_column``, ``drop_column``, ``redistribute``),
+replayed through the cluster's own verbs.
 
 Not ported, each refused by name: point-in-time recovery to a barrier
 (``recover(until_barrier=...)``), and every DDL record of a statement
-the port does not take (views, partitions, nodes, ...). Left out: base
-backups, rebalance journals, logical decoding and the fault
-failpoints.
+the port does not take (materialized views, partitions, nodes, ...).
+Left out: base backups, rebalance journals, logical decoding and the
+fault failpoints.
 """
 
 from __future__ import annotations
@@ -89,14 +93,13 @@ def _type_from_str(s: str) -> t.SqlType:
     return t.SqlType(t.TypeId(s))
 
 
-def _refuse_constraints(cons: Optional[dict]) -> None:
-    """The port takes no column constraints or defaults: a record that
-    carries any is outside it."""
+def apply_constraints(meta, cons: Optional[dict]) -> None:
+    """A CREATE TABLE record's (or a checkpoint's) column constraints
+    onto the table's catalog entry."""
     cons = cons or {}
-    if cons.get("not_null") or cons.get("defaults") or cons.get(
-        "primary_key"
-    ):
-        raise NotPorted("column constraints and defaults")
+    meta.not_null = set(cons.get("not_null", ()))
+    meta.defaults = dict(cons.get("defaults", {}))
+    meta.primary_key = cons.get("primary_key")
 
 
 def encode_commit_group(writes, stores, catalog=None, dict_synced=None):
@@ -640,7 +643,9 @@ class ClusterPersistence:
                     col: list(d.values) for col, d in tm.dictionaries.items()
                 },
                 "constraints": {
-                    "not_null": [], "defaults": {}, "primary_key": None,
+                    "not_null": sorted(tm.not_null),
+                    "defaults": dict(tm.defaults),
+                    "primary_key": tm.primary_key,
                 },
                 "zone_cols": sorted(tm.zone_cols),
                 "foreign": None,
@@ -831,7 +836,6 @@ class ClusterPersistence:
         for name, tmeta in meta["tables"].items():
             if tmeta.get("foreign"):
                 raise NotPorted("foreign tables")
-            _refuse_constraints(tmeta.get("constraints"))
             schema = {k: _type_from_str(v) for k, v in tmeta["schema"].items()}
             spec = DistributionSpec(
                 DistStrategy(tmeta["strategy"]), tuple(tmeta["key_columns"]),
@@ -840,6 +844,7 @@ class ClusterPersistence:
             if not c.catalog.has(name):
                 c.catalog.create_table(name, schema, spec)
             tm = c.catalog.get(name)
+            apply_constraints(tm, tmeta.get("constraints"))
             tm.zone_cols.update(tmeta.get("zone_cols", []))
             tm.node_indices = list(tmeta["nodes"])
             tm.locator.node_indices = list(tmeta["nodes"])
@@ -902,7 +907,6 @@ class ClusterPersistence:
             if op == "create_table":
                 if c.catalog.has(header["name"]):
                     return
-                _refuse_constraints(header.get("constraints"))
                 schema = {
                     k: _type_from_str(v) for k, v in header["schema"].items()
                 }
@@ -912,6 +916,7 @@ class ClusterPersistence:
                     group=header.get("group"),
                 )
                 meta = c.catalog.create_table(header["name"], schema, spec)
+                apply_constraints(meta, header.get("constraints"))
                 c.create_table_stores(meta)
             elif op == "drop_table":
                 if c.catalog.has(header["name"]):
@@ -957,6 +962,21 @@ class ClusterPersistence:
                     header["rettype"], header["body"])
             elif op == "drop_function":
                 c.functions.pop(header["name"], None)
+            elif op == "truncate":
+                if c.catalog.has(header["name"]):
+                    c.truncate_table(header["name"])
+            elif op == "add_column":
+                if c.catalog.has(header["name"]):
+                    c.alter_add_column(header["name"], header["column"],
+                                       _type_from_str(header["type"]))
+            elif op == "drop_column":
+                if c.catalog.has(header["name"]):
+                    c.alter_drop_column(header["name"], header["column"])
+            elif op == "redistribute":
+                if c.catalog.has(header["name"]):
+                    c.redistribute_table(header["name"], DistributionSpec(
+                        DistStrategy(header["strategy"]),
+                        tuple(header["key_columns"])))
             else:
                 raise NotPorted(f"WAL DDL record {op!r}")
             return

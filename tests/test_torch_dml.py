@@ -20,7 +20,7 @@ import pytest
 
 from opentenbase_tpu.engine import Cluster as RefCluster
 from opentenbase_tpu.engine import SQLError as RefSQLError
-from opentenbase_tpu_torch import Cluster, NotPorted, SQLError
+from opentenbase_tpu_torch import Cluster, SQLError
 from opentenbase_tpu_torch.storage.table import INF_TS, ShardStore
 
 DDL = ("create table t (k bigint, g int, v bigint, s text, "
@@ -334,11 +334,20 @@ def test_a_failed_statement_leaves_no_writes_in_the_transaction(pair):
     pytest.param("select count(*), sum(v) from t", None,
                  id="select count(*) from t-read inside a writing "
                  "transaction"),
-    ("update t set v = 1 where k = 1 returning k", "UPDATE ... RETURNING"),
-    ("delete from t where k = 1 returning k", "DELETE ... RETURNING"),
-    ("savepoint sp", "SAVEPOINT"),
-    ("rollback to savepoint sp", "ROLLBACK TO SAVEPOINT"),
-    ("release savepoint sp", "RELEASE SAVEPOINT"),
+    # once refused; taken now (the cases keep their earlier names): the
+    # returned rows, the reference's savepoint commands and errors
+    pytest.param("update t set v = 1 where k = 1 returning k", "returning",
+                 id="update t set v = 1 where k = 1 returning k-UPDATE ... "
+                 "RETURNING"),
+    pytest.param("delete from t where k = 1 returning k", "returning",
+                 id="delete from t where k = 1 returning k-DELETE ... "
+                 "RETURNING"),
+    pytest.param("savepoint sp", "savepoint",
+                 id="savepoint sp-SAVEPOINT"),
+    pytest.param("rollback to savepoint sp", "savepoint",
+                 id="rollback to savepoint sp-ROLLBACK TO SAVEPOINT"),
+    pytest.param("release savepoint sp", "savepoint",
+                 id="release savepoint sp-RELEASE SAVEPOINT"),
     # once refused; taken now, as the reference takes it (the case
     # keeps its earlier name): the transaction parks until COMMIT or
     # ROLLBACK PREPARED
@@ -346,15 +355,31 @@ def test_a_failed_statement_leaves_no_writes_in_the_transaction(pair):
                  id="prepare transaction 'g1'-PREPARE TRANSACTION"),
 ])
 def test_named_refusals_inside_a_writing_transaction(pair, sql, shape):
-    """Inside a writing transaction the shapes outside the port are
-    refused by name; a read is answered by the host executor with the
-    transaction's own update in view, as the reference's is."""
+    """Inside a writing transaction: a read is answered by the host
+    executor with the transaction's own update in view, RETURNING
+    returns the reference's rows, and the savepoint statements answer
+    (or fail) as the reference's do."""
     for s in (pair.rs, pair.ps):
         s.execute("begin")
         s.execute("update t set v = 0 where k = 2")
     if shape is None:
         assert pair.ps.query(sql) == pair.rs.query(sql)
         assert pair.ps.last_route == "host"
+    elif shape == "returning":
+        want, got = pair.rs.execute(sql), pair.ps.execute(sql)
+        assert (got.command, got.rows, got.rowcount) == (
+            want.command, want.rows, want.rowcount) == (
+            sql.split()[0].upper(), [(1,)], 1)
+        pair.check()
+    elif shape == "savepoint":
+        out = []
+        for s in (pair.rs, pair.ps):
+            try:
+                out.append(s.execute(sql).command)
+            except (SQLError, RefSQLError) as e:
+                out.append(str(e))
+        assert out[0] == out[1], out
+        pair.check()
     elif shape == "prepared":
         for s in (pair.rs, pair.ps):
             assert s.execute(sql).command == "PREPARE TRANSACTION"
@@ -365,9 +390,6 @@ def test_named_refusals_inside_a_writing_transaction(pair, sql, shape):
         pair.both("rollback prepared 'g1'")
         pair.check()
         return
-    else:
-        with pytest.raises(NotPorted, match=shape):
-            pair.ps.execute(sql)
     for s in (pair.rs, pair.ps):
         s.execute("rollback")
 
@@ -377,9 +399,12 @@ def test_named_refusals_inside_a_writing_transaction(pair, sql, shape):
     ("delete from t using t2 where t.k = t2.k", "DELETE ... USING"),
 ])
 def test_joins_in_dml_are_refused(pair, sql, shape):
+    """Once refused by name (the test keeps its name); taken now, as the
+    reference takes them: the rows the join matches change."""
     pair.both("create table t2 (k bigint) distribute by shard(k)")
-    with pytest.raises(NotPorted, match=shape):
-        pair.ps.execute(sql)
+    pair.both("insert into t2 values (3), (5), (7), (500)")
+    assert pair.both(sql) == 3
+    pair.check()
 
 
 def test_replicated_table_writes_every_replica():

@@ -325,14 +325,16 @@ def test_text_min_max_collation_order(ndn):
                  "group by extract(year from ship)", [(2024, 1)],
                  id="extract_year"),
     pytest.param("select nm || '!' from cc", [("ada!",)], id="concat"),
+    # the same, since the DML slice (the returned rows; u2 is empty, so
+    # the joins change nothing: tests/test_torch_dml_from.py holds them)
     pytest.param("insert into cc values (9, 'x', 1) returning k",
-                 "RETURNING", id="insert_returning"),
-    pytest.param("update cc set v = 1 returning k", "RETURNING",
+                 [(9,)], id="insert_returning"),
+    pytest.param("update cc set v = 1 returning k", [(1,)],
                  id="update_returning"),
     pytest.param("update cc set v = u2.w from u2 where cc.k = u2.k",
-                 "UPDATE ... FROM", id="update_from"),
+                 [], id="update_from"),
     pytest.param("delete from cc using u2 where cc.k = u2.k",
-                 "DELETE ... USING", id="delete_using"),
+                 [], id="delete_using"),
 ])
 def test_still_refused_by_name(sql, shape):
     ps = Cluster(num_datanodes=2, shard_groups=16, device="cpu").session()

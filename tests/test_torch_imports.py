@@ -53,7 +53,7 @@ def test_package_imports_with_jax_blocked():
         "    agg, cuda_build, expr, filter, join, radix_probe, scan_agg)\n"
         "from opentenbase_tpu_torch.plan import batchplan\n"
         "from opentenbase_tpu_torch.executor import fused, fused_dag, local\n"
-        "from opentenbase_tpu_torch.storage import persist\n"
+        "from opentenbase_tpu_torch.storage import compaction, persist\n"
         "from opentenbase_tpu_torch.net import client, pgwire, server\n"
         "from opentenbase_tpu_torch.cli import (\n"
         "    otb_bench, otb_psql, otb_server, otb_standby)\n"
