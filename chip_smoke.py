@@ -316,7 +316,35 @@ neither jax nor the reference package.
    pgxc_shard_map, pg_stat_wal in phase 11 (a), pg_prepared_xacts in
    phase 14 while its gid is prepared, pg_locks in phase 16 (f) while
    the INSERT waits, and pg_unlock_check_deadlock / pg_unlock_execute
-   breaking a two-session deadlock under a 600 s deadlock_timeout.
+   breaking a two-session deadlock under a 600 s deadlock_timeout;
+18. the rest of the query surface in the same SF10 cluster after phase
+   17, every answer exact against numpy: (a) orders_p PARTITION BY RANGE
+   (o_orderdate) BEGIN ('1992-01-01') STEP (1 year) PARTITIONS (7),
+   DISTRIBUTE BY SHARD (o_orderkey), loaded by INSERT ... SELECT from
+   orders (SF x 1.5 M rows, routed by the partition split), each
+   child's rows in pg_partitions; one year's count by priority through
+   the parent pruned by bare literals (EXPLAIN keeps p2 and p3) and the
+   parent's count, on the host route; the same grouped count on
+   orders_p$p2 by name on K1 (one launch, held against its plain
+   version at those inputs); an UPDATE and a DELETE fanned out over one
+   year's children (about 230 000 rows each), the partition-key UPDATE
+   refused with
+   the reference's message, ADD PARTITIONS (1) and an INSERT landing in
+   orders_p$p7; DROP, the name created again and its child read on K1
+   (no stale plane); (b) a generated org chart emp(id, mgr, salary) of
+   1 M employees (fan-out 3-5, depth about 12) and WITH RECURSIVE: the
+   reports under a manager (UNION ALL) with their count and summed
+   salary, and reachability (UNION) over its edges plus back edges that
+   close cycles, each against numpy's BFS with the iterations counted;
+   (c) PL/pgSQL: q6_rev(lo, hi, qty) whose body's SELECT ... INTO is Q6
+   (one K1 launch a call, two parameter sets, K1 held against its plain
+   version at the first), and a call looping over 1 000 RF1-shaped
+   INSERTs: every row visible after it, none after the same call
+   RAISEs; (d) supplier (SF x 10 000 rows, dbgen's seven columns)
+   written as CSV without trailing delimiters and read as a foreign
+   table by TPC-H Q11 (its value sum(ps_supplycost): partsupp holds no
+   ps_availqty), INSERT and COPY FROM refused, the file rewritten and
+   read anew.
 
 The numpy answers over 60 M rows and more (Q6, Q1 as the spec writes
 it, SF100's Q6 and Q3) are sums over row slices taken in threads, and
@@ -325,8 +353,11 @@ and the same data in less of the time limit; so are flights 2-4's
 answers, one thread a query. Cuts for the time limit (``warm_repeats``):
 a query whose first run took over 250 ms gets two warm runs, over 1 s
 one warm run and one traced run, over 3 s no warm run (its first run's
-time stands for it) where it is timed alone (phases 10, 12, 14-16); the
-fused DAG's month of lines keeps one warm, layered and traced run.
+time stands for it) where it is timed alone (phases 10, 12, 14-16), over
+5 s no traced run either (TPC-H Q18 on the host route, the chunked
+scan's queries); the fused DAG's month of lines keeps one warm, layered
+and traced run; phase 10's numpy answers run in threads beside phase
+9's queries.
 """
 
 from __future__ import annotations
@@ -386,6 +417,18 @@ def start_threads(jobs: dict, workers: int = 4):
 def in_threads(jobs: dict, workers: int = 4) -> dict:
     """``start_threads``' results, waited for."""
     return start_threads(jobs, workers)()
+
+
+TRACE_MAX_FIRST_MS = 5000  # no traced run past this first run (a cut)
+
+
+def untraced(name: str, first_ms: float) -> dict:
+    """The trace a query whose first run took over TRACE_MAX_FIRST_MS does
+    not get (a cut for the time limit), printed as not measured."""
+    print(f"trace: {name} not measured (a cut for the time limit: its "
+          f"first run took {first_ms:.3f} ms)", flush=True)
+    return {"wall_ms": None, "busy_ms": None, "idle_share": None,
+            "events": {}, "top": []}
 
 
 def warm_repeats(first_ms: float, repeats: int) -> int:
@@ -2638,8 +2681,9 @@ def measure_warm(name: str, cluster, sql: str, want: list, repeats: int,
     first run's ``first_ms`` stands for them), the resident and peak
     device memory over them, the layers (the device path through the
     fused DAG where ``dag``; not run where ``layered`` is False) and one
-    traced run (after an untimed one where ``trace_warm``), each
-    printed; returned as {e2e, layers, trace, resident_gb, peak_gb}."""
+    traced run (after an untimed one where ``trace_warm``; none where
+    ``first_ms`` is past TRACE_MAX_FIRST_MS), each printed; returned as
+    {e2e, layers, trace, resident_gb, peak_gb}."""
     import torch
 
     s = cluster.session()
@@ -2668,6 +2712,10 @@ def measure_warm(name: str, cluster, sql: str, want: list, repeats: int,
     else:
         print(f"layers: {name} not measured (a cut for the time limit)",
               flush=True)
+    if first_ms is not None and first_ms > TRACE_MAX_FIRST_MS:
+        return {"e2e": e2e, "layers": layers,
+                "trace": untraced(name, first_ms),
+                "resident_gb": resident / 1e9, "peak_gb": peak / 1e9}
     traced = max(repeats, 1)
     tr = trace_query(s, sql, traced, warm=trace_warm)
     idle = ("not measured (no device events in the trace)"
@@ -3135,6 +3183,10 @@ def make_rf1(tables: dict, sf: float, seed: int) -> dict:
 
 def _cents(c: int) -> str:
     return f"{c // 100}.{c % 100:02d}"
+
+
+def _cents_signed(c: int) -> str:
+    return ("-" if c < 0 else "") + _cents(abs(c))
 
 
 def rf1_sql(rf1: dict) -> list:
@@ -4082,7 +4134,7 @@ def host_query(name: str, cluster, sql: str, check, repeats: int,
     ``warm_repeats`` allows (a cut that keeps the whole script inside
     its time limit; each checked), the resident
     and peak device memory over them, and one traced run's device busy
-    time and idle share. With
+    time and idle share (none past TRACE_MAX_FIRST_MS). With
     ``fresh_dag`` every run starts from a fresh DAG runner, so each
     takes the first run's route (the runner's retry state would
     otherwise remember a refusal and change the route of later runs)."""
@@ -4149,18 +4201,21 @@ def host_query(name: str, cluster, sql: str, check, repeats: int,
           f"(host route) [{card}]", flush=True)
     print(f"memory: {name} resident {resident / 1e9:.3f} GB, peak over the "
           f"warm runs {peak / 1e9:.3f} GB [{card}]", flush=True)
-    tr = trace_query(s, sql, 1, before=(
-        (lambda: setattr(s.cluster.fused_executor(), "_dag", None))
-        if fresh_dag else None), warm=False)
-    if s.last_route != "host":
-        raise AssertionError(f"{name}: traced route {s.last_route}")
-    idle = ("not measured (no device events in the trace)"
-            if tr["idle_share"] is None else f"{tr['idle_share']:.4f}")
-    top = "; ".join(f"{k} {v:.3f} ms" for k, v in tr["top"])
-    print(f"trace: {name} one query under torch.profiler: host "
-          f"{tr['wall_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} ms, "
-          f"idle share {idle}; the most device time: {top} [{card}]",
-          flush=True)
+    if first_ms > TRACE_MAX_FIRST_MS:
+        tr = untraced(name, first_ms)
+    else:
+        tr = trace_query(s, sql, 1, before=(
+            (lambda: setattr(s.cluster.fused_executor(), "_dag", None))
+            if fresh_dag else None), warm=False)
+        if s.last_route != "host":
+            raise AssertionError(f"{name}: traced route {s.last_route}")
+        idle = ("not measured (no device events in the trace)"
+                if tr["idle_share"] is None else f"{tr['idle_share']:.4f}")
+        top = "; ".join(f"{k} {v:.3f} ms" for k, v in tr["top"])
+        print(f"trace: {name} one query under torch.profiler: host "
+              f"{tr['wall_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} "
+              f"ms, idle share {idle}; the most device time: {top} "
+              f"[{card}]", flush=True)
     return {"route": "host", "launches": launches, "first_ms": first_ms,
             "e2e": e2e, "layers": layers, "trace": tr,
             "resident_gb": resident / 1e9, "peak_gb": peak / 1e9,
@@ -4192,22 +4247,31 @@ def q18_check(want):
     return check
 
 
-def run_phase10(q3: dict, args, card: str) -> dict:
-    """Phase 10 (b) in phase 5c's SF10 cluster, before phase 8's writes:
-    TPC-H Q18 and Q13, the bare scan and the top-3 window query on the
-    host route (the fused executors decline them as the reference's
-    do), then Q6, Q1 and Q3 as the spec writes them with
-    ``enable_fused_execution`` off. Each exact against numpy."""
-    cluster, tables = q3["cluster"], q3["tables"]
+def start_phase10_answers(tables: dict):
+    """numpy's phase-10 answers over phase 5c's tables, started in threads
+    (beside phase 9's queries: a cut for the time limit); returns
+    ``start_threads``' waiting function."""
     li, o, c = tables["lineitem"], tables["orders"], tables["customer"]
-    t0 = time.perf_counter()
-    ans = in_threads({
+    return start_threads({
         "Q18": lambda: expected_q18(li, o, c),
         "Q13": lambda: expected_q13(o, c), "Q6": lambda: expected_q6(li),
         "Q1 (spec)": lambda: expected_q1_spec(li),
         "Q3 (spec)": lambda: expected_q3(li, o, c, "BUILDING"),
         "bare scan": lambda: expected_bare_scan(li),
         "top-3 orders": lambda: expected_top3(o)})
+
+
+def run_phase10(q3: dict, args, card: str, answers=None) -> dict:
+    """Phase 10 (b) in phase 5c's SF10 cluster, before phase 8's writes:
+    TPC-H Q18 and Q13, the bare scan and the top-3 window query on the
+    host route (the fused executors decline them as the reference's
+    do), then Q6, Q1 and Q3 as the spec writes them with
+    ``enable_fused_execution`` off. Each exact against numpy's answers
+    (``answers``: ``start_phase10_answers``' function, started earlier;
+    started here where None)."""
+    cluster = q3["cluster"]
+    t0 = time.perf_counter()
+    ans = (answers or start_phase10_answers(q3["tables"]))()
     q18, tie = ans["Q18"]
     if tie:
         raise AssertionError("TPC-H Q18: the limit cuts a tie")
@@ -4223,8 +4287,8 @@ def run_phase10(q3: dict, args, card: str) -> dict:
         "top-3 orders (rank)": (TOP3_ORDERS, equal_to(
             "top-3 orders", ans["top-3 orders"])),
     }
-    print(f"load: phase 10 numpy answers in {time.perf_counter() - t0:.3f} "
-          f"s; o_comment from a pool of {COMMENT_POOL} grammar strings "
+    print(f"load: phase 10 numpy answers waited for "
+          f"{time.perf_counter() - t0:.3f} s (begun before phase 9); o_comment from a pool of {COMMENT_POOL} grammar strings "
           f"(reduced from one a row), Q18 {len(q18)} rows [{card}]",
           flush=True)
     out = {}
@@ -5652,7 +5716,476 @@ def run_phase17(q3: dict, state: dict, args, card: str) -> dict:
           f"cycle broken in {ms:.3f} ms: {outcome} [{card}]", flush=True)
     print(f"time: phase 17 in the SF10 cluster {time.perf_counter() - t_phase:.1f} "
           f"s [{card}]", flush=True)
-    return {"reads": reads, "k1_rows": k1_rows, "rates": rates}
+    # phase 18's numpy truth: RF1's COPYed orders, lineitem with its lines
+    return {"reads": reads, "k1_rows": k1_rows, "rates": rates,
+            "rf1_orders": rf1["orders"], "lineitem": li}
+
+
+# -- phase 18: partitioned tables, WITH RECURSIVE, PL/pgSQL, foreign tables --
+
+ORDERS_P_DDL = (
+    "create table orders_p (o_orderkey bigint, o_custkey bigint, "
+    "o_orderdate date, o_orderpriority text, o_totalprice numeric(12,2)) "
+    "partition by range (o_orderdate) begin ('1992-01-01') step (1 year) "
+    "partitions (7) distribute by shard (o_orderkey)")
+ORDERS_P_COLS = ("o_orderkey", "o_custkey", "o_orderdate", "o_orderpriority",
+                 "o_totalprice")
+P18_YEAR = "o_orderdate >= '1994-01-01' and o_orderdate < '1995-01-01'"
+BY_PRIORITY = ("select o_orderpriority, count(*) from {} {}"
+               "group by o_orderpriority order by o_orderpriority")
+EMP_ROWS = 1_000_000  # one company's HR schema
+PL_ROWS = 1000  # the RF1-shaped INSERTs a PL/pgSQL call loops over
+Q6_REV = (
+    "create function q6_rev(lo date, hi date, qty numeric) returns numeric "
+    "as 'declare r numeric; begin "
+    "select sum(l_extendedprice * l_discount) into r from lineitem "
+    "where l_shipdate >= lo and l_shipdate < hi "
+    "and l_discount between 0.05 and 0.07 and l_quantity < qty; "
+    "return r; end' language plpgsql")
+# (SQL arguments, numpy's: the days and the quantity in hundredths)
+Q6_REV_ARGS = (("'1994-01-01', '1995-01-01', 24",
+                ("1994-01-01", "1995-01-01", 2400)),
+               ("'1995-03-01', '1996-03-01', 30",
+                ("1995-03-01", "1996-03-01", 3000)))
+RF1_PL = (
+    "create function rf1_batch(k0 bigint, n bigint, fail bigint) returns "
+    "bigint as 'begin "
+    "for i in 0 .. n - 1 loop "
+    "insert into p18_rf1 values (k0 + i, 1 + i % 1000, "
+    "date ''1995-06-17'', ''3-MEDIUM'', 100.25 + i); "
+    "end loop; "
+    "if fail = 1 then "
+    "raise exception ''rf1_batch: asked to fail after % rows'', n; "
+    "end if; "
+    "return n; end' language plpgsql")
+# TPC-H Q11 over phase 15's partsupp, which carries ps_supplycost alone:
+# the value is sum(ps_supplycost) (the spec's sums supplycost x
+# availqty), FRACTION 0.0001 / SF
+Q11_FT = (
+    "select ps_partkey, sum(ps_supplycost) as value "
+    "from partsupp, {s}, nation where ps_suppkey = s_suppkey "
+    "and s_nationkey = n_nationkey and n_name = 'GERMANY' "
+    "group by ps_partkey having sum(ps_supplycost) > "
+    "(select sum(ps_supplycost) * {f} from partsupp, {s}, nation "
+    "where ps_suppkey = s_suppkey and s_nationkey = n_nationkey "
+    "and n_name = 'GERMANY') order by value desc, ps_partkey")
+SUPPLIER_FT_DDL = (
+    "create foreign table supplier_ft (s_suppkey bigint, s_name text, "
+    "s_address text, s_nationkey int, s_phone text, "
+    "s_acctbal numeric(12,2), s_comment text) server file "
+    "options (filename '{}', format 'csv')")
+
+
+def explain_scans(s, sql: str) -> list:
+    """The relations the plain EXPLAIN of ``sql`` scans, in plan order."""
+    return [ln.split("Scan on ", 1)[1].split()[0]
+            for (ln,) in s.query("explain " + sql) if "Scan on " in ln]
+
+
+def by_priority(prio_idx) -> list:
+    """numpy's count by o_orderpriority, in the vocabulary's order."""
+    counts = np.bincount(prio_idx, minlength=len(PRIORITIES))
+    return [(p, int(n)) for p, n in zip(PRIORITIES, counts) if n]
+
+
+def make_org_chart(n: int, seed: int) -> dict:
+    """emp(id, mgr, salary): a tree of ``n`` employees grown a level at a
+    time from one root (id 1, mgr 0: no employee has id 0): each
+    employee of a level manages 3-5 of the next with probability 3/4
+    (a fan-out of 3-5 and a depth of about 12), ids numbered level by
+    level; salaries in whole units from ``seed``."""
+    rng = np.random.default_rng(seed)
+    mgr = np.zeros(n, dtype=np.int64)
+    depth = np.zeros(n, dtype=np.int32)
+    frontier = np.array([1], dtype=np.int64)
+    nxt, d = 2, 0
+    while nxt <= n:
+        d += 1
+        managers = frontier[rng.random(len(frontier)) < 0.75]
+        if not len(managers):
+            managers = frontier[:1]
+        kids = np.repeat(managers, rng.integers(3, 6, len(managers)))
+        kids = kids[:n - nxt + 1]
+        ids = np.arange(nxt, nxt + len(kids), dtype=np.int64)
+        mgr[ids - 1] = kids
+        depth[ids - 1] = d
+        frontier, nxt = ids, nxt + len(kids)
+    return {"id": np.arange(1, n + 1, dtype=np.int64), "mgr": mgr,
+            "salary": rng.integers(30_000, 200_001, n).astype(np.int64),
+            "depth": depth}
+
+
+def bfs_levels(src, dst, start: int, n: int) -> list:
+    """numpy's breadth-first search over the edges ``src`` -> ``dst``
+    (ids 1..n) from ``start``: the new ids of each level, the start's
+    first (a visited id is never new again: UNION's semantics)."""
+    order = np.argsort(src, kind="stable")
+    s_sorted = src[order]
+    seen = np.zeros(n + 1, dtype=bool)
+    seen[start] = True
+    levels = [np.array([start], dtype=np.int64)]
+    while True:
+        f = levels[-1]
+        lo = np.searchsorted(s_sorted, f, "left")
+        cnt = np.searchsorted(s_sorted, f, "right") - lo
+        if not cnt.sum():
+            break
+        first = np.repeat(lo - np.cumsum(cnt) + cnt, cnt)
+        nxt = np.unique(dst[order[first + np.arange(cnt.sum())]])
+        nxt = nxt[~seen[nxt]]
+        if not len(nxt):
+            break
+        seen[nxt] = True
+        levels.append(nxt)
+    return levels
+
+
+def run_phase18_partitions(cluster, s, o: dict, args, card: str) -> dict:
+    """Phase 18 (a): orders_p partitioned by year over phase 17's orders
+    (``o``: numpy's columns of every live order)."""
+    reads, writes = {}, {}
+    days = o["o_orderdate"]
+    years = _years(days)
+    prio = o["o_orderpriority"].idx.astype(np.int64)
+    n = len(days)
+    p16_write("CREATE TABLE orders_p PARTITION BY RANGE (o_orderdate) 7 "
+              "years", s, ORDERS_P_DDL, card)
+    _r, writes["INSERT INTO orders_p SELECT"] = p16_write(
+        "INSERT INTO orders_p SELECT ... FROM orders (the partition split)",
+        s, f"insert into orders_p select {', '.join(ORDERS_P_COLS)} "
+        "from orders", card, rows=n)
+    want = [(f"orders_p$p{i}", int((years == 1992 + i).sum()))
+            for i in range(7)]
+    got = s.query("select partition, n_live_tup from pg_partitions where "
+                  "parent = 'orders_p' order by index")
+    if got != want:
+        raise AssertionError(f"orders_p's children {got} != numpy {want}")
+    print(f"partitions: orders_p's children's rows {got}, exact [{card}]",
+          flush=True)
+    year = (days >= _day("1994-01-01")) & (days < _day("1995-01-01"))
+    q_year = BY_PRIORITY.format("orders_p", f"where {P18_YEAR} ")
+    scans = explain_scans(s, q_year)
+    if sorted(scans) != ["orders_p$p2", "orders_p$p3"]:
+        raise AssertionError(f"pruning kept {scans}")
+    print(f"partitions: {P18_YEAR} prunes orders_p to {sorted(scans)} (the "
+          f"'<' bound keeps p3, as the reference's) [{card}]", flush=True)
+    reads["orders_p 1994 by priority"] = p16_read(
+        "orders_p one year's count by priority (pruned parent)", s, q_year,
+        by_priority(prio[year]), args, card, route="host")
+    reads["orders_p count"] = p16_read(
+        "orders_p count (the whole parent)", s,
+        "select count(*) from orders_p", [(n,)], args, card, route="host")
+    q_child = BY_PRIORITY.format("orders_p$p2", "")
+    reads["orders_p$p2 by priority"] = p16_read(
+        "orders_p$p2 (1994) by priority, the child by name", s, q_child,
+        by_priority(prio[years == 1994]), args, card, k1=True)
+    k1_rows = time_k1_at(cluster, {"orders_p$p2 by priority": q_child},
+                         card)
+    # writes fanned out over one year's children (the '<' bound keeps
+    # the next child too, as the reference's pruning does); the extra
+    # conjuncts keep each to about 230 000 rows (every changed row takes
+    # a row lock on the host, about 10 us)
+    cust = o["o_custkey"]
+    upd = ((days >= _day("1995-01-01")) & (days < _day("1996-01-01"))
+           & (prio == PRIORITIES.index("5-LOW")) & (cust % 2 == 0))
+    _r, writes["UPDATE orders_p (fan-out)"] = p16_write(
+        "UPDATE orders_p over 1995 (fans out to p3 and p4)", s,
+        "update orders_p set o_orderpriority = '1-URGENT' where "
+        "o_orderdate >= '1995-01-01' and o_orderdate < '1996-01-01' and "
+        "o_orderpriority = '5-LOW' and o_custkey % 2 = 0", card,
+        rows=int(upd.sum()))
+    prio = prio.copy()
+    prio[upd] = PRIORITIES.index("1-URGENT")
+    gone = ((days >= _day("1997-01-01")) & (days < _day("1998-01-01"))
+            & (prio == PRIORITIES.index("4-NOT SPECIFIED"))
+            & (cust % 2 == 0))
+    _r, writes["DELETE orders_p (fan-out)"] = p16_write(
+        "DELETE FROM orders_p over 1997 (fans out to p5 and p6)", s,
+        "delete from orders_p where o_orderdate >= '1997-01-01' and "
+        "o_orderdate < '1998-01-01' and o_orderpriority = "
+        "'4-NOT SPECIFIED' and o_custkey % 2 = 0", card,
+        rows=int(gone.sum()))
+    p16_refused("UPDATE of the partition key", s,
+                "update orders_p set o_orderdate = '1994-06-01' where "
+                f"o_orderkey = {int(o['o_orderkey'][0])}",
+                "updating the partition key (moving rows between "
+                "partitions) is not supported", card)
+    p16_write("ALTER TABLE orders_p ADD PARTITIONS (1)", s,
+              "alter table orders_p add partitions (1)", card)
+    k_new = int(o["o_orderkey"].max()) + 100
+    p16_write("INSERT into the new partition", s,
+              f"insert into orders_p values ({k_new}, 1, '1999-03-01', "
+              "'3-MEDIUM', 10.00)", card, rows=1)
+    keep = ~gone
+    want_all = by_priority(np.concatenate(
+        [prio[keep], [PRIORITIES.index("3-MEDIUM")]]))
+    reads["orders_p by priority after the writes"] = p16_read(
+        "orders_p by priority after the UPDATE, DELETE and ADD PARTITIONS",
+        s, BY_PRIORITY.format("orders_p", ""), want_all, args, card,
+        route="host")
+    reads["orders_p$p7"] = p16_read(
+        "orders_p$p7 (the added partition) by priority", s,
+        BY_PRIORITY.format("orders_p$p7", ""), [("3-MEDIUM", 1)], args,
+        card, k1=True)
+    # teardown: the name again, new rows, no stale plane of a child
+    p16_write("DROP TABLE orders_p", s, "drop table orders_p", card)
+    p16_write("CREATE TABLE orders_p again", s, ORDERS_P_DDL, card)
+    p16_write("INSERT into the new orders_p", s,
+              "insert into orders_p values (1, 1, '1994-02-01', '5-LOW', 1.00),"
+              " (2, 1, '1994-03-01', '5-LOW', 2.00), "
+              "(3, 1, '1994-04-01', '2-HIGH', 3.00)", card, rows=3)
+    reads["orders_p$p2 re-created"] = p16_read(
+        "orders_p$p2 of the re-created table by priority", s, q_child,
+        [("2-HIGH", 1), ("5-LOW", 2)], args, card, k1=True)
+    p16_write("DROP TABLE orders_p (end of (a))", s, "drop table orders_p",
+              card)
+    return {"reads": reads, "writes": writes, "k1_rows": k1_rows}
+
+
+def run_phase18_recursive(cluster, s, args, card: str) -> dict:
+    """Phase 18 (b): a generated org chart and WITH RECURSIVE, UNION ALL
+    down a manager's reports and UNION reachability over its edges plus
+    back edges that close cycles, each against numpy's BFS with the
+    iterations counted."""
+    reads = {}
+    emp = make_org_chart(EMP_ROWS, args.seed + 1800)
+    n = EMP_ROWS
+    depth = emp["depth"]
+    rng = np.random.default_rng(args.seed + 1801)
+    # back edges: 1 % of the employees four levels or more down point at
+    # their manager's manager
+    cand = np.flatnonzero(depth >= 4)
+    back = np.sort(rng.choice(cand, len(cand) // 100, replace=False))
+    src = np.concatenate([emp["mgr"][1:], back + 1])
+    dst = np.concatenate([emp["id"][1:], emp["mgr"][emp["mgr"][back] - 1]])
+    s.execute("create table emp (id bigint, mgr bigint, salary bigint) "
+              "distribute by roundrobin")
+    s.execute("create table emp_edge (src bigint, dst bigint) "
+              "distribute by roundrobin")
+    t0 = time.perf_counter()
+    bulk_append(cluster, "emp", {k: emp[k] for k in ("id", "mgr", "salary")})
+    bulk_append(cluster, "emp_edge", {"src": src, "dst": dst})
+    print(f"load: emp {n} employees (depth {int(depth.max())}, fan-out 3-5) "
+          f"and emp_edge {len(src)} edges ({len(back)} back edges closing "
+          f"cycles) in {(time.perf_counter() - t0) * 1000:.3f} ms [{card}]",
+          flush=True)
+    # UNION ALL: the reports under the first manager of level 1
+    m = int(emp["id"][depth == 1][0])
+    sub = bfs_levels(emp["mgr"][1:], emp["id"][1:], m, n)
+    ids = np.concatenate(sub)
+    want = [(len(ids), int(emp["salary"][ids - 1].sum()))]
+    sql = ("with recursive sub(id, salary) as ("
+           f"select id, salary from emp where id = {m} union all "
+           "select e.id, e.salary from emp e join sub s on e.mgr = s.id) "
+           "select count(*), sum(salary) from sub")
+    reads["emp reports UNION ALL"] = r = p17_query(
+        f"WITH RECURSIVE UNION ALL: the reports under manager {m}", s, sql,
+        want, card)
+    it = s.recursive_iterations.get("sub")
+    if it != len(sub):
+        raise AssertionError(f"UNION ALL: {it} iterations, numpy's BFS "
+                             f"{len(sub)} levels")
+    r["iterations"] = it
+    print(f"recursive: UNION ALL under manager {m}: {it} iterations (the "
+          f"last one empty), {len(ids)} rows, levels "
+          f"{[len(x) for x in sub]} [{card}]", flush=True)
+    # UNION: reachability from the first employee of level 2 over the
+    # edges and the back edges (a cycle closes under every back edge)
+    root = int(emp["id"][depth == 2][0])
+    reach = bfs_levels(src, dst, root, n)
+    ids = np.concatenate(reach)
+    want = [(len(ids), int(ids.sum()))]
+    sql = ("with recursive reach(node) as ("
+           f"select {root} union select e.dst from emp_edge e "
+           "join reach r on e.src = r.node) select count(*), sum(node) "
+           "from reach")
+    reads["emp_edge reach UNION"] = r = p17_query(
+        f"WITH RECURSIVE UNION: reachability from {root} over cycles", s,
+        sql, want, card)
+    it = s.recursive_iterations.get("reach")
+    if it != len(reach):
+        raise AssertionError(f"UNION: {it} iterations, numpy's BFS "
+                             f"{len(reach)} levels")
+    r["iterations"] = it
+    print(f"recursive: UNION from {root}: {it} iterations, {len(ids)} rows "
+          f"reached, levels {[len(x) for x in reach]} [{card}]", flush=True)
+    left = [t for t in cluster.catalog.table_names() if t.startswith("__rec")]
+    if left:
+        raise AssertionError(f"recursive temporaries left behind: {left}")
+    for t in ("emp", "emp_edge"):
+        s.execute(f"drop table {t}")
+    return {"reads": reads}
+
+
+def run_phase18_plpgsql(cluster, s, li: dict, args, card: str) -> dict:
+    """Phase 18 (c): Q6 in a PL/pgSQL body (K1 inside the call), and a
+    call looping over RF1-shaped INSERTs, atomic."""
+    from opentenbase_tpu_torch import SQLError
+
+    reads, writes = {}, {}
+    s.execute(Q6_REV)
+    for i, (sql_args, (lo, hi, qty)) in enumerate(Q6_REV_ARGS):
+        v = q6_revenue(li, lo, hi, 5, 7, qty)
+        r = p17_query(f"q6_rev({sql_args}) (PL/pgSQL body's SELECT INTO)",
+                      s, f"select q6_rev({sql_args})",
+                      [(None if v is None else v / 10**4,)], card)
+        if r["launches"]["scan_agg"] < 1:
+            raise AssertionError(f"q6_rev call {i + 1}: no K1 launch")
+        reads[f"q6_rev call {i + 1}"] = r
+    k1_rows = time_k1_at(
+        cluster, {"q6_rev call 1": f"select q6_rev({Q6_REV_ARGS[0][0]})"},
+        card)
+    s.execute("create table p18_rf1 (o_orderkey bigint, o_custkey bigint, "
+              "o_orderdate date, o_orderpriority text, "
+              "o_totalprice numeric(12,2)) distribute by shard(o_orderkey)")
+    s.execute(RF1_PL)
+    k0 = 1
+    t0 = time.perf_counter()
+    got = s.query(f"select rf1_batch({k0}, {PL_ROWS}, 0)")
+    ms = (time.perf_counter() - t0) * 1000
+    writes["rf1_batch"] = ms
+    n = PL_ROWS
+    want = [(n, n * k0 + n * (n - 1) // 2, (n * 10025 + 100 * n * (n - 1)
+                                            // 2) / 100)]
+    if got != [(n,)]:
+        raise AssertionError(f"rf1_batch returned {got}")
+    print(f"write: a PL/pgSQL call looping over {n} RF1-shaped INSERTs in "
+          f"{ms:.3f} ms ({n / ms * 1000:.1f} rows/s) [{card}]", flush=True)
+    q = ("select count(*), sum(o_orderkey), sum(o_totalprice) from p18_rf1")
+    reads["p18_rf1 after the call"] = p17_query(
+        "p18_rf1 after the call: every row visible", s, q, want, card)
+    t0 = time.perf_counter()
+    try:
+        s.query(f"select rf1_batch({k0 + 10 * n}, {n}, 1)")
+    except SQLError as e:
+        ms = (time.perf_counter() - t0) * 1000
+        if str(e) != f"rf1_batch: asked to fail after {n} rows":
+            raise AssertionError(f"rf1_batch's RAISE: {e}") from e
+        print(f"write: the same call asked to RAISE after {n} INSERTs "
+              f"failed in {ms:.3f} ms: {e} [{card}]", flush=True)
+    else:
+        raise AssertionError("rf1_batch(fail = 1) did not raise")
+    writes["rf1_batch raised"] = ms
+    reads["p18_rf1 after the RAISE"] = p17_query(
+        "p18_rf1 after the RAISE: none of its rows visible", s, q, want,
+        card)
+    s.execute("drop table p18_rf1")
+    return {"reads": reads, "writes": writes, "k1_rows": k1_rows}
+
+
+def run_phase18_foreign(q3: dict, s, d: str, args, card: str) -> dict:
+    """Phase 18 (d): dbgen's supplier (SF x 10 000 rows, its seven
+    columns) written as CSV without trailing delimiters, read as a
+    foreign table by Q11; its writes refused; the file rewritten."""
+    import csv
+
+    reads = {}
+    sup, ps = q3["p15"]["supplier"], q3["p15"]["partsupp"]
+    n_s = len(sup["s_suppkey"])
+    rng = np.random.default_rng(args.seed + 1810)
+    acct = rng.integers(-99_999, 1_000_000, n_s)
+    pool = q3["tables"]["orders"]["o_comment"].vocab
+    comment = pool[rng.integers(0, len(pool), n_s)]
+    rows = zip(sup["s_suppkey"].tolist(),
+               sup["s_name"].vocab[sup["s_name"].idx].tolist(),
+               sup["s_address"].vocab[sup["s_address"].idx].tolist(),
+               sup["s_nationkey"].tolist(),
+               sup["s_phone"].vocab[sup["s_phone"].idx].tolist(),
+               map(_cents_signed, acct.tolist()), comment.tolist())
+    path = os.path.join(d, "supplier.csv")
+    t0 = time.perf_counter()
+    with open(path, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    print(f"load: supplier.csv, {n_s} rows of dbgen's seven columns, "
+          f"{os.path.getsize(path)} bytes in "
+          f"{(time.perf_counter() - t0) * 1000:.3f} ms [{card}]", flush=True)
+    p16_write("CREATE FOREIGN TABLE supplier_ft", s,
+              SUPPLIER_FT_DDL.format(path), card)
+    ger = [nm for nm, _r in NATIONS].index("GERMANY")
+    m = sup["s_nationkey"][ps["ps_suppkey"] - 1] == ger
+    cost, pk = ps["ps_supplycost"][m], ps["ps_partkey"][m]
+    total = int(cost.sum())
+    uniq, inv = np.unique(pk, return_inverse=True)
+    value = np.zeros(len(uniq), dtype=np.int64)
+    np.add.at(value, inv, cost)
+    frac = f"{0.0001 / args.q3_sf:.10f}".rstrip("0")
+    scale = 10 ** (len(frac) - 2)  # value > total * frac, in integers
+    keep = value * scale > total * int(round(float(frac) * scale))
+    order = np.lexsort((uniq[keep], -value[keep]))
+    want = [(int(k), int(v) / 100) for k, v in
+            zip(uniq[keep][order], value[keep][order])]
+    sql = Q11_FT.format(s="supplier_ft", f=frac)
+    reads["TPC-H Q11 over supplier_ft"] = p16_read(
+        f"TPC-H Q11 (FRACTION {frac}) over the foreign supplier_ft", s,
+        sql, want, args, card, route="host")
+    for name, stmt in (("INSERT", "insert into supplier_ft values "
+                        "(0, 'x', 'y', 0, 'z', 0.00, 'c')"),
+                       ("COPY FROM", f"copy supplier_ft from '{path}'")):
+        p16_refused(f"{name} into the foreign table", s, stmt,
+                    'cannot change foreign table "supplier_ft"', card)
+    half = n_s // 2
+    with open(path) as f:
+        head = [next(f) for _ in range(half)]
+    with open(path, "w") as f:
+        f.writelines(head)
+    reads["supplier_ft after the rewrite"] = p16_read(
+        "supplier_ft after the file was rewritten with its first half", s,
+        "select count(*), sum(s_suppkey) from supplier_ft",
+        [(half, half * (half + 1) // 2)], args, card, route="host")
+    s.execute("drop table supplier_ft")
+    return {"reads": reads}
+
+
+def run_phase18(q3: dict, p17: dict, state: dict, args, card: str) -> dict:
+    """Phase 18 in phase 5c's SF10 cluster after phase 17 (see the
+    module's docstring), every answer exact against numpy. Returns
+    {"reads": {statement: result}, "writes": {statement: ms},
+    "k1_rows": [K1 at orders_p$p2's and q6_rev's inputs]}."""
+    import shutil
+    import tempfile
+
+    cluster = q3["cluster"]
+    s = cluster.session()
+    t_phase = time.perf_counter()
+    # numpy's orders after phase 17: phase 16's state, the INSERT held
+    # off by LOCK TABLE and RF1's COPYed orders
+    o = {k: state["orders"][k] for k in ORDERS_P_COLS}
+    ko = int(o["o_orderkey"].max()) + 1
+    held = {"o_orderkey": np.array([ko]), "o_custkey": np.array([1]),
+            "o_orderdate": np.array([_day("1995-01-01")], dtype=np.int32),
+            "o_orderpriority": Text(PRIORITIES,
+                                    [PRIORITIES.index("5-LOW")]),
+            "o_totalprice": np.array([0])}  # NULL there; (a) sums none
+    o = _concat(_concat(o, held), {k: p17["rf1_orders"][k]
+                                   for k in ORDERS_P_COLS})
+    out = {"reads": {}, "writes": {}, "k1_rows": []}
+    for part, fn in (
+            ("a", lambda: run_phase18_partitions(cluster, s, o, args, card)),
+            ("b", lambda: run_phase18_recursive(cluster, s, args, card)),
+            ("c", lambda: run_phase18_plpgsql(cluster, s, p17["lineitem"],
+                                              args, card))):
+        t0 = time.perf_counter()
+        r = fn()
+        for k in out:
+            if isinstance(out[k], list):
+                out[k] += r.get(k, [])
+            else:
+                out[k].update(r.get(k, {}))
+        print(f"time: phase 18 ({part}) {time.perf_counter() - t0:.1f} s "
+              f"[{card}]", flush=True)
+    os.makedirs(args.data_dir, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="p18_", dir=args.data_dir)
+    t0 = time.perf_counter()
+    try:
+        out["reads"].update(run_phase18_foreign(q3, s, d, args, card)[
+            "reads"])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"time: phase 18 (d) {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    print(f"time: phase 18 in the SF10 cluster "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return out
 
 
 def run_clickbench_full(args, device, card: str) -> dict:
@@ -7697,11 +8230,12 @@ def main(argv=None) -> int:
     done("TPC-H SF10 spec Q3, Q1 (phases 5c, 5d)")
     # phase 9 (a-c, e): Q4, join rows, gseg and the zone window in Q3's
     # cluster, before phase 8 writes into it
+    p10_answers = start_phase10_answers(topk["Q3 spec"]["phase8"]["tables"])
     phase9 = run_phase9(topk["Q3 spec"]["phase8"], args, card)
     topk.update(phase9["dag"])
     done("phase 9 a-c, e")
     # phase 10 (b): the host route in the same cluster, before phase 8
-    host = run_phase10(topk["Q3 spec"]["phase8"], args, card)
+    host = run_phase10(topk["Q3 spec"]["phase8"], args, card, p10_answers)
     done("phase 10b")
     # phase 15: the expression library and the query sugar, in the same
     # cluster before phase 8 writes into it
@@ -7721,8 +8255,12 @@ def main(argv=None) -> int:
     done("phase 16")
     # phase 17: the session statements and introspection, after phase 16
     phase17 = run_phase17(q3_state, state16, args, card)
-    del state16
     done("phase 17")
+    # phase 18: partitioned tables, WITH RECURSIVE, PL/pgSQL and foreign
+    # tables, after phase 17
+    phase18 = run_phase18(q3_state, phase17, state16, args, card)
+    del state16, phase17["rf1_orders"], phase17["lineitem"]
+    done("phase 18")
     # phase 12 reuses phase 5c's arrays and numpy's answers at the end
     q3_tables, q3_answers = q3_state.pop("tables"), q3_state.pop("answers")
     del q3_state
@@ -7776,7 +8314,7 @@ def main(argv=None) -> int:
             **chunked}
     k1_rows = (topk["ClickBench"].pop("k1_rows") + refresh.pop("k1_rows")
                + sf100.pop("k1_rows") + phase16["k1_rows"]
-               + phase17["k1_rows"])
+               + phase17["k1_rows"] + phase18["k1_rows"])
     sf100_rows_n, windows = sf100.pop("rows"), sf100.pop("windows")
     frag.update(sf100)
     frag.update(host)
@@ -7787,6 +8325,7 @@ def main(argv=None) -> int:
     topk.update(phase16["topk"])
     for q, r in {**durable["queries"], **topology["queries"],
                  **phase15, **phase16["reads"], **phase17["reads"],
+                 **phase18["reads"],
                  **p17_ssb, "topology EXPLAIN ANALYZE Q1 (spec)":
                  topology["explain"]}.items():
         for k, n in r["launches"].items():
@@ -7817,7 +8356,7 @@ def main(argv=None) -> int:
             "library_ms": None,
             "path_launches": path_launches["scan_agg"],
         })
-    k1_src = {**frag, **phase17["reads"]}
+    k1_src = {**frag, **phase17["reads"], **phase18["reads"]}
     for r in k1_rows:
         kernels.append({
             "name": f"scan_agg ({r['query']} shape)",
@@ -7880,7 +8419,12 @@ def main(argv=None) -> int:
                                         for q, r in chunked.items()},
                       "write_ms": {"RF1": refresh["RF1 ms"],
                                    "RF2": refresh["RF2 ms"],
-                                   **phase16["writes"]},
+                                   **phase16["writes"],
+                                   **phase18["writes"]},
+                      "phase18_iterations": {
+                          q: r["iterations"]
+                          for q, r in phase18["reads"].items()
+                          if "iterations" in r},
                       "htap": {k: htap[k] for k in
                                ("rows_per_sec", "scans", "cache",
                                 "rows_per_sec_fold", "folds")},

@@ -89,6 +89,65 @@ def load_table(cluster, table: str, per_node_columns: dict,
     return total
 
 
+def load_partitioned(cluster, parent: str, schema: dict, strategy: str,
+                     key_columns, clause: dict, per_child: dict,
+                     dictionaries: dict | None = None) -> int:
+    """A partitioned table carried across: the parent's catalog shell
+    and ``PartitionSpec`` from its partition ``clause`` (the source's
+    ``PartitionSpec.spec``: column, begin, step, step unit and count),
+    its partitions (each sharing the parent's dictionaries, distributed
+    by ``strategy`` ("shard", "hash", ...) over ``key_columns``), then
+    each partition's rows.
+
+    ``schema``: column -> type name as the WAL writes it ("int8",
+    "text", "decimal(15,2)", ...), in column order. ``per_child``:
+    partition name (``parent$pK``) -> ``(per_node_columns,
+    per_node_xmin, per_node_xmax)`` as ``load_table`` takes them, with
+    ``dictionaries`` the source's shared TEXT dictionaries. Returns the
+    rows loaded."""
+    from opentenbase_tpu_torch.catalog.distribution import (
+        DistributionSpec,
+        DistStrategy,
+    )
+    from opentenbase_tpu_torch.plan.partition import PartitionSpec
+    from opentenbase_tpu_torch.storage.persist import _type_from_str
+
+    types = {c: _type_from_str(ty) for c, ty in schema.items()}
+    dist = DistributionSpec(DistStrategy(strategy), tuple(key_columns))
+    spec = PartitionSpec.build(parent, dict(clause), types[clause["column"]])
+    shell = cluster.catalog.create_table(parent, dict(types), dist)
+    cluster.partitions[parent] = spec
+    for child in spec.children():
+        meta = cluster.catalog.create_table(child, dict(types), dist)
+        meta.dictionaries = shell.dictionaries
+        cluster.create_table_stores(meta)
+    total = 0
+    for child, (cols, xmin, xmax) in per_child.items():
+        if child not in spec.children():
+            raise ValueError(f"{child!r} is no partition of {parent!r}")
+        total += load_table(cluster, child, cols, xmin, xmax, dictionaries)
+    return total
+
+
+def foreign_table(cluster, name: str, schema: dict, server: str,
+                  options: dict) -> None:
+    """A foreign table carried across: its catalog entry on one node,
+    its ``server`` and ``options`` (``filename``, ``format``, ...); its
+    rows stay in the source, which its scans read. ``schema`` as
+    ``load_partitioned`` takes it."""
+    from opentenbase_tpu_torch.catalog.distribution import (
+        DistributionSpec,
+        DistStrategy,
+    )
+    from opentenbase_tpu_torch.storage.persist import _type_from_str
+
+    meta = cluster.catalog.create_table(
+        name, {c: _type_from_str(ty) for c, ty in schema.items()},
+        DistributionSpec(DistStrategy.REPLICATED))
+    meta.node_indices = meta.node_indices[:1]
+    meta.foreign = {**options, "server": server}
+
+
 def _data(col, xl):
     """A column's data, TEXT codes re-encoded through ``xl`` (a NULL
     slot keeps code 0)."""

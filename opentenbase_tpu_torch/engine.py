@@ -9,7 +9,16 @@ with ``returning``, each in an implicit transaction or inside ``begin
 ... commit|rollback`` with ``savepoint``, ``rollback to savepoint`` and
 ``release savepoint``; ``select ... for update|for share [nowait]`` and
 ``lock table``; ``truncate``; ``alter table ... add column|drop
-column|distribute by``; ``vacuum``; ``create index`` (zone maps: the
+column|distribute by|add partitions``; interval / range partitioned
+tables (``partition by range (col) begin (v) step (s) partitions (n)``:
+a catalog-only parent over real children ``parent$pK``, reads rewritten
+into a UNION ALL of the children WHERE does not prune, INSERT and COPY
+split by the boundaries, UPDATE / DELETE fanned out); ``with recursive``
+(each self-referencing CTE materialized to its fixpoint in temporary
+tables before analysis); ``create function ... language plpgsql`` (a
+call runs its body at rewrite time, atomically); ``create foreign table
+... server file`` (read from its source at scan time, fdw.py);
+``vacuum``; ``create index`` (zone maps: the
 columns register for the fragment program's block pruning);
 ``analyze`` (the planner's row and
 distinct-value estimates); ``set`` / ``reset enable_fused_execution``;
@@ -512,6 +521,10 @@ class Cluster:
         # plan.functions.SqlFunction (both expanded before analysis)
         self.views: dict[str, tuple] = {}
         self.functions: dict = {}
+        # interval/range partitioning: parent name -> PartitionSpec (the
+        # parent is a catalog-only shell, each partition a real table
+        # named parent$pK)
+        self.partitions: dict = {}
         # (name, ts) of barriers read back from a WAL, carried into
         # each checkpoint: the reference's recovery reads them there
         self.barriers: list = []
@@ -1128,85 +1141,134 @@ class Cluster:
         self.forget_device_table(name)
 
     # -- ALTER TABLE (tablecmds.c, redistrib.c), shared with WAL redo ----
+    def _alter_targets(self, name: str) -> list[str]:
+        """The tables holding ``name``'s rows: a partitioned parent's
+        children, else the table itself."""
+        spec = self.partitions.get(name)
+        return spec.children() if spec is not None else [name]
+
     def alter_add_column(self, name: str, col: str, ty) -> None:
-        """A new column, NULL in every existing row."""
+        """A new column, NULL in every existing row (of every partition,
+        for a partitioned parent)."""
         from opentenbase_tpu_torch.storage.column import Dictionary
 
-        meta = self.catalog.get(name)
-        if col in meta.schema:
-            raise SQLError(f'column "{col}" already exists')
-        meta.schema[col] = ty
-        if ty.id == t.TypeId.TEXT and col not in meta.dictionaries:
-            meta.dictionaries[col] = Dictionary()
-        for node in meta.node_indices:
-            store = self.stores.get(node, {}).get(name)
-            if store is not None:
-                store.add_column(col, ty)
-        self.forget_device_table(name)
+        metas = [self.catalog.get(name)] + [
+            self.catalog.get(ch) for ch in self._alter_targets(name)
+            if ch != name]
+        for meta in metas:
+            if col in meta.schema:
+                raise SQLError(f'column "{col}" already exists')
+        for meta in metas:
+            meta.schema[col] = ty
+            if ty.id == t.TypeId.TEXT and col not in meta.dictionaries:
+                meta.dictionaries[col] = Dictionary()
+        for target in self._alter_targets(name):
+            for node in self.catalog.get(target).node_indices:
+                store = self.stores.get(node, {}).get(target)
+                if store is not None:
+                    store.add_column(col, ty)
+            self.forget_device_table(target)
 
     def alter_drop_column(self, name: str, col: str) -> None:
         meta = self.catalog.get(name)
         if col in meta.dist.key_columns:
             raise SQLError(f'cannot drop distribution key "{col}"')
+        spec = self.partitions.get(name)
+        if spec is not None and col == spec.column:
+            raise SQLError(f'cannot drop partition key "{col}"')
         if col not in meta.schema:
             raise SQLError(f'column "{col}" does not exist')
-        meta.schema.pop(col)
-        meta.dictionaries.pop(col, None)
-        meta.not_null.discard(col)
-        meta.defaults.pop(col, None)
-        if meta.primary_key == col:
-            meta.primary_key = None
-        # a TEXT column added again under the name starts a fresh
-        # dictionary: its WAL watermark restarts at zero with it
-        if self.persistence is not None:
-            self.persistence._dict_synced.pop(f"{name}.{col}", None)
-        for node in meta.node_indices:
-            store = self.stores.get(node, {}).get(name)
-            if store is not None:
-                store.drop_column(col)
-        self.forget_device_table(name)
+        for target in dict.fromkeys([name, *self._alter_targets(name)]):
+            tm = self.catalog.get(target)
+            tm.schema.pop(col, None)
+            tm.dictionaries.pop(col, None)
+            tm.not_null.discard(col)
+            tm.defaults.pop(col, None)
+            if tm.primary_key == col:
+                tm.primary_key = None
+            # a TEXT column added again under the name starts a fresh
+            # dictionary: its WAL watermark restarts at zero with it
+            if self.persistence is not None:
+                self.persistence._dict_synced.pop(f"{target}.{col}", None)
+            for node in tm.node_indices:
+                store = self.stores.get(node, {}).get(target)
+                if store is not None:
+                    store.drop_column(col)
+            self.forget_device_table(target)
 
     def redistribute_table(self, name: str, dist: DistributionSpec) -> int:
         """ALTER TABLE ... DISTRIBUTE BY: every live row rewritten through
         the new locator into fresh stores (dead versions are dropped, as
-        a PG table rewrite drops them). Returns the rows written."""
+        a PG table rewrite drops them); a partitioned parent rewrites
+        each partition. Returns the rows written."""
         from opentenbase_tpu_torch.catalog.locator import Locator
 
-        self._refuse_pinned(name, "redistribute")
-        meta = self.catalog.get(name)
+        targets = self._alter_targets(name)
+        for target in targets:
+            self._refuse_pinned(target, "redistribute")
         snapshot = self.gts.snapshot_ts()
         commit_ts = self.gts.get_gts()
-        src_nodes = (meta.node_indices[:1] if meta.dist.is_replicated
-                     else meta.node_indices)
-        batches = []
-        for node in src_nodes:
-            store = self.stores.get(node, {}).get(name)
-            if store is None or store.nrows == 0:
-                continue
-            idx = store.live_index(snapshot)
-            if len(idx):
-                batches.append(store.take_batch(idx))
-        meta.dist = dist
-        meta.locator = Locator(
-            dist, meta.node_indices,
-            self.shardmap if dist.strategy == DistStrategy.SHARD else None,
-            key_types={k: meta.schema[k] for k in dist.key_columns})
-        self.create_table_stores(meta)
         moved = 0
-        for batch in batches:
-            if dist.is_replicated:
-                for node in meta.node_indices:
-                    self.stores[node][name].append_batch(batch, commit_ts)
-                moved += batch.nrows
-                continue
-            routes = meta.locator.route_insert(
-                {k: batch.columns[k] for k in dist.key_columns}, batch.nrows)
-            for node in np.unique(routes):
-                sub = batch.take(np.nonzero(routes == node)[0])
-                self.stores[int(node)][name].append_batch(sub, commit_ts)
-                moved += sub.nrows
-        self.forget_device_table(name)
+        for target in targets:
+            meta = self.catalog.get(target)
+            src_nodes = (meta.node_indices[:1] if meta.dist.is_replicated
+                         else meta.node_indices)
+            batches = []
+            for node in src_nodes:
+                store = self.stores.get(node, {}).get(target)
+                if store is None or store.nrows == 0:
+                    continue
+                idx = store.live_index(snapshot)
+                if len(idx):
+                    batches.append(store.take_batch(idx))
+            meta.dist = dist
+            meta.locator = Locator(
+                dist, meta.node_indices,
+                self.shardmap if dist.strategy == DistStrategy.SHARD
+                else None,
+                key_types={k: meta.schema[k] for k in dist.key_columns})
+            self.create_table_stores(meta)
+            for batch in batches:
+                if dist.is_replicated:
+                    for node in meta.node_indices:
+                        self.stores[node][target].append_batch(
+                            batch, commit_ts)
+                    moved += batch.nrows
+                    continue
+                routes = meta.locator.route_insert(
+                    {k: batch.columns[k] for k in dist.key_columns},
+                    batch.nrows)
+                for node in np.unique(routes):
+                    sub = batch.take(np.nonzero(routes == node)[0])
+                    self.stores[int(node)][target].append_batch(
+                        sub, commit_ts)
+                    moved += sub.nrows
+            self.forget_device_table(target)
+        if name in self.partitions:  # the parent shell keeps matching
+            self.catalog.get(name).dist = dist
         return moved
+
+    def extend_partitions(self, name: str, count: int) -> None:
+        """ALTER TABLE ... ADD PARTITIONS (count): ``count`` more
+        children past the last boundary, sharing the parent's
+        dictionaries. The existing children keep their stores."""
+        from opentenbase_tpu_torch.plan.partition import PartitionSpec
+
+        spec = self.partitions.get(name)
+        if spec is None:
+            raise SQLError(f'"{name}" is not a partitioned table')
+        parent = self.catalog.get(name)
+        clause = dict(spec.spec)
+        clause["partitions"] = spec.nparts + count
+        new_spec = PartitionSpec.build(name, clause, spec.key_type)
+        for i in range(spec.nparts, new_spec.nparts):
+            child = new_spec.child(i)
+            meta = self.catalog.create_table(child, parent.schema,
+                                             parent.dist)
+            meta.dictionaries = parent.dictionaries
+            self.create_table_stores(meta)
+            self.forget_device_table(child)
+        self.partitions[name] = new_spec
 
     def compact_deltas(self) -> int:
         """Fold every store's pending delta batches into its base arrays
@@ -1257,6 +1319,15 @@ class Session:
         self._stmt_deadline: Optional[float] = None
         # the last value nextval or setval gave each sequence here
         self._seq_currval: dict[str, int] = {}
+        # PL/pgSQL call nesting (``_pl_call``)
+        self._pl_depth = 0
+        # lines a rewrite stage hands EXPLAIN (the recursive-CTE shape),
+        # and the stand-in table names it prints under their CTE names
+        self._explain_prelude: list[str] = []
+        self._explain_rename: dict[str, str] = {}
+        # the last statement's recursive CTEs: name -> iterations of its
+        # recursive term (the last one yielded no row)
+        self.recursive_iterations: dict[str, int] = {}
 
     def execute(self, sql: str) -> Result:
         results = [self._execute_one(s) for s in parse(sql)]
@@ -1311,6 +1382,35 @@ class Session:
         return isinstance(stmt, A.CopyStmt) and stmt.direction == "to"
 
     def _execute_one(self, stmt: A.Statement) -> Result:
+        """One statement, under its statement_timeout deadline (a nested
+        statement, a PL/pgSQL body's or a recursive CTE's, keeps its
+        caller's), with its self-referencing CTEs materialized first
+        into temporary tables that are dropped after it."""
+        top = self._stmt_deadline is None
+        if top:
+            timeout_ms = self.gucs["statement_timeout"]
+            self._stmt_deadline = (time.monotonic() + timeout_ms / 1000.0
+                                   if timeout_ms > 0 else None)
+        try:
+            rec = self._materialize_recursive_ctes(stmt)
+            if rec is None:
+                return self._execute_one_inner(stmt)
+            stmt, temps = rec
+            try:
+                return self._execute_one_inner(stmt)
+            finally:
+                self._drop_temps(temps)
+                # a failure before EXPLAIN read the prelude must not
+                # leak it into the session's next EXPLAIN
+                self._explain_prelude = []
+                self._explain_rename = {}
+        except StatementTimeout as e:
+            raise SQLError(str(e), "57014") from None
+        finally:
+            if top:
+                self._stmt_deadline = None
+
+    def _execute_one_inner(self, stmt: A.Statement) -> Result:
         c = self.cluster
         if c.ha_demoted:
             # a fenced ex-primary: a newer generation was promoted, and
@@ -1371,18 +1471,11 @@ class Session:
             A.DeallocateStmt: self._x_deallocatestmt,
             A.ExplainStmt: self._x_explainstmt,
             A.CopyStmt: self._x_copystmt,
+            A.CreateForeignTable: self._x_createforeigntable,
         }.get(type(stmt))
         if fn is None:
             raise NotPorted(self._REFUSED.get(
                 type(stmt), f"statement {type(stmt).__name__}"))
-        # statement_timeout (guc.c): a deadline for this statement, which
-        # the fragment dispatch loop and each remote call honor; a nested
-        # statement (EXECUTE's bound one) keeps its caller's
-        top = self._stmt_deadline is None
-        if top:
-            timeout_ms = self.gucs["statement_timeout"]
-            self._stmt_deadline = (time.monotonic() + timeout_ms / 1000.0
-                                   if timeout_ms > 0 else None)
         try:
             if isinstance(stmt, A.Select):
                 admin = self._maybe_admin_function(stmt)
@@ -1390,9 +1483,11 @@ class Session:
                     return admin
             if isinstance(stmt, A.ExplainStmt):
                 stmt = dataclasses.replace(
-                    stmt, query=self._rewrite(stmt.query))
+                    stmt, query=self._rewrite(stmt.query, explain=True))
             else:
                 stmt = self._rewrite(stmt)
+                if isinstance(stmt, Result):  # a partition fan-out ran
+                    return stmt
             txn = self.txn
             if txn is None or not isinstance(
                 stmt, (A.Insert, A.Update, A.Delete, A.CopyStmt)
@@ -1417,19 +1512,21 @@ class Session:
             raise SQLError(str(e), "40P01")
         except (LockTimeout, LockNotAvailable) as e:
             raise SQLError(str(e)) from None
-        except StatementTimeout as e:
-            raise SQLError(str(e), "57014") from None
-        finally:
-            if top:
-                self._stmt_deadline = None
 
-    def _rewrite(self, stmt: A.Statement) -> A.Statement:
+    def _rewrite(self, stmt: A.Statement, explain: bool = False):
         """The rewrite passes before a statement runs, in the
-        reference's order: recursive CTEs refused, sequences bound, SQL
-        functions, then WITH and views (a CTE name shadows a view)."""
-        self._refuse_recursive_ctes(stmt)
+        reference's order: sequences bound, SQL functions inlined and
+        PL/pgSQL calls evaluated (under ``explain``, planned as NULL
+        placeholders), WITH and views (a CTE name shadows a view), then
+        partitioned parents expanded over their children. Returns the
+        statement, or the Result of an UPDATE / DELETE a partitioned
+        parent fanned out over its children. Under ``explain`` only a
+        SELECT is expanded over partitions: EXPLAIN runs no write."""
         stmt = self._expand_sequences(stmt)
-        return self._expand_views(self._expand_functions(stmt))
+        stmt = self._expand_views(self._expand_functions(stmt, explain))
+        if explain and not isinstance(stmt, A.Select):
+            return stmt
+        return self._expand_partitions(stmt)
 
     # -- transactions ---------------------------------------------------
     def _new_txn(self) -> Transaction:
@@ -2183,8 +2280,6 @@ class Session:
     # -- DDL ---------------------------------------------------------------
     def _x_createtable(self, stmt: A.CreateTable) -> Result:
         cat = self.cluster.catalog
-        if stmt.partition_by is not None:
-            raise NotPorted("partitioned table")
         if stmt.to_group is not None:
             raise NotPorted("CREATE TABLE ... TO GROUP")
         self._reserved_relation(stmt.name)
@@ -2196,9 +2291,79 @@ class Session:
         for cd in stmt.columns:
             schema[cd.name] = t.type_from_name(cd.type_name, cd.type_args)
         dist = self._dist_spec(stmt)
-        self._create_table(stmt.name, schema, dist,
-                           self._column_constraints(stmt, schema))
+        constraints = self._column_constraints(stmt, schema)
+        if stmt.partition_by is not None:
+            return self._create_partitioned(stmt, schema, dist, constraints)
+        self._create_table(stmt.name, schema, dist, constraints)
         return Result("CREATE TABLE")
+
+    def _create_partitioned(self, stmt: A.CreateTable, schema,
+                            dist: DistributionSpec,
+                            constraints: dict) -> Result:
+        """Interval / range partitioning (gram.y:4172): the parent a
+        catalog-only shell, each partition a real table sharing the
+        parent's dictionaries (one logical table: encoded rows route
+        freely between them). Its 'D' records: the parent's first (the
+        children's replay reads its spec), then each child's."""
+        from opentenbase_tpu_torch.plan.partition import (
+            PartitionError,
+            PartitionSpec,
+        )
+
+        clause = stmt.partition_by
+        col = clause.get("column")
+        if col not in schema:
+            raise SQLError(f'partition column "{col}" does not exist')
+        pk = constraints.get("primary_key")
+        if pk is not None and pk != col:
+            # per-child uniqueness is whole only where equal keys always
+            # land in one child (PG: the key must hold the partition key)
+            raise SQLError("PRIMARY KEY on a partitioned table must be the "
+                           "partition column")
+        try:
+            spec = PartitionSpec.build(stmt.name, clause, schema[col])
+        except PartitionError as e:
+            raise SQLError(str(e)) from None
+        cat = self.cluster.catalog
+        parent = cat.create_table(stmt.name, schema, dist)  # the shell
+        apply_constraints(parent, constraints)
+        self.cluster.partitions[stmt.name] = spec
+        self._log_ddl({
+            "op": "create_parent", "name": stmt.name,
+            "schema": {k: _type_to_str(v) for k, v in schema.items()},
+            "strategy": dist.strategy.value,
+            "key_columns": list(dist.key_columns),
+            "partition": spec.spec,
+            "constraints": constraints,
+        })
+        for child in spec.children():
+            self._create_table(child, schema, dist, constraints,
+                               dictionaries=parent.dictionaries)
+        return Result("CREATE TABLE")
+
+    def _x_createforeigntable(self, stmt: A.CreateForeignTable) -> Result:
+        """CREATE FOREIGN TABLE ... SERVER file OPTIONS (...)
+        (src/backend/foreign, contrib/file_fdw): a replicated catalog
+        entry on one node and no stores; its scan reads the source
+        (fdw.py) on the host route."""
+        cat = self.cluster.catalog
+        self._reserved_relation(stmt.name)
+        if cat.has(stmt.name):
+            raise SQLError(f'relation "{stmt.name}" already exists')
+        schema: dict[str, t.SqlType] = {}
+        for cd in stmt.columns:
+            schema[cd.name] = t.type_from_name(cd.type_name, cd.type_args)
+        meta = cat.create_table(stmt.name, schema,
+                                DistributionSpec(DistStrategy.REPLICATED))
+        meta.node_indices = meta.node_indices[:1]  # the scan's one node
+        meta.foreign = dict(stmt.options)
+        meta.foreign["server"] = stmt.server
+        self._log_ddl({
+            "op": "create_foreign_table", "name": stmt.name,
+            "schema": {k: str(v) for k, v in schema.items()},
+            "server": stmt.server, "options": dict(stmt.options),
+        })
+        return Result("CREATE FOREIGN TABLE")
 
     def _column_constraints(self, stmt: A.CreateTable, schema) -> dict:
         """NOT NULL, PRIMARY KEY (which implies NOT NULL: a NULL key
@@ -2234,12 +2399,15 @@ class Session:
 
     def _create_table(self, name: str, schema: dict,
                       dist: DistributionSpec,
-                      constraints: Optional[dict] = None) -> TableMeta:
+                      constraints: Optional[dict] = None,
+                      dictionaries: Optional[dict] = None) -> TableMeta:
         """A new table's catalog entry, its constraints, its stores, and
-        its 'D' record."""
+        its 'D' record; ``dictionaries``: a partition's, its parent's."""
         constraints = constraints or {"not_null": [], "defaults": {},
                                       "primary_key": None}
         meta = self.cluster.catalog.create_table(name, schema, dist)
+        if dictionaries is not None:
+            meta.dictionaries = dictionaries
         apply_constraints(meta, constraints)
         self.cluster.create_table_stores(meta)
         self._log_ddl({
@@ -2369,9 +2537,16 @@ class Session:
     def _x_altertable(self, stmt: A.AlterTable) -> Result:
         """ADD COLUMN, DROP COLUMN and DISTRIBUTE BY, each with its 'D'
         record (a redistribution then takes a checkpoint: its stores were
-        rewritten whole). ADD PARTITIONS is outside the port."""
+        rewritten whole) and ADD PARTITIONS. A partition is altered
+        through its parent only."""
         c = self.cluster
         meta = self._table_meta(stmt.table)
+        child_of = {ch: p for p, ps in c.partitions.items()
+                    for ch in ps.children()}
+        if stmt.table in child_of:
+            raise SQLError(
+                f'cannot alter "{stmt.table}": it is a partition of '
+                f'"{child_of[stmt.table]}" (alter the parent)')
         if stmt.action == "add_column":
             cd = stmt.column
             ty = t.type_from_name(cd.type_name, cd.type_args)
@@ -2398,7 +2573,10 @@ class Session:
                 c.persistence.checkpoint()
             return Result("ALTER TABLE", rowcount=n)
         if stmt.action == "add_partitions":
-            raise NotPorted("ALTER TABLE ... ADD PARTITIONS")
+            c.extend_partitions(stmt.table, stmt.count)
+            self._log_ddl({"op": "add_partitions", "name": stmt.table,
+                           "count": stmt.count})
+            return Result("ALTER TABLE")
         raise SQLError(f"unsupported ALTER TABLE action {stmt.action}")
 
     def _x_locktable(self, stmt: A.LockTable) -> Result:
@@ -2412,7 +2590,8 @@ class Session:
         meta = self.cluster.catalog.get(stmt.table)
         self.cluster.locks.acquire(
             self.session_id, self.txn.gxid,
-            [(node, stmt.table) for node in meta.node_indices],
+            [(node, tb) for tb in self._lock_table_names(stmt.table)
+             for node in meta.node_indices],
             table_lock_mode(stmt.mode), nowait=stmt.nowait,
             **self._lock_opts())
         return Result("LOCK TABLE")
@@ -2439,24 +2618,288 @@ class Session:
         return Result("VACUUM", rowcount=removed)
 
     # -- views, WITH, CREATE TABLE AS and SQL functions ------------------------
-    def _refuse_recursive_ctes(self, stmt: A.Statement) -> None:
-        """WITH RECURSIVE whose CTE reads itself is refused by name (the
-        reference materializes it by fixpoint into temporary tables);
-        RECURSIVE written over CTEs that do not recurse is a plain WITH,
-        as in the reference."""
-        sel = stmt if isinstance(stmt, A.Select) else (
-            stmt.query if isinstance(stmt, (A.CreateTableAs, A.Insert))
-            else None)
-        if sel is None or not (sel.ctes_recursive and sel.ctes):
-            return
+    # -- WITH RECURSIVE (parse_cte.c's checkWellFormedRecursion,
+    # nodeRecursiveUnion.c) ----------------------------------------------
+    def _materialize_recursive_ctes(self, stmt: A.Statement):
+        """Self-referencing CTEs evaluated to their fixpoint into
+        temporary tables before analysis (nodeRecursiveUnion.c's working
+        and intermediate tables, table-backed so every later stage sees
+        a plain relation): (the statement over those tables, the tables
+        to drop after it), or None where no CTE recurses. A plain
+        EXPLAIN executes nothing: it plans over empty stand-ins and
+        prints the Recursive Union's shape."""
+        sel = None
+        if isinstance(stmt, A.Select):
+            sel = stmt
+        elif isinstance(stmt, A.ExplainStmt) and isinstance(
+                stmt.query, A.Select):
+            sel = stmt.query
+        elif isinstance(stmt, A.CreateTableAs):
+            sel = stmt.query
+        elif isinstance(stmt, A.Insert) and stmt.query is not None:
+            sel = stmt.query
+        if sel is None or not sel.ctes_recursive or not sel.ctes:
+            return None
+        from opentenbase_tpu_torch.plan.astwalk import (
+            relation_names,
+            rename_relations,
+        )
+
+        if not any(name in relation_names(body)
+                   for name, _a, body in sel.ctes):
+            return None  # RECURSIVE written, nothing recursive: plain
+        self.recursive_iterations = {}
+        if isinstance(stmt, A.ExplainStmt) and not stmt.analyze:
+            return self._explain_recursive_shape(stmt, sel)
+        if self.cluster.read_only:
+            raise SQLError("recursive queries are not supported on a "
+                           "read-only (hot standby) cluster")
+        temps: list[str] = []
+        rename: dict[str, str] = {}
+        kept = []
+        try:
+            for name, aliases, body in sel.ctes:
+                if rename:
+                    rename_relations(body, rename)
+                if name not in relation_names(body):
+                    kept.append((name, aliases, body))
+                    continue
+                rename[name] = self._recursive_union(
+                    name, aliases, body, temps, kept)
+            sel.ctes = kept
+            if rename:
+                rename_relations(sel, rename)
+        except Exception:
+            self._drop_temps(temps)
+            raise
+        return stmt, temps
+
+    def _drop_temps(self, temps: list) -> None:
+        for name in reversed(temps):
+            if name.startswith("__recshape_"):
+                # EXPLAIN's stand-ins went straight into the catalog and
+                # never reached the WAL: no DROP record either
+                if self.cluster.catalog.has(name):
+                    self.cluster.catalog.drop_table(name)
+                self.cluster.drop_table_stores(name)
+                continue
+            try:
+                self.execute(f"drop table if exists {name}")
+            except SQLError:
+                pass
+
+    @staticmethod
+    def _recursive_parts(name: str, body: A.Select):
+        """(the union operator, the non-recursive term, the recursive
+        term) of a recursive CTE's body, with the reference's errors."""
+        import copy
+
         from opentenbase_tpu_torch.plan.astwalk import relation_names
 
-        if any(name in relation_names(body) for name, _a, body in sel.ctes):
-            raise NotPorted("WITH RECURSIVE")
+        if not body.set_ops:
+            raise SQLError(
+                f'recursive query "{name}" must have the form '
+                "non-recursive-term UNION [ALL] recursive-term")
+        op, rec_term = body.set_ops[-1]
+        if op not in ("union", "union all"):
+            raise SQLError(f'recursive query "{name}" must use UNION [ALL]')
+        base = copy.copy(body)
+        base.set_ops = body.set_ops[:-1]
+        if name in relation_names(base):
+            raise SQLError(
+                f'recursive reference to query "{name}" must not appear '
+                "within its non-recursive term")
+        return op, base, rec_term
 
-    def _expand_functions(self, stmt: A.Statement):
+    def _explain_recursive_shape(self, stmt: A.ExplainStmt, sel):
+        """Plain EXPLAIN of WITH RECURSIVE, executing nothing: each
+        recursive CTE's non-recursive term is analyzed for its output
+        columns, an empty catalog-only stand-in (no WAL) takes the place
+        of the self-reference, and both terms' plans lead the report
+        under the Recursive Union line (obs/explain.py)."""
+        import copy
+        import uuid
+
+        from opentenbase_tpu_torch.obs.explain import recursive_union_lines
+        from opentenbase_tpu_torch.plan.astwalk import (
+            relation_names,
+            rename_relations,
+        )
+        from opentenbase_tpu_torch.plan.views import expand_ctes
+
+        cat = self.cluster.catalog
+        temps: list[str] = []
+        rename: dict[str, str] = {}
+        kept = []
+        prelude: list[str] = []
+
+        def plan_lines(splan) -> list[str]:
+            return distribute_statement(optimize_statement(splan, cat),
+                                        cat).explain().splitlines()
+
+        try:
+            for name, aliases, body in sel.ctes:
+                if rename:
+                    rename_relations(body, rename)
+                if name not in relation_names(body):
+                    kept.append((name, aliases, body))
+                    continue
+                if not body.set_ops:
+                    self._recursive_parts(name, body)  # raises
+                if kept:
+                    body.ctes = [copy.deepcopy(sib) for sib in kept] + list(
+                        body.ctes)
+                expand_ctes(body)
+                op, base, rec_term = self._recursive_parts(name, body)
+                base_splan = analyze_statement(base, cat)
+                out_schema = base_splan.root.schema
+                cols = [oc.name for oc in out_schema]
+                if aliases and len(aliases) == len(cols):
+                    cols = list(aliases)
+                shape = f"__recshape_{uuid.uuid4().hex[:10]}_{name}"
+                meta = cat.create_table(
+                    shape, {c: oc.type for c, oc in zip(cols, out_schema)},
+                    DistributionSpec(DistStrategy.REPLICATED))
+                self.cluster.create_table_stores(meta)
+                temps.append(shape)
+                rename[name] = shape
+                rec2 = copy.deepcopy(rec_term)
+                rename_relations(rec2, {name: shape, **rename})
+                prelude += recursive_union_lines(
+                    name, op, plan_lines(base_splan),
+                    plan_lines(analyze_statement(rec2, cat)))
+            sel.ctes = kept
+            if rename:
+                rename_relations(sel, rename)
+        except Exception:
+            self._drop_temps(temps)
+            raise
+        self._explain_prelude = prelude
+        self._explain_rename = {shape: name for name, shape in rename.items()}
+        return stmt, temps
+
+    def _recursive_union(self, name: str, aliases: list, body: A.Select,
+                         temps: list, siblings: list = ()) -> str:
+        """One recursive CTE materialized: the non-recursive term into a
+        table, then the recursive term run over the previous
+        iteration's rows (the working table) until it yields none, each
+        iteration's rows appended (UNION: less every row already
+        there). Returns the table holding the CTE's rows; every table it
+        made is in ``temps``."""
+        import copy
+        import uuid
+
+        from opentenbase_tpu_torch.plan.astwalk import rename_relations
+        from opentenbase_tpu_torch.plan.views import expand_ctes
+        from opentenbase_tpu_torch.sql.deparse import (
+            DeparseError,
+            deparse_select,
+        )
+
+        if not body.set_ops:
+            self._recursive_parts(name, body)  # raises
+        if body.order_by or body.limit is not None or (
+                body.offset is not None):
+            raise SQLError("ORDER BY/LIMIT in a recursive query is not "
+                           "supported")
+        if siblings:
+            # the plain sibling CTEs of the same WITH list are in scope
+            # in this body: fresh copies inlined, so the deparsed CREATE
+            # TABLE AS still resolves them
+            body.ctes = [copy.deepcopy(sib) for sib in siblings] + list(
+                body.ctes)
+        expand_ctes(body)  # an inner WITH does not survive deparsing
+        op, base, rec_term = self._recursive_parts(name, body)
+        dedup = op == "union"
+        # unique across the cluster: sessions share one catalog
+        full = f"__rec_{uuid.uuid4().hex[:10]}_{name}"
+
+        def push_aliases(q: A.Select, cols: list) -> bool:
+            """``q``'s items renamed to ``cols`` where its shape allows
+            (CREATE TABLE AS needs unique, named output columns)."""
+            if not cols or len(q.items) != len(cols) or any(
+                    isinstance(it.expr, A.Star) for it in q.items):
+                return False
+            q.items = [A.SelectItem(it.expr, c)
+                       for it, c in zip(q.items, cols)]
+            return True
+
+        def ctas(tbl: str, q: A.Select, cols: list) -> list:
+            """CREATE TABLE AS, its output renamed to ``cols`` where
+            given; returns the table's column names."""
+            try:
+                sql = deparse_select(q)
+            except DeparseError as e:
+                raise SQLError(f'recursive query "{name}": {e}') from None
+            self.execute(f"create table {tbl} as {sql}")
+            temps.append(tbl)
+            got = list(self.cluster.catalog.get(tbl).schema)
+            if not cols or got == cols:
+                return got
+            if len(got) != len(cols):
+                raise SQLError(f'recursive query "{name}" column arity '
+                               f"mismatch: {len(got)} vs {len(cols)}")
+            if any(not g.replace("_", "").isalnum() for g in got):
+                raise SQLError(f'recursive query "{name}": alias unnamed '
+                               "output columns in the CTE column list")
+            proj = ", ".join(f"{g} as {c}" for g, c in zip(got, cols))
+            self.execute(f"create table {tbl}r as select {proj} from {tbl}")
+            temps.append(f"{tbl}r")
+            self.execute(f"drop table {tbl}")
+            temps.remove(tbl)
+            return cols
+
+        want = list(aliases)
+        if push_aliases(base, want):
+            want = []
+        if dedup:
+            base = A.Select(items=[A.SelectItem(A.Star(), None)],
+                            from_clause=A.SubqueryRef(base, "__rb"),
+                            distinct=True)
+        cols = ctas(full, base, want)
+        if f"{full}r" in temps:
+            full = f"{full}r"
+        work = f"{full}_w"
+        self.execute(f"create table {work} as select * from {full}")
+        temps.append(work)
+        limit = int(os.environ.get("OTB_MAX_RECURSION", "200"))
+        for it in range(1, limit + 1):
+            rec = copy.deepcopy(rec_term)
+            refs = rename_relations(rec, {name: work})
+            if it == 1 and refs != 1:
+                raise SQLError(
+                    f'recursive reference to query "{name}" must appear '
+                    "exactly once in the recursive term")
+            delta = f"{full}_d{it}"
+            want = list(cols)
+            if push_aliases(rec, want):
+                want = []
+            if dedup:
+                rec = A.Select(items=[A.SelectItem(A.Star(), None)],
+                               from_clause=A.SubqueryRef(rec, "__rd"))
+                rec.set_ops = [("except", A.Select(
+                    items=[A.SelectItem(A.Star(), None)],
+                    from_clause=A.RelRef(full, None)))]
+            ctas(delta, rec, want)
+            if f"{delta}r" in temps:
+                delta = f"{delta}r"
+            n = self.query(f"select count(*) from {delta}")[0][0]
+            self.execute(f"drop table {work}")
+            temps.remove(work)
+            work = delta
+            self.recursive_iterations[name] = it
+            if n == 0:
+                return full
+            self.execute(f"insert into {full} select * from {delta}")
+        raise SQLError(f'recursion limit ({limit}) exceeded in query '
+                       f'"{name}" — set OTB_MAX_RECURSION to raise it')
+
+    # -- SQL and PL/pgSQL functions ----------------------------------------
+    def _expand_functions(self, stmt: A.Statement, explain: bool = False):
         """SQL-function calls inlined before analysis (the planner's
-        inline_function)."""
+        inline_function), and PL/pgSQL calls with constant arguments run
+        (``_pl_call``) and replaced by their results; under ``explain``
+        a PL/pgSQL call plans as a NULL placeholder and runs nothing."""
         funcs = self.cluster.functions
         if not funcs or isinstance(stmt, (A.CreateFunction,
                                           A.DropFunction)):
@@ -2465,11 +2908,171 @@ class Session:
             FunctionError,
             expand_calls,
         )
+        from opentenbase_tpu_torch.plan.plpgsql import PlpgsqlError
+
+        def pl_eval(fn, vals):
+            return None if explain else self._pl_call(fn, vals)
 
         try:
-            return expand_calls(stmt, funcs)
-        except FunctionError as e:
+            return expand_calls(stmt, funcs, pl_eval=pl_eval)
+        except (FunctionError, PlpgsqlError) as e:
             raise SQLError(str(e)) from None
+
+    def _pl_call(self, fn, vals):
+        """One PL/pgSQL call (pl_exec.c): at most 8 deep, and atomic: the
+        body's statements commit or roll back as one, under a ``__pl__``
+        savepoint of the caller's transaction, or of one opened for the
+        call where none is."""
+        from opentenbase_tpu_torch.plan.functions import FunctionError
+
+        depth = self._pl_depth
+        if depth >= 8:
+            raise FunctionError(
+                "plpgsql call nesting exceeds the recursion limit")
+        started = self.txn is None
+        if started:
+            self.execute("begin")
+        txn = self.txn
+        txn.mark_savepoint("__pl__")
+        self._pl_depth = depth + 1
+        try:
+            out = fn.execute(self, vals)
+        except Exception:
+            if self.txn is txn:
+                txn.rollback_to_savepoint("__pl__", self.cluster.stores)
+                del txn.savepoints[txn._find_savepoint("__pl__"):]
+                if started:
+                    self.execute("rollback")
+            raise
+        finally:
+            self._pl_depth = depth
+        if self.txn is txn:
+            del txn.savepoints[txn._find_savepoint("__pl__"):]
+            if started:
+                self.execute("commit")
+        return out
+
+    # -- partitioned tables (plan/partition.py) ----------------------------
+    def _expand_partitions(self, stmt: A.Statement):
+        """Partitioned parents expanded over their children: a read of
+        a parent becomes a UNION ALL of the children WHERE's bare
+        literals do not prune (FROM, joins, set operations and
+        subqueries, a DML's WHERE subqueries included); UPDATE and
+        DELETE of a parent fan out over the surviving children in one
+        transaction (``_fanout_dml``, which returns its Result); TRUNCATE
+        and DROP of a parent name its children (DROP of a child alone
+        is refused)."""
+        parts = self.cluster.partitions
+        if not parts:
+            return stmt
+        from opentenbase_tpu_torch.plan.partition import (
+            _rewrite_expr_subqueries,
+            rewrite_select,
+        )
+
+        if isinstance(stmt, A.Select):
+            return rewrite_select(stmt, parts)
+        if isinstance(stmt, A.CreateTableAs) or (
+                isinstance(stmt, A.Insert) and stmt.query is not None):
+            rewrite_select(stmt.query, parts)
+            return stmt
+        if isinstance(stmt, (A.Update, A.Delete)):
+            if stmt.where is not None:
+                _rewrite_expr_subqueries(stmt.where, parts)
+            if stmt.table not in parts:
+                return stmt
+            if isinstance(stmt, A.Update):
+                pcol = parts[stmt.table].column
+                if any(c == pcol for c, _e in stmt.assignments):
+                    raise SQLError(
+                        "updating the partition key (moving rows between "
+                        "partitions) is not supported")
+            return self._fanout_dml(stmt, parts[stmt.table])
+        if isinstance(stmt, (A.TruncateTable, A.DropTable)):
+            child_of = {ch: p for p, ps in parts.items()
+                        for ch in ps.children()}
+            drop = isinstance(stmt, A.DropTable)
+            names: list[str] = []
+            for n in stmt.names:
+                if drop and n in child_of:
+                    raise SQLError(
+                        f'cannot drop "{n}": it is a partition of '
+                        f'"{child_of[n]}" (drop the parent instead)')
+                if n not in parts:
+                    names.append(n)
+                    continue
+                if drop:
+                    deps = self._dependent_views(n)
+                    if deps and stmt.cascade:
+                        self._drop_dependent_views(n)
+                        deps = self._dependent_views(n)
+                    if deps:
+                        raise SQLError(
+                            f'cannot drop table "{n}": view(s) '
+                            f"{', '.join(sorted(deps))} depend on it",
+                            "2BP01")
+                names.extend(parts[n].children())
+                if drop:
+                    parts.pop(n)
+                    self.cluster.catalog.drop_table(n)
+                    self._log_ddl({"op": "drop_parent", "name": n})
+            return dataclasses.replace(stmt, names=names)
+        return stmt
+
+    def _fanout_dml(self, stmt, spec) -> Result:
+        """UPDATE / DELETE of a partitioned parent: the statement run on
+        each child its WHERE does not prune, in one transaction (one
+        statement inside an explicit one: no child's writes survive a
+        failure)."""
+        keep = spec.prune(stmt.where, {spec.parent})
+        txn, implicit = self._begin_implicit()
+        self.txn = txn
+        if not implicit:
+            txn.mark_savepoint("__stmt__")
+        total = 0
+        tag = "UPDATE" if isinstance(stmt, A.Update) else "DELETE"
+        try:
+            for i in keep:
+                child = dataclasses.replace(stmt, table=spec.child(i))
+                total += self._execute_one(child).rowcount
+        except Exception:
+            if implicit:
+                self._abort_txn(txn)
+                self.txn = None
+            else:
+                txn.rollback_to_savepoint("__stmt__", self.cluster.stores)
+                del txn.savepoints[txn._find_savepoint("__stmt__"):]
+            raise
+        if implicit:
+            self.txn = None
+            self._commit_txn(txn)
+        else:
+            del txn.savepoints[txn._find_savepoint("__stmt__"):]
+        return Result(tag, rowcount=total)
+
+    def _partition_and_append(self, spec, full: ColumnBatch,
+                              txn: Transaction) -> int:
+        """A parent's rows split by the partition boundaries, each slice
+        routed into its child by the child's locator."""
+        from opentenbase_tpu_torch.plan.partition import PartitionError
+
+        key = full.columns[spec.column]
+        try:
+            pidx = spec.route(key.data, key.validity)
+        except PartitionError as e:
+            raise SQLError(str(e)) from None
+        n = 0
+        for i in np.unique(pidx):
+            child = self.cluster.catalog.get(spec.child(int(i)))
+            n += self._route_and_append(
+                child, full.take(np.nonzero(pidx == i)[0]), txn)
+        return n
+
+    def _lock_table_names(self, name: str) -> list[str]:
+        """A table lock's keys: a partitioned parent covers its children
+        (PG locks partitions through the parent)."""
+        spec = self.cluster.partitions.get(name)
+        return [name, *spec.children()] if spec is not None else [name]
 
     def _expand_ctes_stmt(self, stmt: A.Statement):
         """WITH clauses expanded (statement-scoped views): before view
@@ -2612,7 +3215,8 @@ class Session:
         if stmt.name in c.views and not stmt.replace:
             raise SQLError(f'view "{stmt.name}" already exists')
         probe = rewrite_views(copy.deepcopy(stmt.query), c.views)
-        probe = self._expand_views(self._expand_functions(probe))
+        probe = self._expand_partitions(
+            self._expand_views(self._expand_functions(probe)))
         with self._system_views(probe):
             prune_columns(analyze_statement(probe, c.catalog))
         c.views[stmt.name] = (stmt.query, stmt.text)
@@ -2680,8 +3284,8 @@ class Session:
         return Result("CREATE TABLE AS", rowcount=n)
 
     def _x_createfunction(self, stmt: A.CreateFunction) -> Result:
-        """CREATE [OR REPLACE] FUNCTION ... LANGUAGE SQL (PL/pgSQL is
-        refused by name)."""
+        """CREATE [OR REPLACE] FUNCTION ... LANGUAGE SQL | plpgsql (a SQL
+        body inlines at each call, a PL/pgSQL one runs per call)."""
         from opentenbase_tpu_torch.plan.functions import (
             FunctionError,
             SqlFunction,
@@ -2694,12 +3298,15 @@ class Session:
                 or stmt.name in self._READONLY_ADMIN_FUNCS
                 or stmt.name in self._ADMIN_REFUSED):
             raise SQLError(f'"{stmt.name}" is a reserved function name')
-        if stmt.language == "plpgsql":
-            raise NotPorted("PL/pgSQL functions")
+        from opentenbase_tpu_torch.plan.plpgsql import (
+            PlpgsqlError,
+            PlpgsqlFunction,
+        )
+
+        cls = PlpgsqlFunction if stmt.language == "plpgsql" else SqlFunction
         try:
-            fn = SqlFunction.create(stmt.name, stmt.args, stmt.rettype,
-                                    stmt.body)
-        except FunctionError as e:
+            fn = cls.create(stmt.name, stmt.args, stmt.rettype, stmt.body)
+        except (FunctionError, PlpgsqlError) as e:
             raise SQLError(str(e)) from None
         funcs[stmt.name] = fn
         self._log_ddl({
@@ -2754,6 +3361,8 @@ class Session:
         if not cat.has(stmt.table):
             return None
         meta = cat.get(stmt.table)
+        if meta.foreign is not None:
+            return None  # refused on the general path
         columns = list(stmt.columns) if stmt.columns else list(meta.schema)
         arity = len(stmt.values[0])
         if not stmt.columns and arity < len(columns) and all(
@@ -2826,6 +3435,7 @@ class Session:
                 splan = analyze_statement(stmt, self.cluster.catalog)
                 iplan = splan.root
                 meta = self._table_meta(iplan.table)
+                self._refuse_foreign(meta)
             ret = (self._validate_returning(meta, stmt.returning)
                    if stmt.returning else None)
             if fast is None:
@@ -2837,8 +3447,15 @@ class Session:
         # the rows the statement inserts, and an upsert's new images
         affected: list[ColumnBatch] = [full]
 
+        spec = self.cluster.partitions.get(meta.name)
+
         def write() -> int:
             self._lock_table_shared(meta, txn)
+            if spec is not None:
+                if stmt.on_conflict is not None:
+                    raise SQLError("ON CONFLICT on partitioned tables is "
+                                   "not supported")
+                return self._partition_and_append(spec, full, txn)
             n_upd = 0
             if stmt.on_conflict is not None:
                 affected[0], n_upd, upd = self._apply_on_conflict(
@@ -2854,16 +3471,21 @@ class Session:
 
     def _lock_table_shared(self, meta: TableMeta, txn: Transaction) -> None:
         """INSERT's table lock: coexists with other writers, waits for a
-        LOCK TABLE ... EXCLUSIVE."""
+        LOCK TABLE ... EXCLUSIVE (of a partitioned parent's child too)."""
         self.cluster.locks.acquire(
             self.session_id, txn.gxid,
-            [(node, meta.name) for node in meta.node_indices],
+            [(node, tb) for tb in self._lock_table_names(meta.name)
+             for node in meta.node_indices],
             TABLE_SHARED, **self._lock_opts())
 
     def _locked_append(self, meta: TableMeta, batch: ColumnBatch,
                        txn: Transaction) -> int:
-        """``_route_and_append`` under INSERT's table lock."""
+        """``_route_and_append`` under INSERT's table lock, through the
+        partition split for a partitioned parent."""
         self._lock_table_shared(meta, txn)
+        spec = self.cluster.partitions.get(meta.name)
+        if spec is not None:
+            return self._partition_and_append(spec, batch, txn)
         return self._route_and_append(meta, batch, txn)
 
     def _route_and_append(
@@ -3145,9 +3767,15 @@ class Session:
         self._table_meta(stmt.table)
         splan = analyze_statement(stmt, self.cluster.catalog)
         meta = self.cluster.catalog.get(splan.root.table)
+        self._refuse_foreign(meta)
         ret = (self._validate_returning(meta, stmt.returning)
                if stmt.returning else None)
         return splan, meta, ret
+
+    @staticmethod
+    def _refuse_foreign(meta: TableMeta) -> None:
+        if meta.foreign is not None:
+            raise SQLError(f'cannot change foreign table "{meta.name}"')
 
     def _subquery_values(self, splan: L.StatementPlan) -> list:
         """Each scalar subquery's value (the InitPlans), run through the
@@ -3280,6 +3908,7 @@ class Session:
         from opentenbase_tpu_torch.plan.distribute import RemoteSource
 
         meta = self._table_meta(stmt.table)
+        self._refuse_foreign(meta)
         src_name, src_alias = stmt.from_table
         smeta = self._table_meta(src_name)
         if stmt.where is None:
@@ -3535,16 +4164,20 @@ class Session:
         (fragment, node)'s rows and ms. Left out: the plan cache's line
         (ROADMAP A.9), the Resources footer (A.7), the node-group lines
         (A.8)."""
+        from opentenbase_tpu_torch.obs.explain import unrename_lines
+
         inner = stmt.query
         cat = self.cluster.catalog
+        prelude, self._explain_prelude = self._explain_prelude, []
+        unrename, self._explain_rename = self._explain_rename, {}
         with self._system_views(inner if isinstance(inner, A.Select)
                                 else None):
             splan = optimize_statement(analyze_statement(inner, cat), cat)
             dplan = distribute_statement(splan, cat)
-            lines = dplan.explain().splitlines()
+            lines = prelude + dplan.explain().splitlines()
             if stmt.analyze:
                 lines += self._explain_analyze(dplan, stmt.verbose)
-        rows = [(line,) for line in lines]
+        rows = [(line,) for line in unrename_lines(lines, unrename)]
         return Result("EXPLAIN", rows, ["QUERY PLAN"], len(rows))
 
     def _explain_analyze(self, dplan, verbose: bool) -> list[str]:
@@ -3598,9 +4231,12 @@ class Session:
         columns = stmt.columns or list(meta.schema)
         delim = stmt.options.get("delimiter", ",")
         if stmt.direction == "to":
-            batch = self._run_select(A.Select(
+            from opentenbase_tpu_torch.plan.partition import rewrite_select
+
+            batch = self._run_select(rewrite_select(A.Select(
                 items=[A.SelectItem(A.ColumnRef(c, None)) for c in columns],
-                from_clause=A.RelRef(stmt.table, None)))
+                from_clause=A.RelRef(stmt.table, None)),
+                self.cluster.partitions))
             with open(stmt.target, "w", newline="") as f:
                 w = csv.writer(f, delimiter=delim)
                 if stmt.options.get("header"):
@@ -3829,7 +4465,7 @@ class Session:
             node_generation=self.cluster.node_generation,
             delta_scan=self._delta_scan(),
             instrument_ops=instrument,
-            local_only_tables=self._sysviews,
+            local_only_tables=self._sysviews | self._foreign_tables(),
         )
         self.last_executor = ex
         from opentenbase_tpu_torch.net.pool import ChannelFenced
@@ -3848,6 +4484,18 @@ class Session:
             with self.cluster._dml_stats_mu:
                 hs["retries"] += ex.retry_stats["retries"]
                 hs["failovers"] += ex.retry_stats["failovers"]
+
+    def _foreign_tables(self) -> frozenset:
+        """The foreign tables, whose fragments run on the coordinator
+        where datanode processes are attached: a process would encode a
+        source's TEXT into its own dictionaries, whose codes the
+        coordinator cannot decode (the reference's datanode path fails
+        so, ROADMAP C)."""
+        if not self.cluster.dn_channels:
+            return frozenset()
+        cat = self.cluster.catalog
+        return frozenset(n for n in cat.table_names()
+                         if cat.get(n).foreign is not None)
 
     def _try_fused(self, dplan, snapshot) -> Optional[ColumnBatch]:
         """The fused route (the reference's ``_try_fused_inner``), or

@@ -350,8 +350,9 @@ class LocalExecutor:
         """``row_idx``: an optional physical row subset (zone-map
         pruning); callers passing it have ruled out own-write overlays,
         whose positions cover the full store."""
-        self._refuse_foreign(plan.table)
-        store = self.stores.get(plan.table)
+        store = self._foreign_store(plan.table)
+        if store is None:
+            store = self.stores.get(plan.table)
         if store is None:
             raise ExecError(f"no shard for table {plan.table} on this node")
         # one coherent capture: every column and both MVCC planes read
@@ -401,10 +402,15 @@ class LocalExecutor:
                 live[np.asarray(del_idx)] = False
         return DevBatch(plan.schema, cols, self._upload(live), padded)
 
-    def _refuse_foreign(self, table: str) -> None:
+    def _foreign_store(self, table: str):
+        """A foreign table's rows, read from its source at scan time
+        (fdw.py); None for any other table."""
         meta = self.catalog.get(table) if self.catalog.has(table) else None
-        if getattr(meta, "foreign", None) is not None:
-            raise NotPorted("foreign table scan")
+        if getattr(meta, "foreign", None) is None:
+            return None
+        from opentenbase_tpu_torch.fdw import foreign_store
+
+        return foreign_store(meta)
 
     def _eval_valuesscan(self, plan: L.ValuesScan) -> DevBatch:
         nrows = len(plan.rows)

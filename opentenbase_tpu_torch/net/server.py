@@ -42,28 +42,49 @@ log = logging.getLogger(__name__)
 
 
 def _walk_ast(node):
-    """Generic AST walk over dataclass fields."""
+    """Generic AST walk over dataclass fields, nested lists and tuples
+    included (INSERT's VALUES rows, a SELECT's set operations)."""
+    if isinstance(node, (list, tuple)):
+        for x in node:
+            yield from _walk_ast(x)
+        return
+    if not dataclasses.is_dataclass(node) or isinstance(node, type):
+        return
     yield node
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        for f in dataclasses.fields(node):
-            v = getattr(node, f.name)
-            if isinstance(v, (list, tuple)):
-                for x in v:
-                    if dataclasses.is_dataclass(x):
-                        yield from _walk_ast(x)
-            elif dataclasses.is_dataclass(v):
-                yield from _walk_ast(v)
+    for f in dataclasses.fields(node):
+        yield from _walk_ast(getattr(node, f.name))
+
+
+def _writing_functions(cluster) -> set:
+    """The functions a call of which may write: every PL/pgSQL function
+    (its body runs INSERT, UPDATE and DELETE inside the calling
+    statement), and every SQL function whose body calls one."""
+    import re
+
+    names = {n for n, fn in cluster.functions.items()
+             if getattr(fn, "language", "sql") == "plpgsql"}
+    grew = bool(names)
+    while grew:
+        grew = False
+        for n, fn in cluster.functions.items():
+            if n not in names and any(
+                    re.search(rf"\b{re.escape(w)}\s*\(", fn.body or "",
+                              re.IGNORECASE) for w in names):
+                names.add(n)
+                grew = True
+    return names
 
 
 def classify(cluster, sql: str, session):
     """The statement's lock class, from one parse:
 
     - ("read", None): a single plain SELECT (no FOR UPDATE) outside a
-      transaction: shares the data plane with other readers.
+      transaction, calling no function that may write: shares the data
+      plane with other readers.
     - ("write", tables): a single autocommit INSERT/UPDATE/DELETE of one
-      known table (and UPDATE ... FROM's or DELETE ... USING's known
-      source) with no subquery: shares the data plane with writers of
-      other tables.
+      known plain table (and UPDATE ... FROM's or DELETE ... USING's
+      known source) with no subquery: shares the data plane with
+      writers of other tables.
     - ("excl", None): everything else, parse errors included (they then
       surface from the statement's own execution)."""
     if session.txn is not None:
@@ -75,6 +96,13 @@ def classify(cluster, sql: str, session):
     if len(stmts) != 1:
         return "excl", None
     st = stmts[0]
+    writers = _writing_functions(cluster)
+    if writers and any(isinstance(n, A.FuncCall) and n.name in writers
+                       for n in _walk_ast(st)):
+        # a PL/pgSQL body's writes would run beside a writer of the same
+        # table without that table's mutex (the reference classes such a
+        # SELECT a read)
+        return "excl", None
     if isinstance(st, A.Select):
         if st.for_update is not None:
             return "excl", None
@@ -102,6 +130,12 @@ def classify(cluster, sql: str, session):
         if getattr(st, "from_table", None) is not None:
             tables.add(st.from_table[0])
         if not all(cluster.catalog.has(t) for t in tables):
+            return "excl", None
+        # a partitioned parent's rows land in its children, and a
+        # foreign table's refusal comes from its own execution
+        if any(t in cluster.partitions
+               or cluster.catalog.get(t).foreign is not None
+               for t in tables):
             return "excl", None
         return "write", tables
     return "excl", None

@@ -142,3 +142,23 @@ def fragment_summary(ex) -> list[str]:
             f"rows={i['rows']} time={i['ms']:.3f} ms" + extra
         )
     return lines
+
+
+def recursive_union_lines(name: str, op: str, base_lines: list[str],
+                          rec_lines: list[str]) -> list[str]:
+    """The Recursive Union block a plain EXPLAIN of WITH RECURSIVE leads
+    its report with (nodeRecursiveUnion.c's shape): the CTE's union
+    operator, then the non-recursive and the recursive term's plans."""
+    kind = "UNION" if op == "union" else "UNION ALL"
+    return ([f'Recursive Union "{name}" ({kind})', "  Non-recursive term:"]
+            + ["    " + ln for ln in base_lines]
+            + ["  Recursive term:"]
+            + ["    " + ln for ln in rec_lines])
+
+
+def unrename_lines(lines: list[str], mapping: dict) -> list[str]:
+    """The report with each internal stand-in table's name (``mapping``'s
+    keys) printed as the CTE name it stands for."""
+    for internal, public in mapping.items():
+        lines = [ln.replace(internal, public) for ln in lines]
+    return lines

@@ -1,4 +1,4 @@
-"""Shared AST walkers for statement rewriters (views and WITH).
+"""Shared AST walkers for statement rewriters (views, WITH, partitions).
 
 One implementation of "every expression position of a Select" and "every
 subquery inside an expression tree", so the rewrite passes cannot
@@ -36,6 +36,53 @@ def walk_expr_subqueries(e: A.Expr, fn) -> None:
         for x in vs:
             if isinstance(x, A.Expr):
                 walk_expr_subqueries(x, fn)
+
+
+def rename_relations(sel: A.Select, mapping: dict) -> int:
+    """Replace base-relation references per ``mapping`` (recursive-CTE
+    materialization: CTE name -> temp table), mutating ``sel``.
+    Renamed refs keep the original name as their alias so qualified
+    column refs still resolve; CTE-local names shadow outer mappings.
+    Returns the number of references replaced."""
+    import dataclasses
+
+    count = [0]
+    local: set = set()
+    for name, _al, body in getattr(sel, "ctes", ()):
+        eff = {k: v for k, v in mapping.items() if k not in local}
+        if eff:
+            count[0] += rename_relations(body, eff)
+        local.add(name)
+    eff = {k: v for k, v in mapping.items() if k not in local}
+    if not eff:
+        return count[0]
+
+    def from_ref(r):
+        if isinstance(r, A.RelRef):
+            if r.name in eff:
+                count[0] += 1
+                return A.RelRef(eff[r.name], r.alias or r.name)
+            return r
+        if isinstance(r, A.JoinRef):
+            return dataclasses.replace(
+                r, left=from_ref(r.left), right=from_ref(r.right)
+            )
+        if isinstance(r, A.SubqueryRef):
+            count[0] += rename_relations(r.query, eff)
+            return r
+        return r
+
+    if sel.from_clause is not None:
+        sel.from_clause = from_ref(sel.from_clause)
+    for _op, sub in sel.set_ops:
+        count[0] += rename_relations(sub, eff)
+    for e in select_exprs(sel):
+        walk_expr_subqueries(
+            e, lambda q: count.__setitem__(
+                0, count[0] + rename_relations(q, eff)
+            )
+        )
+    return count[0]
 
 
 def relation_names(sel: A.Select, acc: set | None = None) -> set:

@@ -113,22 +113,42 @@ def _subst_field(v, binding):
     return v
 
 
-def expand_calls(node, funcs: dict, depth: int = 0):
+def expand_calls(node, funcs: dict, depth: int = 0, pl_eval=None):
     """Rewrite FuncCall nodes whose name is a registered SQL function.
-    Returns the (possibly replaced) node. (PL/pgSQL functions, which the
-    reference evaluates here, are refused at CREATE FUNCTION.)"""
+    Returns the (possibly replaced) node. Calls to PL/pgSQL functions
+    (fn.language == 'plpgsql') are EVALUATED through ``pl_eval`` —
+    their bodies are procedural, not inlinable — and replaced by the
+    result literal; their arguments must fold to constants first (the
+    reference evaluates them through SPI at executor time; this engine
+    runs them at rewrite time, so only constant calls qualify)."""
     if depth > MAX_DEPTH:
         raise FunctionError(
             "SQL function nesting exceeds the recursion limit"
         )
     if isinstance(node, A.FuncCall) and node.name in funcs:
         fn = funcs[node.name]
-        args = [expand_calls(a, funcs, depth) for a in node.args]
+        args = [
+            expand_calls(a, funcs, depth, pl_eval) for a in node.args
+        ]
         if len(args) != len(fn.argnames):
             raise FunctionError(
                 f"function {fn.name}() expects {len(fn.argnames)} "
                 f"arguments, got {len(args)}"
             )
+        if getattr(fn, "language", "sql") == "plpgsql":
+            if pl_eval is None:
+                raise FunctionError(
+                    f"plpgsql function {fn.name}() cannot run here"
+                )
+            vals = []
+            for a in args:
+                if not isinstance(a, A.Literal):
+                    raise FunctionError(
+                        f"plpgsql function {fn.name}() requires "
+                        "constant arguments"
+                    )
+                vals.append(a.value)
+            return A.Literal(pl_eval(fn, vals))
         binding = dict(zip(fn.argnames, args))
         for i, a in enumerate(args):
             binding[f"${i + 1}"] = a
@@ -139,12 +159,12 @@ def expand_calls(node, funcs: dict, depth: int = 0):
         else:
             inlined = A.ScalarSubquery(bound)
         # the body may itself call SQL functions
-        return expand_calls(inlined, funcs, depth + 1)
+        return expand_calls(inlined, funcs, depth + 1, pl_eval)
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
         changes = {}
         for f in dataclasses.fields(node):
             v = getattr(node, f.name)
-            nv = _walk_field(v, funcs, depth)
+            nv = _walk_field(v, funcs, depth, pl_eval)
             if nv is not v:
                 changes[f.name] = nv
         if changes:
@@ -155,14 +175,14 @@ def expand_calls(node, funcs: dict, depth: int = 0):
     return node
 
 
-def _walk_field(v, funcs, depth):
+def _walk_field(v, funcs, depth, pl_eval=None):
     if isinstance(v, (A.Expr, A.Statement, A.TableRef, A.SelectItem,
                       A.SortItem)):
-        return expand_calls(v, funcs, depth)
+        return expand_calls(v, funcs, depth, pl_eval)
     if isinstance(v, list):
-        out = [_walk_field(x, funcs, depth) for x in v]
+        out = [_walk_field(x, funcs, depth, pl_eval) for x in v]
         return out if any(a is not b for a, b in zip(out, v)) else v
     if isinstance(v, tuple):
-        out = tuple(_walk_field(x, funcs, depth) for x in v)
+        out = tuple(_walk_field(x, funcs, depth, pl_eval) for x in v)
         return out if any(a is not b for a, b in zip(out, v)) else v
     return v

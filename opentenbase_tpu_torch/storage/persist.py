@@ -618,12 +618,14 @@ class ClusterPersistence:
                 for gid, txn in c._prepared.items()
             },
             # what the reference's checkpoint also carries, empty: the
-            # port has no node groups, rebalance, partitions or
-            # materialized views. (SQL functions ride the WAL only, as
-            # in the reference's checkpoint.)
+            # port has no node groups, rebalance or materialized views.
+            # (SQL and PL/pgSQL functions ride the WAL only, as in the
+            # reference's checkpoint.)
             "groups": [],
             "rebalance": [],
-            "partitions": {},
+            "partitions": {
+                name: ps.spec for name, ps in c.partitions.items()
+            },
             "views": {name: text for name, (_q, text) in c.views.items()},
             "matviews": {},
             "users": dict(c.users),
@@ -648,7 +650,7 @@ class ClusterPersistence:
                     "primary_key": tm.primary_key,
                 },
                 "zone_cols": sorted(tm.zone_cols),
-                "foreign": None,
+                "foreign": tm.foreign,
             }
             for node in tm.node_indices:
                 store = c.stores[node].get(name)
@@ -813,7 +815,7 @@ class ClusterPersistence:
         g = int(meta.get("node_generation", 0))
         if g > c.node_generation:
             c.node_generation = g
-        for key in ("matviews", "partitions", "rebalance"):
+        for key in ("matviews", "rebalance"):
             if meta.get(key):
                 raise NotPorted(f"checkpoint with {key}")
         for g in meta.get("groups", []):
@@ -834,8 +836,6 @@ class ClusterPersistence:
         gen = meta.get("gen", 0)
         max_ts = 0
         for name, tmeta in meta["tables"].items():
-            if tmeta.get("foreign"):
-                raise NotPorted("foreign tables")
             schema = {k: _type_from_str(v) for k, v in tmeta["schema"].items()}
             spec = DistributionSpec(
                 DistStrategy(tmeta["strategy"]), tuple(tmeta["key_columns"]),
@@ -846,6 +846,10 @@ class ClusterPersistence:
             tm = c.catalog.get(name)
             apply_constraints(tm, tmeta.get("constraints"))
             tm.zone_cols.update(tmeta.get("zone_cols", []))
+            if tmeta.get("foreign"):
+                tm.foreign = dict(tmeta["foreign"])
+                tm.node_indices = tm.node_indices[:1]
+                continue  # no stores: its scan reads the source
             tm.node_indices = list(tmeta["nodes"])
             tm.locator.node_indices = list(tmeta["nodes"])
             for col, values in tmeta["dictionaries"].items():
@@ -881,6 +885,27 @@ class ClusterPersistence:
 
         for name, text in meta.get("views", {}).items():
             c.views[name] = (Parser(text).parse_select(), text)
+        from opentenbase_tpu_torch.plan.partition import PartitionSpec
+
+        for name, pclause in meta.get("partitions", {}).items():
+            if not c.catalog.has(name):
+                continue
+            tm = c.catalog.get(name)
+            ps = PartitionSpec.build(name, pclause,
+                                     tm.schema[pclause["column"]])
+            c.partitions[name] = ps
+            # the snapshot gave each child its own (equal) dictionaries;
+            # the children share the parent's again, which new rows
+            # encode against
+            for child in ps.children():
+                if not c.catalog.has(child):
+                    continue
+                cm = c.catalog.get(child)
+                cm.dictionaries = tm.dictionaries
+                for node in cm.node_indices:
+                    store = c.stores.get(node, {}).get(child)
+                    if store is not None:
+                        store.dictionaries = tm.dictionaries
         c.gts_advance_to(max_ts)
         # the in-doubt transactions this checkpoint holds are pending
         # again, their stable row ids mapped back to restored positions
@@ -917,11 +942,52 @@ class ClusterPersistence:
                 )
                 meta = c.catalog.create_table(header["name"], schema, spec)
                 apply_constraints(meta, header.get("constraints"))
+                # a partition shares its parent's dictionaries (the
+                # parent's record replays first); exact membership: a
+                # table whose name merely holds "$p" keeps its own
+                parent = header["name"].split("$p")[0]
+                if (parent != header["name"] and parent in c.partitions
+                        and header["name"]
+                        in c.partitions[parent].children()):
+                    meta.dictionaries = c.catalog.get(parent).dictionaries
                 c.create_table_stores(meta)
             elif op == "drop_table":
                 if c.catalog.has(header["name"]):
                     c.catalog.drop_table(header["name"])
                     c.drop_table_stores(header["name"])
+            elif op == "create_parent":
+                from opentenbase_tpu_torch.plan.partition import (
+                    PartitionSpec,
+                )
+
+                if not c.catalog.has(header["name"]):
+                    schema = {k: _type_from_str(v)
+                              for k, v in header["schema"].items()}
+                    pm = c.catalog.create_table(
+                        header["name"], schema, DistributionSpec(
+                            DistStrategy(header["strategy"]),
+                            tuple(header["key_columns"])))
+                    apply_constraints(pm, header.get("constraints"))
+                    pclause = header["partition"]
+                    c.partitions[header["name"]] = PartitionSpec.build(
+                        header["name"], pclause, schema[pclause["column"]])
+            elif op == "drop_parent":
+                c.partitions.pop(header["name"], None)
+                if c.catalog.has(header["name"]):
+                    c.catalog.drop_table(header["name"])
+            elif op == "add_partitions":
+                if header["name"] in c.partitions:
+                    c.extend_partitions(header["name"], header["count"])
+            elif op == "create_foreign_table":
+                if not c.catalog.has(header["name"]):
+                    schema = {k: _type_from_str(v)
+                              for k, v in header["schema"].items()}
+                    meta = c.catalog.create_table(
+                        header["name"], schema,
+                        DistributionSpec(DistStrategy.REPLICATED))
+                    meta.node_indices = meta.node_indices[:1]
+                    meta.foreign = dict(header["options"])
+                    meta.foreign["server"] = header["server"]
             elif op == "create_user":
                 c.users[header["name"]] = header["verifier"]
             elif op == "drop_user":
@@ -954,10 +1020,15 @@ class ClusterPersistence:
                 c.views.pop(header["name"], None)
             elif op == "create_function":
                 if header.get("language") == "plpgsql":
-                    raise NotPorted("PL/pgSQL functions")
-                from opentenbase_tpu_torch.plan.functions import SqlFunction
+                    from opentenbase_tpu_torch.plan.plpgsql import (
+                        PlpgsqlFunction as fn_cls,
+                    )
+                else:
+                    from opentenbase_tpu_torch.plan.functions import (
+                        SqlFunction as fn_cls,
+                    )
 
-                c.functions[header["name"]] = SqlFunction.create(
+                c.functions[header["name"]] = fn_cls.create(
                     header["name"], [tuple(a) for a in header["args"]],
                     header["rettype"], header["body"])
             elif op == "drop_function":

@@ -9,7 +9,8 @@ checkpoint or a datanode process. Every other view of the reference is
 refused by name (``NotPorted``) with the ROADMAP item that brings its
 subsystem.
 
-    pg_views, pg_proc          views and SQL functions
+    pg_views, pg_proc          views, SQL and PL/pgSQL functions
+    pg_partitions              each partition's range and live rows
     pg_prepared_xacts          the GTM's prepared registry
     pg_locks                   the lock table (lmgr.py)
     pgxc_node, pgxc_shard_map  the topology and the shard map
@@ -39,6 +40,22 @@ def _pg_proc(c):
          fn.rettype, getattr(fn, "language", "sql"), fn.body)
         for fn in c.functions.values()
     ]
+
+
+def _partitions(c):
+    rows = []
+    snap = c.gts.snapshot_ts()
+    for name, ps in c.partitions.items():
+        for i in range(ps.nparts):
+            child = ps.child(i)
+            live = 0
+            for n in c.catalog.get(child).node_indices:
+                store = c.stores.get(n, {}).get(child)
+                if store is not None:
+                    live += len(store.live_index(snap))
+            rows.append((name, child, i, int(ps.boundaries[i]),
+                         int(ps.boundaries[i + 1]), live))
+    return rows
 
 
 def _pg_views(c):
@@ -262,6 +279,10 @@ SYSTEM_VIEWS: dict[str, tuple] = {
                        _gtm_nodes),
     "pg_stat_wal": ({"stat": t.TEXT, "value": t.INT8}, _stat_wal),
     "pg_stat_2pc": ({"stat": t.TEXT, "value": t.INT8}, _2pc),
+    "pg_partitions": ({"parent": t.TEXT, "partition": t.TEXT,
+                       "index": t.INT4, "range_lo": t.INT8,
+                       "range_hi": t.INT8, "n_live_tup": t.INT8},
+                      _partitions),
 }
 
 # the reference's other views, each with the ROADMAP item that brings
@@ -271,7 +292,6 @@ NOT_PORTED: dict[str, str] = {
     "pg_cluster_health": "A.7", "pgxc_node_health": "A.7",
     "pg_matviews": "A.5", "pg_stat_matview": "A.5",
     "pg_publication": "A.5", "pg_subscription": "A.5",
-    "pg_partitions": "A.3",
     "pg_resgroup_role": "A.4", "pg_stat_wlm": "A.4",
     "pg_stat_wlm_queue": "A.4",
     "pg_stat_cluster_activity": "A.7",

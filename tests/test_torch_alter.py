@@ -1,7 +1,6 @@
 """TRUNCATE and ALTER TABLE (ADD COLUMN, DROP COLUMN, DISTRIBUTE BY) in
 the port, held against the reference on tests/test_alter.py's cases
-(ADD PARTITIONS and the partitioned tables' stay outside the port, by
-name): the same statements go to a reference and a port cluster
+(the partitioned tables' are tests/test_torch_partition.py's): the same statements go to a reference and a port cluster
 (tests/torch_pair.py), reads with the fused route on and off, every
 answer and error equal. Each DDL record recovers in both packages, from
 either one's data directory. After TRUNCATE, a redistribution or a DROP
@@ -11,7 +10,6 @@ reference's fused route answers from the old planes after the first two
 
 import pytest
 
-from opentenbase_tpu_torch import NotPorted
 from torch_pair import Pair, recover_clusters
 
 
@@ -122,11 +120,18 @@ def test_truncate_refused_while_a_transaction_holds_the_table(p):
     assert p.ps.query("select count(*) from t") == [(0,)]
 
 
-def test_add_partitions_refused_by_name(p):
-    p.ps.execute("create table m (id bigint, ts bigint) distribute by "
-                 "shard(id)")
-    with pytest.raises(NotPorted, match="ADD PARTITIONS"):
-        p.ps.execute("alter table m add partitions (2)")
+def test_add_partitions_answers_as_the_reference(p):
+    """Once refused by name: ADD PARTITIONS of a table that is not
+    partitioned fails as the reference's does, and of a partitioned one
+    extends its range (tests/test_torch_partition.py holds the rest)."""
+    p.both("create table m (id bigint, ts bigint) distribute by shard(id)")
+    p.raises("alter table m add partitions (2)", "not a partitioned table")
+    p.both("create table mp (id bigint, ts bigint) partition by range (ts)"
+           " begin (0) step (10) partitions (1) distribute by shard(id)")
+    p.raises("insert into mp values (1, 15)", "out of range")
+    p.both("alter table mp add partitions (2)")
+    p.both("insert into mp values (1, 15), (2, 25)")
+    assert p.query("select count(*) from mp$p2") == [(1,)]
 
 
 STALE = {

@@ -1,8 +1,8 @@
 """Column constraints and defaults (NOT NULL, PRIMARY KEY, DEFAULT),
 INSERT ... ON CONFLICT and DISTRIBUTE BY HASH / MODULO in the port, held
 against the reference on tests/test_constraints.py's cases (the
-sequence cases are tests/test_torch_sequences.py's; the partitioned
-table's stays outside the port): the same statements go to a reference
+sequence cases are tests/test_torch_sequences.py's, the partitioned
+table's tests/test_torch_partition.py's): the same statements go to a reference
 and a port cluster (tests/torch_pair.py), reads with the fused route on
 and off, every answer and error equal. Constraints survive a recovery
 and a checkpoint, and each package recovers the other's data

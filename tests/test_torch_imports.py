@@ -48,10 +48,11 @@ def test_package_imports_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
         "import opentenbase_tpu_torch\n"
-        "from opentenbase_tpu_torch import carry, config, engine, ha\n"
+        "from opentenbase_tpu_torch import carry, config, engine, fdw, ha\n"
         "from opentenbase_tpu_torch.ops import (\n"
         "    agg, cuda_build, expr, filter, join, radix_probe, scan_agg)\n"
-        "from opentenbase_tpu_torch.plan import batchplan\n"
+        "from opentenbase_tpu_torch.plan import batchplan, partition, plpgsql\n"
+        "from opentenbase_tpu_torch.sql import deparse\n"
         "from opentenbase_tpu_torch.executor import fused, fused_dag, local\n"
         "from opentenbase_tpu_torch.storage import compaction, persist\n"
         "from opentenbase_tpu_torch.net import client, pgwire, server\n"

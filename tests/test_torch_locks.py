@@ -5,8 +5,8 @@ cluster (``pkg``) with the same statements and the same expected
 outcomes; concurrency is real threads, each statement under the
 cluster's statement lock as the wire servers run it (a lock wait drops
 that lock). pg_unlock's functions, the pg_locks view and the victim
-markers are held in tests/test_torch_unlock.py; partitions are left out
-with their subsystem (ROADMAP A.3)."""
+markers are held in tests/test_torch_unlock.py, the partitioned table's
+case in tests/test_torch_partition.py."""
 
 import threading
 import time

@@ -542,14 +542,19 @@ def test_functions_before_a_checkpoint_are_lost_in_both(tmp_path):
         assert c.functions == {}
 
 
-def test_plpgsql_function_record_refused_by_name(tmp_path):
-    """A reference WAL holding a PL/pgSQL function's 'D' record is
-    refused by name at the port's recovery (the port takes LANGUAGE SQL
-    only)."""
+def test_plpgsql_function_record_recovered(tmp_path):
+    """A reference WAL holding a PL/pgSQL function's 'D' record (refused
+    by name before PL/pgSQL was ported) recovers in the port, and the
+    function answers as the reference's."""
     rd, _pd = _dirs(tmp_path)
     r = RefCluster(num_datanodes=2, shard_groups=32, data_dir=rd)
     r.session().execute(
         "create function fib(n bigint) returns bigint as '"
-        "declare a bigint := 0; begin return a; end' language plpgsql")
-    with pytest.raises(NotPorted, match="PL/pgSQL"):
-        Cluster.recover(rd, 2, 32, device="cpu")
+        "declare a bigint := 0; b bigint := 1; t bigint; begin "
+        "for i in 1 .. n loop t := a + b; a := b; b := t; end loop; "
+        "return a; end' language plpgsql")
+    c = Cluster.recover(rd, 2, 32, device="cpu")
+    assert c.functions["fib"].language == "plpgsql"
+    assert c.session().query("select fib(10)") == r.session().query(
+        "select fib(10)") == [(55,)]
+    c.close()

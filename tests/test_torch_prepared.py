@@ -1,9 +1,10 @@
 """PREPARE / EXECUTE / DEALLOCATE in the port (``Session._x_preparestmt``,
 ``_x_executestmt``, ``_x_deallocatestmt``), on tests/test_prepared_stmts.py's
 cases: each runs on a reference and a port session with the same
-statements, and answers, row counts and errors must be equal. Left out
-with their subsystems: the partitioned table's case (ROADMAP A.3) and
-the pg_stat_statements check of ``test_review_regressions`` (A.7). A
+statements, and answers, row counts and errors must be equal (the
+partitioned table's case is tests/test_torch_partition.py's). Left out
+with its subsystem: the pg_stat_statements check of
+``test_review_regressions`` (A.7). A
 prepared SELECT runs on a hot standby; a prepared write does not."""
 
 import pytest

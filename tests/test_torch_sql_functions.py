@@ -5,14 +5,14 @@ reference ``Cluster(num_datanodes=2)`` and a port ``Cluster(...,
 device="cpu")`` and every answer must be equal, exactly. An expression
 body inlines as the expression, a table-reading body as a scalar
 subquery (which the port's host route answers). pg_proc answers as
-the reference's; PL/pgSQL bodies stay refused by name. (The fixture's
-table has no PRIMARY KEY: the port refuses column constraints by
-name.)"""
+the reference's, PL/pgSQL functions listed (their bodies are
+tests/test_torch_plpgsql.py's). (The fixture's table has no PRIMARY
+KEY.)"""
 
 import pytest
 
 from opentenbase_tpu.engine import Cluster as RefCluster
-from opentenbase_tpu_torch import Cluster, NotPorted
+from opentenbase_tpu_torch import Cluster
 
 
 class Pair:
@@ -125,19 +125,19 @@ def test_function_in_dml_and_text(p):
         (1, "ADA!"), (2, None)]
 
 
-def test_pg_proc_and_plpgsql_refused_by_name(p):
-    """pg_proc lists the SQL functions as the reference's does; PL/pgSQL
-    bodies stay refused by name."""
+def test_pg_proc_lists_sql_and_plpgsql_functions(p):
+    """pg_proc lists the SQL and the PL/pgSQL functions as the
+    reference's does (PL/pgSQL was refused by name before it was
+    ported; tests/test_torch_plpgsql.py holds its bodies)."""
     p.both("create function h(a bigint) returns bigint as 'select a + 1'")
     assert ("h", "a bigint", "bigint", "sql") in p.both(
         "select proname, proargs, prorettype, prolang from pg_proc")
     p.both("select proname, prosrc from pg_proc order by proname")
-    body = ("create function fib(n bigint) returns bigint as '"
-            "declare a bigint := 0; begin return a; end' language plpgsql")
-    p.rs.execute(body)
-    with pytest.raises(NotPorted, match="PL/pgSQL"):
-        p.ps.execute(body)
-    assert "fib" not in p.ps.cluster.functions
+    p.both("create function fib(n bigint) returns bigint as '"
+           "declare a bigint := 0; begin return a; end' language plpgsql")
+    assert ("fib", "n bigint", "bigint", "plpgsql") in p.both(
+        "select proname, proargs, prorettype, prolang from pg_proc")
+    assert p.both("select fib(3)") == [(0,)]
 
 
 def test_functions_survive_recovery(tmp_path):

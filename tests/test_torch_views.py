@@ -3,12 +3,12 @@ against the reference: the same statements go to a reference
 ``Cluster(num_datanodes=2)`` and a port ``Cluster(..., device="cpu")``,
 and every answer, command tag and row count must be equal (exact
 equality: integers and decimals). The cases are tests/test_views.py's
-(but the partitioned table's, which the port refuses by name), the
+(the partitioned table's are tests/test_torch_partition.py's), the
 WITH cases of tests/test_views.py and tests/test_recursive_cte.py that
-do not recurse, and INSERT ... SELECT and CREATE TABLE AS across
-dictionaries, types and transactions. What stays refused raises
-``NotPorted`` by name: WITH RECURSIVE that recurses, the system views
-whose subsystem is not ported and materialized views."""
+do not recurse (those that do are tests/test_torch_recursive_cte.py's),
+and INSERT ... SELECT and CREATE TABLE AS across dictionaries, types and
+transactions. What stays refused raises ``NotPorted`` by name: the
+system views whose subsystem is not ported and materialized views."""
 
 import pytest
 
@@ -253,11 +253,16 @@ def test_recursive_keyword_without_recursion():
     "create table seq5 as with recursive t(n) as (select 1 union all"
     " select n+1 from t where n < 5) select n from t",
 ])
-def test_with_recursive_that_recurses_is_refused_by_name(sql):
+def test_with_recursive_that_recurses_answers_as_the_reference(sql):
+    """Once refused by name; the port now materializes the fixpoint as
+    the reference does (tests/test_torch_recursive_cte.py holds the
+    rest)."""
     pair = Pair()
-    pair.rs.execute(sql)  # the reference materializes its fixpoint
-    with pytest.raises(NotPorted, match="WITH RECURSIVE"):
-        pair.ps.execute(sql)
+    if sql.startswith("create"):
+        pair.both(sql)
+        assert pair.query("select count(*), max(n) from seq5") == [(5, 5)]
+    else:
+        assert pair.query(sql) == [(15,)]
 
 
 @pytest.fixture()
