@@ -345,6 +345,37 @@ neither jax nor the reference package.
    table by TPC-H Q11 (its value sum(ps_supplycost): partsupp holds no
    ps_availqty), INSERT and COPY FROM refused, the file rewritten and
    read anew.
+19. workload management, the datanodes' parallel workers, materialized
+   views and logical replication, every answer exact against numpy:
+   (a) in phase 5c's SF10 cluster after phase 18, a resource group of
+   concurrency 2 and queue depth 2 bound to a role: two sessions of the
+   role hold both slots with pg_sleep, four more send Q6 at once: two
+   queue and then run Q6 on K1 (one launch each), two are shed with
+   53000, and pg_stat_wlm's admitted, queued and shed counts equal what
+   the threads saw (the queue wait printed); a memory_limit between
+   Q6's and Q3's (spec) printed estimates sheds Q3 with 53200 and admits
+   Q6 (K1); a queued Q6 under statement_timeout = 500 fails with 57014.
+   (b) In phase 12 after its (a): Q6 and Q1 (spec) through the datanode
+   processes with dn_parallel_workers at its default 4 and at 1: each
+   datanode's parallel_fragments rises by one a fragment a run at 4 and
+   not at 1; first and warm ms of each, every process's memory. (c) In
+   phase 11 (a)'s durable cluster after its recovery, over its JSON
+   wire: Q1 (phase 4's, its aggregates named, no ORDER BY) as a
+   materialized view, populated on K1 (its rows and its aux partial
+   state: two launches, each held against the plain version at those
+   inputs) beside a second one with incremental = off; Q1 answered
+   through the rewrite (EXPLAIN shows it; K1 launches 0) and with
+   enable_matview_rewrite off (one launch); RF1's lineitem shape with
+   another seed COPYed from a .tbl file and the lines of 100 of its
+   order keys deleted: the
+   matview is stale and the rewrite skipped; REFRESH incremental
+   (pg_stat_matview's mode) beside the full one, both exact, their ms.
+   (d) Before (c)'s writes, a publication of lineitem and a second
+   durable Cluster(num_datanodes=2) on the card subscribed to phase 11's
+   JSON server with copy_data = false; once it applied (c)'s frames
+   (the apply lag and rows/s printed), its count(*) and Q6 on K1 equal
+   numpy's over (c)'s batch less its deleted lines; DROP SUBSCRIPTION,
+   the cluster closed.
 
 The numpy answers over 60 M rows and more (Q6, Q1 as the spec writes
 it, SF100's Q6 and Q3) are sums over row slices taken in threads, and
@@ -2928,31 +2959,60 @@ def time_k1_at(cluster, queries: dict, card: str) -> list:
     path hands it for each query (captured by one more warm run with the
     wrapper swapped for a recorder that delegates to it), held equal to
     the plain version there; as ``time_kernels`` for Q6 and Q1."""
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    kernel = sa.scan_agg
+    n0 = kernel.launches
+    rows = []
+    for q, sql in queries.items():
+        with k1_recorder() as calls:
+            cluster.session().query(sql)
+        if len(calls) != 1:
+            raise AssertionError(f"{q}: expected one K1 launch, saw "
+                                 f"{len(calls)}")
+        rows += k1_check_calls(q, calls, card)
+    kernel.launches = n0  # comparison and timing launches are not counted
+    return rows
+
+
+class k1_recorder:
+    """``with k1_recorder() as calls:`` swaps K1's wrapper for a recorder
+    that delegates to it and keeps each call's (args, kwargs); the
+    wrapper's own count goes on as before."""
+
+    def __enter__(self) -> list:
+        from opentenbase_tpu_torch.ops import scan_agg as sa
+
+        self.kernel = kernel = sa.scan_agg
+        self.calls: list = []
+
+        def record(*a, **kw):
+            self.calls.append((a, kw))
+            return kernel(*a, **kw)
+
+        record.launches = 0  # the wrapper counts under its module name
+        sa.scan_agg = record
+        return self.calls
+
+    def __exit__(self, *exc) -> None:
+        from opentenbase_tpu_torch.ops import scan_agg as sa
+
+        sa.scan_agg = self.kernel
+
+
+def k1_check_calls(name: str, calls: list, card: str) -> list:
+    """Each recorded K1 call run again through the kernel and its plain
+    version, exactly equal, and timed: one kernel-table row a call. The
+    caller puts back the launch count these runs add."""
     import torch
 
     from opentenbase_tpu_torch.ops import scan_agg as sa
 
     rate = hbm_rate(torch.cuda.get_device_name(0))
     kernel = sa.scan_agg
-    n0 = kernel.launches
     rows = []
-    for q, sql in queries.items():
-        calls = []
-
-        def record(*a, **kw):
-            calls.append((a, kw))
-            return kernel(*a, **kw)
-
-        record.launches = 0  # the wrapper counts under its module name
-        sa.scan_agg = record
-        try:
-            cluster.session().query(sql)
-        finally:
-            sa.scan_agg = kernel
-        if len(calls) != 1:
-            raise AssertionError(f"{q}: expected one K1 launch, saw "
-                                 f"{len(calls)}")
-        (args, kw), = calls
+    for i, (args, kw) in enumerate(calls):
+        q = name if len(calls) == 1 else f"{name} (call {i + 1})"
         ks, kc = kernel(*args, **kw)
         ps, pc = sa.scan_agg_plain(*args)
         torch.cuda.synchronize()
@@ -2972,7 +3032,6 @@ def time_k1_at(cluster, queries: dict, card: str) -> list:
               f"({nbytes} bytes at {rate / 1e12:.2f} TB/s; "
               f"{len(args[0])} columns; rows passed {int(kc.sum())}) "
               f"[{card}]", flush=True)
-    kernel.launches = n0  # comparison and timing launches are not counted
     return rows
 
 
@@ -6188,6 +6247,169 @@ def run_phase18(q3: dict, p17: dict, state: dict, args, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: workload management, parallel workers, matviews, replication
+# ---------------------------------------------------------------------------
+
+P19_HOLD_S = 1.5  # the two slot holders' pg_sleep in phase 19 (a)
+
+
+def _attempt(fn):
+    """(status, result, ms): "ok" or the SQLSTATE of the failure."""
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        return "ok", out, (time.perf_counter() - t0) * 1000
+    except Exception as e:  # noqa: BLE001 - the SQLSTATE is the result
+        state = getattr(e, "sqlstate", None)
+        if state is None:
+            raise
+        return state, str(e), (time.perf_counter() - t0) * 1000
+
+
+def _wait_for(pred, timeout_s: float, what: str) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def run_phase19_wlm(q3: dict, li: dict, card: str) -> dict:
+    """Phase 19 (a): a resource group of concurrency 2 and queue depth 2
+    in phase 5c's SF10 cluster after phase 18: two sessions of its role
+    hold the slots with pg_sleep, four more send Q6 at once (two queue
+    and run Q6 on K1, two are shed with 53000, and pg_stat_wlm counts
+    what the threads saw); a memory_limit between Q6's and Q3's
+    estimates sheds Q3 with 53200 and admits Q6; a queued Q6 under
+    statement_timeout 500 fails with 57014."""
+    import threading
+
+    from opentenbase_tpu_torch.engine import Session
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+    from opentenbase_tpu_torch.sql import parse
+    from opentenbase_tpu_torch.wlm.estimate import estimate_statement_memory
+
+    cluster = q3["cluster"]
+    admin = cluster.session()
+    want_q6 = expected_q6(li)
+    admin.execute("create resource group p19 with "
+                  "(concurrency = 2, queue_depth = 2)")
+    admin.execute("alter role p19 resource group p19")
+    g = cluster.wlm.groups["p19"]
+    out: dict = {"reads": {}}
+
+    def user():
+        return Session(cluster, user="p19")
+
+    def hold(n: int) -> list:
+        """``n`` sessions of the role asleep in the group's slots."""
+        ths = []
+        for _ in range(n):
+            u = user()
+            th = threading.Thread(target=lambda u=u: u.query(
+                f"select pg_sleep({P19_HOLD_S})"))
+            th.start()
+            ths.append(th)
+        _wait_for(lambda: g.running >= n, 30, "the slot holders")
+        return ths
+
+    # 1. two holders, then four Q6s at once
+    st0 = dict(g.stats)
+    holders = hold(2)
+    sa.scan_agg.launches = 0
+    results: list = [None] * 4
+    sessions = [user() for _ in range(4)]
+    gate = threading.Event()
+
+    def send(i):
+        gate.wait(30)
+        results[i] = _attempt(lambda: sessions[i].query(Q6))
+
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(4)]
+    for th in threads:
+        th.start()
+    gate.set()
+    _wait_for(lambda: g.stats["queued"] - st0["queued"]
+              + g.stats["shed"] - st0["shed"] >= 4, 30, "the four Q6s")
+    for th in threads + holders:
+        th.join(timeout=600)
+    k1 = sa.scan_agg.launches
+    states = sorted(r[0] for r in results)
+    if states != ["53000", "53000", "ok", "ok"]:
+        raise AssertionError(f"phase 19 (a): the four Q6s ended {states}")
+    for st, rows, _ms in results:
+        if st == "ok" and rows != want_q6:
+            raise AssertionError(f"phase 19 (a): queued Q6 {rows} != numpy "
+                                 f"{want_q6}")
+    if k1 != 2:
+        raise AssertionError(f"phase 19 (a): {k1} K1 launches for the two "
+                             "admitted Q6s, want one each")
+    view = admin.query("select admitted, queued, shed, timed_out, "
+                       "queue_wait_ms, peak_running from pg_stat_wlm "
+                       "where group_name = 'p19'")[0]
+    seen = (4, 2, 2, 0)  # the holders and the queued Q6s; queued; shed
+    got = (view[0] - st0["admitted"], view[1] - st0["queued"],
+           view[2] - st0["shed"], view[3] - st0["timed_out"])
+    if got != seen:
+        raise AssertionError(f"pg_stat_wlm {got} != the threads' {seen}")
+    waits = sorted(ms for st, _r, ms in results if st == "ok")
+    print(f"wlm: concurrency 2, queue depth 2; two pg_sleep({P19_HOLD_S}) "
+          f"holders, then 4 Q6s at once: 2 queued then ran exact on K1 "
+          f"(scan_agg launches {k1}, one each), 2 shed with 53000 in "
+          f"{max(ms for st, _r, ms in results if st != 'ok'):.3f} ms; "
+          f"pg_stat_wlm admitted/queued/shed/timed_out {got} equal to the "
+          f"threads'; queue wait {view[4] - st0['queue_wait_ms']:.3f} ms in "
+          f"all, queued Q6s end to end {waits[0]:.3f} / {waits[1]:.3f} ms "
+          f"[{card}]", flush=True)
+    out["queue"] = {"states": states, "k1": k1, "view": got,
+                    "queue_wait_ms": view[4] - st0["queue_wait_ms"],
+                    "queued_e2e_ms": waits}
+
+    # 2. a memory budget between Q6's and Q3's estimates
+    work_mem = admin.gucs["work_mem"]
+    est = {n: estimate_statement_memory(parse(sql)[0], cluster.catalog,
+                                        work_mem=work_mem)
+           for n, sql in (("Q6", Q6), ("Q3 (spec)", Q3_SPEC))}
+    if not est["Q6"] < est["Q3 (spec)"]:
+        raise AssertionError(f"phase 19 (a): estimates {est} leave no "
+                             "budget between Q6 and Q3")
+    limit = (est["Q6"] + est["Q3 (spec)"]) // 2
+    admin.execute(f"alter resource group p19 with (memory_limit = {limit})")
+    u = user()
+    st, msg, ms = _attempt(lambda: u.query(Q3_SPEC))
+    if st != "53200":
+        raise AssertionError(f"phase 19 (a): Q3 under the budget: {st} "
+                             f"{msg}")
+    out["reads"]["Q6 under the memory budget"] = p17_query(
+        "TPC-H Q6 admitted under a memory_limit between Q6's and Q3's "
+        "estimates", u, Q6, want_q6, card, scan_agg=1)
+    print(f"wlm: estimates Q6 {est['Q6']} bytes, Q3 (spec) "
+          f"{est['Q3 (spec)']} bytes (work_mem {work_mem}); memory_limit "
+          f"{limit}: Q3 shed with 53200 in {ms:.3f} ms, Q6 admitted and "
+          f"exact on K1 [{card}]", flush=True)
+    out["estimates"] = est
+
+    # 3. a queued Q6 under statement_timeout = 500
+    admin.execute("alter resource group p19 with (memory_limit = 0)")
+    holders = hold(2)
+    u = user()
+    u.execute("set statement_timeout = 500")
+    st, msg, ms = _attempt(lambda: u.query(Q6))
+    for th in holders:
+        th.join(timeout=600)
+    if st != "57014":
+        raise AssertionError(f"phase 19 (a): queued Q6 under "
+                             f"statement_timeout 500: {st} {msg}")
+    print(f"wlm: a queued Q6 under statement_timeout = 500 failed with "
+          f"57014 after {ms:.3f} ms in the queue ({msg}) [{card}]",
+          flush=True)
+    out["timeout_ms"] = ms
+    admin.execute("alter role p19 no resource group")
+    admin.execute("drop resource group p19")
+    return out
+
+
 def run_clickbench_full(args, device, card: str) -> dict:
     """Phase 10 (a): ClickBench's top-10 UserIDs over its published
     99 997 497 rows and 17 630 976 distinct UserIDs (make_hits' draws,
@@ -6496,6 +6718,13 @@ def run_durable(args, device, card: str) -> dict:
                           f"upload {r['ms']:.3f} ms, warm median "
                           f"{r['e2e']:.3f} ms over {args.repeats} [{card}]",
                           flush=True)
+                # phase 19 (c, d): matviews and a subscriber, recovered
+                t_p19 = time.perf_counter()
+                out["phase19"] = run_phase19_durable(
+                    rec, srv, c, state, args, device, card)
+                print(f"time: phase 19 (c, d) "
+                      f"{time.perf_counter() - t_p19:.1f} s [{card}]",
+                      flush=True)
         finally:
             srv.stop()
         rec.close()
@@ -6504,6 +6733,215 @@ def run_durable(args, device, card: str) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# phase 4's Q1 with its aggregates named and without its ORDER BY (a
+# scan of a matview cannot keep an order): the matview's definition
+Q1_MV = (
+    "select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty, "
+    "sum(l_extendedprice) as sum_price, "
+    "sum(l_extendedprice * l_discount) as sum_disc, "
+    "count(*) as count_order from lineitem "
+    "where l_shipdate <= date '1998-09-02' "
+    "group by l_returnflag, l_linestatus"
+)
+P19_DELETE_KEYS = 100  # order keys of (c)'s batch whose lines go
+
+
+def run_phase19_durable(cluster, srv, c, state: dict, args, device,
+                        card: str) -> dict:
+    """Phase 19 (c, d) in phase 11 (a)'s recovered durable cluster,
+    through its JSON server ``srv`` (connection ``c``): a publication of
+    lineitem and a second durable cluster on the card subscribed to it
+    without the initial copy; Q1 as a matview (populated on K1, K1 held
+    against its plain version there), answered through the rewrite
+    without K1 and with it off through K1; RF1's lineitem shape written
+    with another seed and the lines of 100 of its order keys deleted
+    (the rewrite skipped: stale); REFRESH incremental beside a full one,
+    each exact; the subscriber's count(*) and Q6 on K1 exact over the
+    batch less its deleted lines, with the apply lag."""
+    import shutil
+
+    import torch
+
+    from opentenbase_tpu_torch import Cluster
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    out: dict = {"k1_rows": [], "reads": {}}
+    sub_dir = os.path.join(args.data_dir, "p19_sub")
+    shutil.rmtree(sub_dir, ignore_errors=True)
+    os.makedirs(sub_dir)
+    sub = None
+    try:
+        # (d) 1: the publication, and the subscriber before (c)'s writes
+        c.execute("create publication p19 for table lineitem")
+        sub = Cluster(num_datanodes=2, data_dir=sub_dir, device=device)
+        ss = sub.session()
+        ss.execute(LINEITEM_DDL)
+        t0 = time.perf_counter()
+        ss.execute(f"create subscription p19s connection 'host={srv.host} "
+                   f"port={srv.port}' publication p19 "
+                   "with (copy_data = false)")
+        print(f"logical: publication p19 for lineitem; a durable "
+              f"Cluster(num_datanodes=2) on {device} subscribed without "
+              f"the initial copy in {(time.perf_counter() - t0) * 1000:.3f} "
+              f"ms (slot at WAL offset {sub.subscriptions['p19s'].lsn}) "
+              f"[{card}]", flush=True)
+
+        # (c) 1: the matview of Q1, populated on K1
+        n0 = sa.scan_agg.launches
+        with k1_recorder() as calls:
+            t0 = time.perf_counter()
+            c.execute(f"create materialized view p19_q1 as {Q1_MV}")
+            ms = (time.perf_counter() - t0) * 1000
+        if not calls:
+            raise AssertionError("the matview's populate launched no K1")
+        out["k1_rows"] += k1_check_calls("matview populate (Q1)", calls,
+                                         card)
+        sa.scan_agg.launches = n0
+        out["populate"] = {"ms": ms, "launches": len(calls)}
+        sa.scan_agg.launches = 0
+        c.execute("create materialized view p19_q1_full with "
+                  f"(incremental = off) as {Q1_MV}")
+        full_launches = sa.scan_agg.launches
+        want = sorted(expected_q1(state))
+        for mv in ("p19_q1", "p19_q1_full"):
+            if sorted(c.query(f"select * from {mv}")) != want:
+                raise AssertionError(f"{mv}: rows != numpy's Q1")
+        print(f"matview: p19_q1 = Q1 (phase 4's, aggregates named, no "
+              f"ORDER BY) populated exact in {ms:.3f} ms, K1 launched "
+              f"{len(calls)} times (its rows and its aux partial state), "
+              f"each equal to the plain version; p19_q1_full (incremental "
+              f"= off) {full_launches} launch [{card}]", flush=True)
+
+        # (c) 2: Q1 through the rewrite (no K1), and with it off (K1)
+        def q1_read(what: str, launches: int, rewrite: bool) -> dict:
+            lines = [r[0] for r in c.query(f"explain {Q1_MV}")]
+            if any("Matview rewrite" in ln for ln in lines) != rewrite:
+                raise AssertionError(f"{what}: EXPLAIN {lines[:2]}")
+            sa.scan_agg.launches = 0
+            t1 = time.perf_counter()
+            got = c.query(Q1_MV)
+            ms1 = (time.perf_counter() - t1) * 1000
+            if sorted(got) != want or sa.scan_agg.launches != launches:
+                raise AssertionError(
+                    f"{what}: {sorted(got)[:2]} vs {want[:2]}, "
+                    f"{sa.scan_agg.launches} K1 launches")
+            print(f"matview: {what}: exact, EXPLAIN "
+                  f"{'with' if rewrite else 'without'} the rewrite line, "
+                  f"scan_agg launches {launches}; {ms1:.3f} ms [{card}]",
+                  flush=True)
+            return {"ms": ms1, "launches": {"scan_agg": launches,
+                                            "radix_probe": 0}}
+
+        out["reads"]["Q1 through the rewrite"] = q1_read(
+            "Q1 answered through the rewrite", 0, True)
+        c.execute("set enable_matview_rewrite = off")
+        out["reads"]["Q1 rewrite off"] = q1_read(
+            "Q1 with enable_matview_rewrite = off", 1, False)
+        c.execute("set enable_matview_rewrite = on")
+
+        # (c) 3: RF1's lineitem shape with another seed, and 100 of its
+        # order keys' lines deleted
+        ins = make_lineitem(DURABLE_INSERT_ROWS, args.seed + 1900)
+        ins["l_orderkey"] = ins["l_orderkey"] + int(
+            state["l_orderkey"].max())
+        rng = np.random.default_rng(args.seed + 1901)
+        keys = np.sort(rng.choice(np.unique(ins["l_orderkey"]),
+                                  P19_DELETE_KEYS, replace=False))
+        # written as dbgen writes a refresh: a .tbl file COPYed in (phase
+        # 11 (a) times the INSERT form of the same shape)
+        tbl = os.path.join(args.data_dir, "p19_lineitem.tbl")
+        write_tbl(tbl, [
+            list(map(str, ins["l_orderkey"].tolist())),
+            list(map(_cents, ins["l_quantity"].tolist())),
+            list(map(_cents, ins["l_extendedprice"].tolist())),
+            list(map(_cents, ins["l_discount"].tolist())),
+            list(map(_date, ins["l_shipdate"].tolist())),
+            list(map(str, ins["l_returnflag"].tolist())),
+            list(map(str, ins["l_linestatus"].tolist()))])
+        t0 = time.perf_counter()
+        n_ins = c.execute(f"copy lineitem from '{tbl}' delimiter '|'"
+                          ).rowcount
+        os.remove(tbl)
+        if n_ins != DURABLE_INSERT_ROWS:
+            raise AssertionError(f"phase 19 (c): COPY wrote {n_ins} rows")
+        n_del = c.execute("delete from lineitem where l_orderkey in ("
+                          + ",".join(map(str, keys.tolist())) + ")").rowcount
+        t_written = time.perf_counter()
+        batch = _select(ins, ~np.isin(ins["l_orderkey"], keys))
+        if n_del != DURABLE_INSERT_ROWS - len(batch["l_orderkey"]):
+            raise AssertionError(f"phase 19 (c): deleted {n_del} lines")
+        after = _concat(state, batch)
+        want = sorted(expected_q1(after))
+        print(f"write: RF1-shaped batch of {DURABLE_INSERT_ROWS} rows "
+              f"(seed {args.seed + 1900}) by COPY FROM a .tbl file "
+              f"and a DELETE of {P19_DELETE_KEYS} of its order keys "
+              f"({n_del} lines) over the JSON wire in "
+              f"{(t_written - t0) * 1000:.3f} ms [{card}]", flush=True)
+        lines = [r[0] for r in c.query(f"explain {Q1_MV}")]
+        if any("Matview rewrite" in ln for ln in lines) or c.query(
+                "select is_fresh from pg_matviews where matviewname = "
+                "'p19_q1'") != [(False,)]:
+            raise AssertionError("phase 19 (c): a stale matview served")
+
+        # (d) 2: the subscriber applies the batch's frames
+        pub_end = cluster.persistence.wal.position
+        worker = sub.subscriptions["p19s"]
+        _wait_for(lambda: worker.lsn >= pub_end, 600,
+                  f"the subscriber to apply WAL offset {pub_end} "
+                  f"(last error {worker.last_error!r})")
+        lag_ms = (time.perf_counter() - t_written) * 1000
+
+        # (c) 4: REFRESH, incremental and full
+        refresh = {}
+        for mv, mode in (("p19_q1", "incremental"), ("p19_q1_full", "full")):
+            sa.scan_agg.launches = 0
+            t0 = time.perf_counter()
+            n_deltas = c.execute(f"refresh materialized view {mv}").rowcount
+            ms = (time.perf_counter() - t0) * 1000
+            got_mode = c.query("select last_mode from pg_stat_matview "
+                               f"where matviewname = '{mv}'")
+            if got_mode != [(mode,)]:
+                raise AssertionError(f"REFRESH {mv}: mode {got_mode}")
+            if sorted(c.query(f"select * from {mv}")) != want:
+                raise AssertionError(f"REFRESH {mv}: rows != numpy's Q1")
+            refresh[mode] = {"ms": ms, "deltas": n_deltas,
+                             "launches": sa.scan_agg.launches}
+        print(f"matview: REFRESH p19_q1 {refresh['incremental']['ms']:.3f} "
+              f"ms incremental ({refresh['incremental']['deltas']} delta "
+              f"rows from the WAL, scan_agg launches "
+              f"{refresh['incremental']['launches']}) beside p19_q1_full "
+              f"{refresh['full']['ms']:.3f} ms full (scan_agg launches "
+              f"{refresh['full']['launches']}); both exact against numpy's "
+              f"Q1 over the new arrays [{card}]", flush=True)
+        out["refresh"] = refresh
+        out["reads"]["Q1 through the rewrite after REFRESH"] = q1_read(
+            "Q1 through the rewrite after REFRESH", 0, True)
+
+        # (d) 2: the subscriber's rows
+        n_rows = DURABLE_INSERT_ROWS + n_del
+        n_live = len(batch["l_orderkey"])
+        if ss.query("select count(*) from lineitem") != [(n_live,)]:
+            raise AssertionError("phase 19 (d): the subscriber's count")
+        out["reads"]["subscriber Q6"] = p17_query(
+            "TPC-H Q6 on the subscriber (the batch less its deleted lines)",
+            ss, Q6, expected_q6(batch), card, scan_agg=1)
+        print(f"logical: the subscriber applied (c)'s frames (WAL offset "
+              f"{pub_end}) {lag_ms:.3f} ms after they committed: "
+              f"{n_rows} row changes ({n_rows / lag_ms * 1000:.1f} rows/s); "
+              f"count(*) {n_live} and Q6 on K1 exact [{card}]", flush=True)
+        out["apply"] = {"lag_ms": lag_ms, "rows": n_rows}
+        ss.execute("drop subscription p19s")
+    finally:
+        if sub is not None:
+            w = sub.subscriptions.get("p19s")
+            if w is not None:
+                w.stop()
+            sub.close()
+        shutil.rmtree(sub_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -7007,6 +7445,46 @@ def wait_replicas(cluster, standby, card: str, label: str) -> dict:
     return {"wal_end": pos, "lag_bytes": lag, "s": took}
 
 
+def run_phase19_parallel(cluster, s, ans: dict, args, card: str) -> dict:
+    """Phase 19 (b), in phase 12 after its (a): Q6 and Q1 as the spec
+    writes it through the datanode processes with dn_parallel_workers
+    at its default 4 and at 1, each exact; each datanode's
+    parallel_fragments rises by one a fragment a run at 4 and not at
+    1. First and warm ms of each, then every process's memory."""
+    def counts() -> list:
+        return [ch.rpc({"op": "ping"})["dml_stats"].get(
+            "parallel_fragments", 0)
+            for _n, ch in sorted(cluster.dn_channels.items())]
+
+    out: dict = {"queries": {}, "memory": {}}
+    t0 = time.perf_counter()
+    for k in (4, 1):
+        s.execute(f"set dn_parallel_workers = {k}")
+        for name, sql in (("Q6", Q6), ("Q1 (spec)", Q1_SPEC)):
+            n0 = counts()
+            r = dn_query(f"TPC-H {name} through the datanodes, "
+                         f"dn_parallel_workers {k}", s, sql,
+                         equal_to(name, ans[name]), args, card)
+            runs = 1 + r["repeats"]
+            rose = [b - a for a, b in zip(n0, counts())]
+            if rose != [runs if k > 1 else 0] * len(rose):
+                raise AssertionError(
+                    f"{name} at {k} workers: parallel_fragments rose "
+                    f"{rose} over {runs} runs")
+            r["parallel_fragments"] = rose
+            out["queries"][f"topology {name} ({k} workers)"] = r
+            print(f"parallel: TPC-H {name}, dn_parallel_workers {k}: "
+                  f"first {r['first_ms']:.3f} ms, warm {r['e2e']:.3f} ms; "
+                  f"parallel_fragments rose {rose} over {runs} runs "
+                  f"[{card}]", flush=True)
+        out["memory"][k] = memory_report(
+            f"after phase 19 (b) at {k} workers", cluster, card)
+    s.execute("reset dn_parallel_workers")
+    print(f"time: phase 19 (b) {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
 def dn_query(name: str, s, sql: str, check, args, card: str) -> dict:
     """One query on the host route with every fragment in the datanode
     processes: exact (``check``), K1 and K2 launched 0 times here; its
@@ -7206,6 +7684,8 @@ def run_topology(tables: dict, args, device, card: str,
             len(ans["Q1 (spec)"]), card, fused=False, scan_agg=0,
             radix_probe=0, remote=True)
         out["memory"]["after (a)"] = memory_report("after (a)", cluster, card)
+        # phase 19 (b): the datanodes' row-block workers, 4 and 1
+        out["parallel"] = run_phase19_parallel(cluster, s, ans, args, card)
 
         # (b) the fused route answers on the coordinator's own stores
         s.execute("set enable_fused_execution = on")
@@ -8259,8 +8739,11 @@ def main(argv=None) -> int:
     # phase 18: partitioned tables, WITH RECURSIVE, PL/pgSQL and foreign
     # tables, after phase 17
     phase18 = run_phase18(q3_state, phase17, state16, args, card)
-    del state16, phase17["rf1_orders"], phase17["lineitem"]
     done("phase 18")
+    # phase 19 (a): workload management in the same cluster, after 18
+    phase19 = run_phase19_wlm(q3_state, phase17["lineitem"], card)
+    del state16, phase17["rf1_orders"], phase17["lineitem"]
+    done("phase 19 (a)")
     # phase 12 reuses phase 5c's arrays and numpy's answers at the end
     q3_tables, q3_answers = q3_state.pop("tables"), q3_state.pop("answers")
     del q3_state
@@ -8312,9 +8795,10 @@ def main(argv=None) -> int:
     frag = {**topk["Q3 spec"].pop("fragment"),
             **topk["ClickBench"].pop("fragment"), **phase9["fragment"],
             **chunked}
+    p19d = durable["phase19"]
     k1_rows = (topk["ClickBench"].pop("k1_rows") + refresh.pop("k1_rows")
                + sf100.pop("k1_rows") + phase16["k1_rows"]
-               + phase17["k1_rows"] + phase18["k1_rows"])
+               + phase17["k1_rows"] + phase18["k1_rows"] + p19d["k1_rows"])
     sf100_rows_n, windows = sf100.pop("rows"), sf100.pop("windows")
     frag.update(sf100)
     frag.update(host)
@@ -8325,11 +8809,19 @@ def main(argv=None) -> int:
     topk.update(phase16["topk"])
     for q, r in {**durable["queries"], **topology["queries"],
                  **phase15, **phase16["reads"], **phase17["reads"],
-                 **phase18["reads"],
+                 **phase18["reads"], **phase19["reads"], **p19d["reads"],
+                 **topology["parallel"]["queries"],
                  **p17_ssb, "topology EXPLAIN ANALYZE Q1 (spec)":
                  topology["explain"]}.items():
         for k, n in r["launches"].items():
             path_launches[k][q] = n
+    path_launches["scan_agg"]["phase 19 (a): the two queued Q6s"] = (
+        phase19["queue"]["k1"])
+    path_launches["scan_agg"]["phase 19 (c): matview populate"] = (
+        p19d["populate"]["launches"])
+    for mode, r in p19d["refresh"].items():
+        path_launches["scan_agg"][f"phase 19 (c): REFRESH {mode}"] = (
+            r["launches"])
     path_launches["radix_probe"]["pgwire SSB Q1.1"] = pgwire["launches"][
         "radix_probe"]
     path_launches["scan_agg"]["HTAP loop"] = htap["launches"]["scan_agg"]
@@ -8356,7 +8848,10 @@ def main(argv=None) -> int:
             "library_ms": None,
             "path_launches": path_launches["scan_agg"],
         })
-    k1_src = {**frag, **phase17["reads"], **phase18["reads"]}
+    k1_src = {**frag, **phase17["reads"], **phase18["reads"],
+              **{r["query"]: {"launches": {
+                  "scan_agg": p19d["populate"]["launches"]}}
+                 for r in p19d["k1_rows"]}}
     for r in k1_rows:
         kernels.append({
             "name": f"scan_agg ({r['query']} shape)",

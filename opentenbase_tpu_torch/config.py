@@ -155,14 +155,26 @@ GUCS: dict = {
     # device cache compacts before a refresh and keeps the flat
     # >8-entry MVCC full-plane cutoff (bench.py's HTAP baseline)
     "enable_delta_scan": (_bool, True),
+    # within-fragment parallel workers a datanode process runs a
+    # fragment's base scan on (executor/local.py run_fragment_parallel)
+    "dn_parallel_workers": (_int, 4),
+    # workload management (wlm/): every statement's memory estimate is
+    # at least work_mem (bytes); resource_group overrides the role's
+    # binding ('' = ALTER ROLE ... RESOURCE GROUP, else default_group);
+    # wlm_queue_timeout caps the admission-queue wait when
+    # statement_timeout is 0 (0 = no cap)
+    "work_mem": (_int, 65536),
+    "resource_group": (_str, ""),
+    "wlm_queue_timeout": (_duration, 0),
+    # answer a SELECT equal to a fresh materialized view's defining
+    # query from the view (matview/rewrite.py)
+    "enable_matview_rewrite": (_bool, True),
 }
 
 # the reference's settings the port does not act on yet, each with the
 # ROADMAP item that brings its subsystem
 NOT_ACTED_ON: dict = {
     "ssl_cert_file": "A.9", "ssl_key_file": "A.9",
-    "dn_parallel_workers": "A.4", "work_mem": "A.4",
-    "resource_group": "A.4", "wlm_queue_timeout": "A.4",
     "log_min_messages": "A.7", "log_destination": "A.7",
     "log_directory": "A.7", "metrics_port": "A.7",
     "auto_explain_min_duration_ms": "A.7",
@@ -174,7 +186,6 @@ NOT_ACTED_ON: dict = {
     "gtm_standby_addr": "A.9", "read_routing": "A.9",
     "max_staleness": "A.9", "replica_read_fallback": "A.9",
     "replica_read_wait_ms": "A.9",
-    "enable_matview_rewrite": "A.5",
     "fault_injection": "A.6",
     "rebalance_rate_limit": "A.8",
     "autovacuum": "A.7", "autovacuum_naptime_s": "A.7",

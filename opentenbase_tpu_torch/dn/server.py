@@ -27,9 +27,12 @@ A datanode process is
 
 Ops: ping, query (a replica read), exec_fragment, cancel_fragment,
 exch_put, exch_take, 2pc_prepare, 2pc_commit, 2pc_abort, 2pc_list,
-lease_grant, promote, repl_repoint. Refused by name: the failpoints
-(fault_*), the log and trace rings (log_fetch, trace_fetch), rebalance
-(rebalance_*) and within-fragment parallel workers (``parallel`` > 1).
+lease_grant, promote, repl_repoint. A fragment with ``parallel`` > 1
+splits a qualifying partial aggregate's base scan over that many
+row-block workers (executor/local.py ``run_fragment_parallel``;
+``parallel_fragments`` counts them). Refused by name: the failpoints
+(fault_*), the log and trace rings (log_fetch, trace_fetch) and
+rebalance (rebalance_*).
 
 Run as a module (on cuda:0 unless ``--device`` says otherwise; with no
 CUDA and no ``--device cpu`` it refuses to start):
@@ -764,14 +767,13 @@ class DNServer:
 
     def _exec_fragment_inner(self, msg: dict, node: int) -> dict:
         from opentenbase_tpu_torch import types as t
-        from opentenbase_tpu_torch.errors import NotPorted
         from opentenbase_tpu_torch.executor.dist import concat_batches
-        from opentenbase_tpu_torch.executor.local import LocalExecutor
+        from opentenbase_tpu_torch.executor.local import (
+            LocalExecutor,
+            run_fragment_parallel,
+        )
         from opentenbase_tpu_torch.plan import serde
 
-        if int(msg.get("parallel", 1)) > 1:
-            raise NotPorted("within-fragment parallel workers "
-                            "(run_fragment_parallel)")
         t_start = time.perf_counter()
         token = msg.get("cancel_token")
 
@@ -817,23 +819,37 @@ class DNServer:
             # with a fragment's read
             with c._exec_lock:
                 cancel_check()
-                ex = LocalExecutor(
-                    c.catalog, inputs, stores=c.stores.get(node, {}),
-                    snapshot_ts=msg.get("snapshot_ts"),
-                    subquery_values=subquery_values, device=self.device,
-                    fold_on_read=not msg.get("delta_scan", True))
-                part = None
-                if mo is not None and mo["kind"] == "redistribute":
-                    # slots on the device, as the in-process loop does
-                    part = ex.run_plan_partitioned(
-                        plan, mo["hash_positions"], len(mo["dest"]))
-                out, counts = (ex.run_plan(plan), None) if part is None \
-                    else part
+                fold = not msg.get("delta_scan", True)
+                out, counts, ex = None, None, None
+                k = int(msg.get("parallel", 1))
+                if k > 1:
+                    # within-fragment row-block workers; None: the shape
+                    # or the size does not qualify, the serial path runs
+                    out = run_fragment_parallel(
+                        c.catalog, c.stores.get(node, {}),
+                        msg.get("snapshot_ts"), plan, inputs,
+                        subquery_values, k, device=self.device,
+                        fold_on_read=fold)
+                    if out is not None:
+                        self._bump("parallel_fragments")
+                if out is None:
+                    ex = LocalExecutor(
+                        c.catalog, inputs, stores=c.stores.get(node, {}),
+                        snapshot_ts=msg.get("snapshot_ts"),
+                        subquery_values=subquery_values, device=self.device,
+                        fold_on_read=fold)
+                    part = None
+                    if mo is not None and mo["kind"] == "redistribute":
+                        # slots on the device, as the in-process loop does
+                        part = ex.run_plan_partitioned(
+                            plan, mo["hash_positions"], len(mo["dest"]))
+                    out, counts = ((ex.run_plan(plan), None) if part is None
+                                   else part)
             run_ms = (time.perf_counter() - t_run) * 1000.0
-            info = {"pruned_blocks": ex.zone_pruned_blocks,
-                    "total_blocks": ex.zone_total_blocks,
-                    "h2d_bytes": ex.h2d_bytes, "wait_ms": wait_ms,
-                    "run_ms": run_ms}
+            info = {"pruned_blocks": ex.zone_pruned_blocks if ex else 0,
+                    "total_blocks": ex.zone_total_blocks if ex else 0,
+                    "h2d_bytes": ex.h2d_bytes if ex else 0,
+                    "wait_ms": wait_ms, "run_ms": run_ms}
             cancel_check()
             if mo is not None:
                 # producer side: push the parts peer to peer; the

@@ -81,6 +81,24 @@ replays the WAL tail. ``cluster._exec_lock`` is the wire servers'
 statement lock (net/), ``cluster._fused_lock`` serializes the fused
 executors' shared device state between concurrent readers.
 
+Workload management (wlm/): ``create`` / ``alter`` / ``drop resource
+group ... with (concurrency, memory_limit, queue_depth, priority)`` and
+``alter role ... resource group``, logged as ``wlm_state`` records; an
+autocommit resource-consuming statement is admitted, queued (its
+statement-lock slot parked) or shed (53000, 53200; 57014 when its wait
+outlives statement_timeout or wlm_queue_timeout) before any fragment is
+dispatched, on either route (``Session._wlm_admit``). Materialized
+views (matview/): ``create`` / ``refresh [concurrently]`` / ``drop
+materialized view``, refreshed incrementally from the WAL's deltas
+where the shape allows, a SELECT equal to a fresh one's definition
+answered from it (``enable_matview_rewrite``); their rows change only
+through REFRESH (42809), and a table or view they read is dropped only
+with CASCADE (2BP01). Committed writes advance ``table_version``, the
+rewrite's evidence of staleness. Logical replication
+(storage/logical.py): ``create`` / ``drop publication`` and
+``subscription`` (an apply worker pulling ``pg_logical_slot_changes``
+and ``pg_logical_sync`` from the publisher's JSON server).
+
 Snapshots and commit timestamps come from ``cluster.gts``, the GTM
 (gtm/): an in-process ``GTSServer``, or with ``gts_backend="native"``
 the C++ server as its own process behind ``NativeGTS``. Its hybrid
@@ -525,6 +543,27 @@ class Cluster:
         # parent is a catalog-only shell, each partition a real table
         # named parent$pK)
         self.partitions: dict = {}
+        # materialized views (matview/): name -> MatviewDef over a real
+        # backing table (and an aux partial-state table for incremental
+        # aggregates); each table's committed-write counter, the
+        # rewrite's evidence of staleness (bump_table_versions)
+        self.matviews: dict = {}
+        self.table_version: dict[str, int] = {}
+        # coordinator-only throwaway tables (a refresh's delta tables):
+        # their fragments never ship to a datanode process
+        self.local_tables: set = set()
+        # logical replication (storage/logical.py): publication name ->
+        # {"tables", "nodes"}; subscription name -> its apply worker;
+        # publication -> the commit timestamp of the oldest frame its
+        # consumer has not confirmed (VACUUM keeps dead rows from there)
+        self.publications: dict[str, dict] = {}
+        self.subscriptions: dict = {}
+        self._slot_horizon_ts: dict[str, Optional[int]] = {}
+        # workload management (wlm/): resource groups and the admission
+        # controller every session consults before it dispatches
+        from opentenbase_tpu_torch.wlm import WorkloadManager
+
+        self.wlm = WorkloadManager()
         # (name, ts) of barriers read back from a WAL, carried into
         # each checkpoint: the reference's recovery reads them there
         self.barriers: list = []
@@ -607,9 +646,21 @@ class Cluster:
                 gts_backend=gts_backend)
         try:
             c.persistence.recover(until_barrier=until_barrier)
+            # matview catalog fix-up: the replayed otb_matview_state rows
+            # folded back into the defs, and each one's freshness decided
+            # from the WAL tail past its refresh (matview/defs.py)
+            if c.matviews:
+                from opentenbase_tpu_torch.matview.defs import load_state
+
+                load_state(c)
         except BaseException:
             c.close()
             raise
+        # the apply workers of every subscription start again (the
+        # logical-replication launcher); they retry until the publisher
+        # answers
+        for worker in c.subscriptions.values():
+            worker.start()
         return c
 
     def close(self) -> None:
@@ -619,6 +670,8 @@ class Cluster:
         if self._compaction_stop is not None:
             self._compaction_stop()
             self._compaction_stop = None
+        for worker in list(self.subscriptions.values()):
+            worker.stop()
         for node in list(self.dn_channels):
             self.detach_datanode(node)
         if self.persistence is not None:
@@ -1139,6 +1192,7 @@ class Cluster:
         meta = self.catalog.get(name)
         self.create_table_stores(meta)
         self.forget_device_table(name)
+        self.bump_table_versions({name})
 
     # -- ALTER TABLE (tablecmds.c, redistrib.c), shared with WAL redo ----
     def _alter_targets(self, name: str) -> list[str]:
@@ -1270,6 +1324,20 @@ class Cluster:
             self.forget_device_table(child)
         self.partitions[name] = new_spec
 
+    def bump_table_versions(self, tables) -> None:
+        """Advance the committed-write counter of every named table, the
+        matview rewrite's evidence of staleness: from commit stamping,
+        WAL redo and content-replacing DDL. A write to a partition
+        child bumps its parent too (a matview over a partitioned table
+        tracks the parent's name)."""
+        tables = set(tables)
+        for parent, spec in self.partitions.items():
+            if parent not in tables and not tables.isdisjoint(
+                    spec.children()):
+                tables.add(parent)
+        for tb in tables:
+            self.table_version[tb] = self.table_version.get(tb, 0) + 1
+
     def compact_deltas(self) -> int:
         """Fold every store's pending delta batches into its base arrays
         (positions kept, so the device cache stays valid): the
@@ -1328,19 +1396,33 @@ class Session:
         # the last statement's recursive CTEs: name -> iterations of its
         # recursive term (the last one yielded no row)
         self.recursive_iterations: dict[str, int] = {}
+        # workload management (wlm/): the admission ticket of the
+        # statement in flight; "queued" while it waits in a queue; the
+        # text pg_stat_wlm_queue shows for it
+        self._wlm_ticket = None
+        self.state = "idle"
+        self.last_query = ""
+        # True while the matview machinery runs its own statements
+        # (populate, refresh): no serving-path rewrite (a refresh reads
+        # the base tables, never the view) and no write guard
+        self._matview_internal = False
+
+    def close(self) -> None:
+        """Backend exit: a workload-management slot still held goes
+        back now. Idempotent."""
+        ticket = self._wlm_ticket
+        if ticket is not None:
+            self._wlm_ticket = None
+            ticket.release()
+        self.state = "closed"
 
     def execute(self, sql: str) -> Result:
+        self.last_query = sql
         results = [self._execute_one(s) for s in parse(sql)]
         return results[-1] if results else Result("EMPTY")
 
     def query(self, sql: str) -> list[tuple]:
         return self.execute(sql).rows
-
-    _REFUSED = {
-        A.CreateMatview: "materialized views",
-        A.RefreshMatview: "materialized views",
-        A.DropMatview: "materialized views",
-    }
 
     # the reference's FROM-less admin functions: the port runs those
     # whose subsystem it has, and refuses each other one by name with
@@ -1348,14 +1430,13 @@ class Session:
     _ADMIN_FUNCS = frozenset({
         "pg_resolve_indoubt", "pg_unlock_execute", "pg_unlock_check_deadlock",
         "pg_unlock_check_dependency", "pg_current_wal_lsn", "pg_stat_reset",
+        "pg_publication_tables", "pg_logical_slot_changes", "pg_logical_sync",
     })
     # those that change nothing: the wire servers run them as reads
     _READONLY_ADMIN_FUNCS = frozenset({"pg_sleep"})
     _ADMIN_REFUSED = {
         "pg_clean_execute": "A.9", "pg_audit_add_fga_policy": "A.10",
-        "pg_audit_drop_fga_policy": "A.10",
-        "pg_logical_slot_changes": "A.5", "pg_publication_tables": "A.5",
-        "pg_logical_sync": "A.5", "pg_basebackup": "A.8",
+        "pg_audit_drop_fga_policy": "A.10", "pg_basebackup": "A.8",
         "pg_fault_inject": "A.6", "pg_fault_clear": "A.6",
         "pg_rebalance_wait": "A.8", "pg_add_coordinator": "A.9",
         "pg_remove_coordinator": "A.9", "pg_coordinators": "A.9",
@@ -1472,12 +1553,28 @@ class Session:
             A.ExplainStmt: self._x_explainstmt,
             A.CopyStmt: self._x_copystmt,
             A.CreateForeignTable: self._x_createforeigntable,
+            A.CreateMatview: self._x_creatematview,
+            A.RefreshMatview: self._x_refreshmatview,
+            A.DropMatview: self._x_dropmatview,
+            A.CreatePublication: self._x_createpublication,
+            A.DropPublication: self._x_droppublication,
+            A.CreateSubscription: self._x_createsubscription,
+            A.DropSubscription: self._x_dropsubscription,
+            A.CreateResourceGroup: self._x_createresourcegroup,
+            A.DropResourceGroup: self._x_dropresourcegroup,
+            A.AlterRoleResourceGroup: self._x_alterroleresourcegroup,
         }.get(type(stmt))
         if fn is None:
-            raise NotPorted(self._REFUSED.get(
-                type(stmt), f"statement {type(stmt).__name__}"))
+            raise NotPorted(f"statement {type(stmt).__name__}")
+        ticket = None
         try:
-            if isinstance(stmt, A.Select):
+            if not self._matview_internal:
+                self._matview_write_guard(stmt)
+                stmt = self._maybe_matview_rewrite(stmt)
+            if isinstance(stmt, A.Select) and self._admin_call(stmt):
+                # admission first: pg_sleep and the other admin calls
+                # are statements a resource group gates
+                ticket = self._wlm_admit(stmt)
                 admin = self._maybe_admin_function(stmt)
                 if admin is not None:
                     return admin
@@ -1488,6 +1585,11 @@ class Session:
                 stmt = self._rewrite(stmt)
                 if isinstance(stmt, Result):  # a partition fan-out ran
                     return stmt
+            # workload management: admitted, queued or shed before any
+            # fragment is dispatched, on either route; the ticket goes
+            # back on every exit path
+            if ticket is None:
+                ticket = self._wlm_admit(stmt)
             txn = self.txn
             if txn is None or not isinstance(
                 stmt, (A.Insert, A.Update, A.Delete, A.CopyStmt)
@@ -1512,6 +1614,500 @@ class Session:
             raise SQLError(str(e), "40P01")
         except (LockTimeout, LockNotAvailable) as e:
             raise SQLError(str(e)) from None
+        finally:
+            if ticket is not None:
+                self._wlm_ticket = None
+                ticket.release()
+
+    # -- workload management (wlm/) ---------------------------------------
+    # matview population and refresh run their defining query, and are
+    # admitted like any read (charged by that query's plan)
+    _WLM_GATED = (
+        A.Select, A.Insert, A.Update, A.Delete, A.CopyStmt,
+        A.RefreshMatview, A.CreateMatview,
+    )
+
+    @staticmethod
+    def _admin_call(stmt: A.Select) -> bool:
+        """A FROM-less SELECT of one function call (an admin function,
+        pg_sleep, a sequence call)."""
+        return (stmt.from_clause is None and len(stmt.items) == 1
+                and isinstance(stmt.items[0].expr, A.FuncCall))
+
+    def _wlm_group_name(self) -> str:
+        """The session's resource group: the ``resource_group`` setting,
+        else its role's binding (ALTER ROLE ... RESOURCE GROUP), else
+        default_group."""
+        gname = self.gucs.get("resource_group") or ""
+        if gname:
+            return str(gname)
+        return self.cluster.wlm.group_for_role(self.user)
+
+    def _wlm_admit(self, stmt: A.Statement):
+        """Admission control before any fragment is dispatched, for an
+        autocommit resource-consuming statement: one inside an explicit
+        transaction holds locks, and parking it could deadlock against
+        the statement it waits on; a nested statement rides its
+        caller's ticket; a SELECT of system views only stays reachable
+        from a saturated group. A statement that must queue parks its
+        statement-lock slot (and a writer's table mutexes) for the wait,
+        which is bounded by what is left of statement_timeout, else by
+        wlm_queue_timeout. Returns the ticket (the caller releases it)
+        or None."""
+        if self._wlm_ticket is not None or self.txn is not None:
+            return None
+        if not isinstance(stmt, self._WLM_GATED):
+            return None
+        if isinstance(stmt, A.Select):
+            from opentenbase_tpu_torch.plan.astwalk import relation_names
+
+            try:
+                refs = relation_names(stmt)
+            except Exception:
+                refs = set()
+            if refs and refs <= _SYSTEM_VIEWS:
+                return None
+        mgr = self.cluster.wlm
+        gname = self._wlm_group_name()
+        group = mgr.groups.get(gname)
+        if group is None:
+            raise SQLError(f'resource group "{gname}" does not exist',
+                           "42704")
+        est = 0
+        if group.memory_limit > 0:
+            from opentenbase_tpu_torch.wlm.estimate import (
+                estimate_statement_memory,
+            )
+
+            est_stmt = stmt
+            if isinstance(stmt, A.RefreshMatview):
+                d = self.cluster.matviews.get(stmt.name)
+                if d is not None:
+                    est_stmt = d.query
+            est = estimate_statement_memory(
+                est_stmt, self.cluster.catalog,
+                work_mem=self.gucs.get("work_mem", 0))
+        timeout_ms = 0
+        if group.limited():
+            if self._stmt_deadline is not None:
+                timeout_ms = max(int(
+                    (self._stmt_deadline - time.monotonic()) * 1000), 1)
+            else:
+                timeout_ms = int(self.gucs.get("wlm_queue_timeout") or 0)
+        ticket = mgr.try_admit(gname, est)
+        if ticket is None:
+            from opentenbase_tpu_torch.utils.rwlock import parked
+
+            prev_state, self.state = self.state, "queued"
+            try:
+                with parked(self.cluster._exec_lock):
+                    ticket = mgr.admit(gname, est, timeout_ms,
+                                       session_id=self.session_id,
+                                       query=self.last_query)
+            finally:
+                self.state = prev_state
+        self._wlm_ticket = ticket
+        return ticket
+
+    # -- materialized views (matview/) ------------------------------------
+    def _matview_write_guard(self, stmt: A.Statement) -> None:
+        """A matview's rows, its aux table's and the refresh-state
+        catalog's change only through REFRESH: any other write or DDL
+        against them fails with 42809 (wrong_object_type)."""
+        c = self.cluster
+        names: list = []
+        if isinstance(stmt, (A.Insert, A.Update, A.Delete)):
+            names = [stmt.table]
+        elif isinstance(stmt, A.CopyStmt) and stmt.direction == "from":
+            names = [stmt.table]
+        elif isinstance(stmt, (A.TruncateTable, A.DropTable)):
+            names = list(stmt.names)
+        elif isinstance(stmt, A.AlterTable):
+            names = [stmt.table]
+        if not names:
+            return
+        from opentenbase_tpu_torch.matview.defs import STATE_TABLE
+
+        for name in names:
+            if name == STATE_TABLE and c.catalog.has(STATE_TABLE):
+                raise SQLError(
+                    f'"{STATE_TABLE}" is the materialized-view '
+                    "refresh-state catalog", "42809")
+        if not c.matviews:
+            return
+        aux_owners = {d.aux_table: nm for nm, d in c.matviews.items()}
+        for name in names:
+            if name in c.matviews:
+                if isinstance(stmt, A.DropTable):
+                    raise SQLError(
+                        f'"{name}" is a materialized view — use '
+                        "DROP MATERIALIZED VIEW", "42809")
+                raise SQLError(
+                    f'cannot change materialized view "{name}"', "42809")
+            if name in aux_owners:
+                raise SQLError(
+                    f'"{name}" is the auxiliary state table of '
+                    f'materialized view "{aux_owners[name]}"', "42809")
+
+    def _maybe_matview_rewrite(self, stmt: A.Statement) -> A.Statement:
+        """The serving path (``enable_matview_rewrite``): a SELECT equal
+        to a fresh matview's defining query scans the matview instead.
+        Never inside a transaction block (its snapshot may predate the
+        last refresh, and its own writes are not in the view). EXPLAIN
+        shows the rewrite as a prelude line over the scan; only EXPLAIN
+        ANALYZE, which serves rows, counts as a hit."""
+        c = self.cluster
+        if not c.matviews or not self.gucs.get("enable_matview_rewrite",
+                                               True):
+            return stmt
+        if self.txn is not None:
+            return stmt
+        sel = stmt.query if isinstance(stmt, A.ExplainStmt) else stmt
+        if not isinstance(sel, A.Select):
+            return stmt
+        from opentenbase_tpu_torch.matview.rewrite import try_rewrite
+
+        hit = try_rewrite(c, sel)
+        if hit is None:
+            return stmt
+        name, new_sel = hit
+        d = c.matviews[name]
+        if isinstance(stmt, A.ExplainStmt):
+            if stmt.analyze:
+                d.stats["rewrites"] = d.stats.get("rewrites", 0) + 1
+            self._explain_prelude.append(
+                f'Matview rewrite: query served from "{name}" '
+                f"(lsn {d.last_refresh_lsn})")
+            stmt.query = new_sel
+            return stmt
+        d.stats["rewrites"] = d.stats.get("rewrites", 0) + 1
+        return new_sel
+
+    def _dependent_matviews(self, relname: str) -> list[str]:
+        """Matviews whose defining queries read ``relname``, views
+        included (the pg_depend edge DROP honors)."""
+        from opentenbase_tpu_torch.plan.astwalk import relation_names
+
+        return sorted(
+            nm for nm, d in self.cluster.matviews.items()
+            if nm != relname and (relname in d.base_tables
+                                  or relname in relation_names(d.query)))
+
+    def _drop_dependents(self, relname: str) -> None:
+        """CASCADE: every view and matview depending on ``relname``,
+        dependents first."""
+        for v in self._dependent_views(relname):
+            if v in self.cluster.views:
+                self._drop_dependents(v)
+                self._x_dropview(A.DropView(v, if_exists=True))
+        for m in self._dependent_matviews(relname):
+            if m in self.cluster.matviews:
+                self._x_dropmatview(
+                    A.DropMatview(m, if_exists=True, cascade=True))
+
+    def _matview_dist(self, options: dict, schema: dict) -> DistributionSpec:
+        """A matview's distribution: WITH (distribute = ...), else
+        ROUNDROBIN (derived rows have no natural key)."""
+        strat = (options.get("distribute") or "").lower()
+        if not strat:
+            return DistributionSpec(DistStrategy.ROUNDROBIN)
+        keys = list(options.get("distribute_keys") or [])
+        for k in keys:
+            if k not in schema:
+                raise SQLError(f'distribution key "{k}" is not an output '
+                               "column of the materialized view")
+        return self._dist_spec_named(strat, keys)
+
+    def _x_creatematview(self, stmt: A.CreateMatview) -> Result:
+        """CREATE MATERIALIZED VIEW: the backing table of the query's
+        output columns, an aux partial-state table for an incremental
+        aggregate, both populated (with the otb_matview_state row) in
+        one transaction read at one pinned snapshot."""
+        from opentenbase_tpu_torch.matview import defs as _mv
+        from opentenbase_tpu_torch.matview.refresh import (
+            PinnedSnapshot,
+            apply_refresh,
+            build_partials_select,
+        )
+
+        c = self.cluster
+        name = stmt.name
+        self._reserved_relation(name)
+        if self.txn is not None:
+            raise SQLError("CREATE MATERIALIZED VIEW cannot run inside a "
+                           "transaction block", "25001")
+        if name in c.matviews:
+            if stmt.if_not_exists:
+                return Result("CREATE MATERIALIZED VIEW")
+            raise SQLError(f'materialized view "{name}" already exists',
+                           "42P07")
+        if c.catalog.has(name) or name in c.views or name in c.partitions:
+            if stmt.if_not_exists:
+                return Result("CREATE MATERIALIZED VIEW")
+            raise SQLError(f'relation "{name}" already exists', "42P07")
+        _mv.ensure_state_table(self)
+        p = c.persistence
+        lsn0 = p.wal.position if p is not None else 0
+        # one read snapshot pinned next to the lsn0 capture, and the
+        # versions with them: a base commit during the populate leaves
+        # the matview stale (matview/refresh.py PinnedSnapshot)
+        pin = PinnedSnapshot(self)
+        refresh_ts = pin.snapshot_ts
+        versions0 = dict(c.table_version)
+        prev_internal = self._matview_internal
+        self._matview_internal = True
+        try:
+            batch = self._run_select(stmt.query)
+            schema: dict = {}
+            for colname, col in batch.columns.items():
+                if colname in schema or not colname:
+                    raise SQLError("CREATE MATERIALIZED VIEW needs "
+                                   "unique, named output columns")
+                schema[colname] = col.type
+            if not schema:
+                raise SQLError(
+                    "CREATE MATERIALIZED VIEW needs at least one column")
+            dist = self._matview_dist(stmt.options, schema)
+            meta = c.catalog.create_table(name, schema, dist)
+            c.create_table_stores(meta)
+            d = _mv.register(c, name, stmt.text, stmt.options)
+            aux_rows = None
+            if d.wants_incremental() and d.shape.kind == "agg":
+                aux_batch = self._run_select(build_partials_select(d.shape))
+                aux_schema = {cn: cb.type
+                              for cn, cb in aux_batch.columns.items()}
+                aux_meta = c.catalog.create_table(
+                    d.aux_table, aux_schema,
+                    DistributionSpec(DistStrategy.ROUNDROBIN))
+                c.create_table_stores(aux_meta)
+                d.aux_schema = {cn: _type_to_str(ty)
+                                for cn, ty in aux_schema.items()}
+                aux_rows = {cn: cb.to_python() for cn, cb in zip(
+                    aux_meta.schema, aux_batch.columns.values())}
+            pin.release()  # the reads are done; the apply commits alone
+            self._log_ddl({
+                "op": "create_matview", "name": name, "text": stmt.text,
+                "options": dict(stmt.options),
+                "schema": {k: _type_to_str(v) for k, v in schema.items()},
+                "strategy": dist.strategy.value,
+                "key_columns": list(dist.key_columns),
+                "aux_schema": d.aux_schema,
+            })
+            d.last_refresh_lsn = lsn0
+            d.last_refresh_ts = refresh_ts
+            mv_rows = {cn: cb.to_python() for cn, cb in zip(
+                meta.schema, batch.columns.values())}
+            try:
+                apply_refresh(
+                    self, d, meta,
+                    {"deletes": [], "mv_rows": mv_rows,
+                     "aux_rows": aux_rows, "row_deletes": []},
+                    _mv.state_row(d))
+            except Exception:
+                # the populate failed: the half-made matview goes
+                c.matviews.pop(name, None)
+                for tb in (name, d.aux_table):
+                    if c.catalog.has(tb):
+                        c.catalog.drop_table(tb)
+                        c.drop_table_stores(tb)
+                self._log_ddl({"op": "drop_matview", "name": name})
+                raise
+        finally:
+            pin.release()
+            self._matview_internal = prev_internal
+        d.base_versions = {tb: versions0.get(tb, 0) for tb in d.base_tables}
+        return Result("CREATE MATERIALIZED VIEW", rowcount=batch.nrows)
+
+    def _x_refreshmatview(self, stmt: A.RefreshMatview) -> Result:
+        d = self.cluster.matviews.get(stmt.name)
+        if d is None:
+            raise SQLError(
+                f'materialized view "{stmt.name}" does not exist', "42P01")
+        if self.txn is not None:
+            raise SQLError("REFRESH MATERIALIZED VIEW cannot run inside a "
+                           "transaction block", "25001")
+        from opentenbase_tpu_torch.matview.refresh import refresh_matview
+
+        info = refresh_matview(self, d, concurrently=stmt.concurrently)
+        return Result("REFRESH MATERIALIZED VIEW", rowcount=info["deltas"])
+
+    def _x_dropmatview(self, stmt: A.DropMatview) -> Result:
+        from opentenbase_tpu_torch.matview.defs import STATE_TABLE
+
+        c = self.cluster
+        d = c.matviews.get(stmt.name)
+        if d is None:
+            if stmt.if_exists:
+                return Result("DROP MATERIALIZED VIEW")
+            raise SQLError(
+                f'materialized view "{stmt.name}" does not exist', "42P01")
+        if self.txn is not None:
+            raise SQLError("DROP MATERIALIZED VIEW cannot run inside a "
+                           "transaction block", "25001")
+        deps = self._dependent_views(stmt.name)
+        mv_deps = self._dependent_matviews(stmt.name)
+        if (deps or mv_deps) and not stmt.cascade:
+            what = ", ".join(sorted(deps + mv_deps))
+            raise SQLError(
+                f'cannot drop materialized view "{stmt.name}": other '
+                f"objects ({what}) depend on it", "2BP01")
+        if stmt.cascade:
+            self._drop_dependents(stmt.name)
+        c.matviews.pop(stmt.name, None)
+        for tb in (stmt.name, d.aux_table):
+            if c.catalog.has(tb):
+                c.catalog.drop_table(tb)
+                c.drop_table_stores(tb)
+        if c.catalog.has(STATE_TABLE):
+            prev_internal = self._matview_internal
+            self._matview_internal = True
+            try:
+                self._execute_one(A.Delete(
+                    table=STATE_TABLE,
+                    where=A.BinOp("=", A.ColumnRef("mv", None),
+                                  A.Literal(stmt.name))))
+            finally:
+                self._matview_internal = prev_internal
+        self._log_ddl({"op": "drop_matview", "name": stmt.name})
+        return Result("DROP MATERIALIZED VIEW")
+
+    # -- logical replication (publicationcmds.c, subscriptioncmds.c) -------
+    def _x_createpublication(self, stmt: A.CreatePublication) -> Result:
+        c = self.cluster
+        if stmt.name in c.publications:
+            raise SQLError(f'publication "{stmt.name}" already exists')
+        if stmt.tables is not None:
+            for tb in stmt.tables:
+                if not c.catalog.has(tb):
+                    raise SQLError(f'table "{tb}" does not exist')
+        nodes = None
+        if stmt.nodes is not None:
+            nodes = [c.nodes.get(n).mesh_index for n in stmt.nodes]
+        pub = {"tables": stmt.tables, "nodes": nodes}
+        c.publications[stmt.name] = pub
+        # a slot with no confirmed position keeps every dead row from
+        # now on out of VACUUM's reach
+        c._slot_horizon_ts[stmt.name] = c.gts.snapshot_ts()
+        self._log_ddl({"op": "create_publication", "name": stmt.name,
+                       **pub})
+        return Result("CREATE PUBLICATION")
+
+    def _x_droppublication(self, stmt: A.DropPublication) -> Result:
+        c = self.cluster
+        if stmt.name not in c.publications:
+            raise SQLError(f'publication "{stmt.name}" does not exist')
+        del c.publications[stmt.name]
+        c._slot_horizon_ts.pop(stmt.name, None)
+        self._log_ddl({"op": "drop_publication", "name": stmt.name})
+        return Result("DROP PUBLICATION")
+
+    def _x_createsubscription(self, stmt: A.CreateSubscription) -> Result:
+        """CREATE SUBSCRIPTION: an apply worker pulling the publisher's
+        decoded frames over the JSON wire. With copy_data = off the
+        slot is created now, at the publisher's current WAL position,
+        so nothing committed after this statement is skipped."""
+        from opentenbase_tpu_torch.storage.logical import (
+            SubscriptionWorker,
+            apply_frame,
+            ensure_state_table,
+        )
+
+        c = self.cluster
+        if stmt.name in c.subscriptions:
+            raise SQLError(f'subscription "{stmt.name}" already exists')
+        worker = SubscriptionWorker(c, stmt.name, stmt.conninfo,
+                                    stmt.publication)
+        if not stmt.copy_data:
+            worker.synced = True
+            try:
+                client = worker._connect()
+                try:
+                    worker.lsn = int(client.query(
+                        "select pg_current_wal_lsn()")[0][0])
+                finally:
+                    client.close()
+            except Exception as e:
+                raise SQLError(
+                    f"could not connect to the publisher: {e}") from None
+            ensure_state_table(self)
+            apply_frame(self, {"changes": []},
+                        slot_state=(stmt.name, worker.lsn, True))
+        c.subscriptions[stmt.name] = worker
+        self._log_ddl({"op": "create_subscription", "name": stmt.name,
+                       "conninfo": stmt.conninfo,
+                       "publication": stmt.publication,
+                       "copy_data": stmt.copy_data})
+        worker.start()
+        return Result("CREATE SUBSCRIPTION")
+
+    def _x_dropsubscription(self, stmt: A.DropSubscription) -> Result:
+        worker = self.cluster.subscriptions.pop(stmt.name, None)
+        if worker is None:
+            raise SQLError(f'subscription "{stmt.name}" does not exist')
+        # no join: under a wire server this statement holds the
+        # statement lock the worker may wait on; it sees the stop flag
+        # under that lock and applies nothing more
+        worker.stop(join=False)
+        self._log_ddl({"op": "drop_subscription", "name": stmt.name})
+        return Result("DROP SUBSCRIPTION")
+
+    # -- DDL: workload management (wlm/) -----------------------------------
+    @staticmethod
+    def _wlm_config_sqlerror(e) -> SQLError:
+        """A WlmConfigError as the class a client library expects: 42704
+        undefined_object, 42710 duplicate_object, else 22023."""
+        msg = str(e)
+        if "does not exist" in msg:
+            state = "42704"
+        elif "already exists" in msg:
+            state = "42710"
+        else:
+            state = "22023"
+        return SQLError(msg, state)
+
+    def _log_wlm_state(self) -> None:
+        """Resource-group DDL is logged as the whole configuration, so
+        its replay is idempotent against checkpoints."""
+        self._log_ddl({"op": "wlm_state",
+                       "payload": self.cluster.wlm.dump_state()})
+
+    def _x_createresourcegroup(self, stmt: A.CreateResourceGroup) -> Result:
+        from opentenbase_tpu_torch.wlm import WlmConfigError
+
+        mgr = self.cluster.wlm
+        try:
+            if stmt.alter:
+                mgr.alter_group(stmt.name, stmt.options)
+            else:
+                mgr.create_group(stmt.name, stmt.options)
+        except WlmConfigError as e:
+            raise self._wlm_config_sqlerror(e) from None
+        self._log_wlm_state()
+        return Result("ALTER RESOURCE GROUP" if stmt.alter
+                      else "CREATE RESOURCE GROUP")
+
+    def _x_dropresourcegroup(self, stmt: A.DropResourceGroup) -> Result:
+        from opentenbase_tpu_torch.wlm import WlmConfigError
+
+        try:
+            dropped = self.cluster.wlm.drop_group(
+                stmt.name, if_exists=stmt.if_exists)
+        except WlmConfigError as e:
+            raise self._wlm_config_sqlerror(e) from None
+        if dropped:
+            self._log_wlm_state()
+        return Result("DROP RESOURCE GROUP")
+
+    def _x_alterroleresourcegroup(
+            self, stmt: A.AlterRoleResourceGroup) -> Result:
+        from opentenbase_tpu_torch.wlm import WlmConfigError
+
+        try:
+            self.cluster.wlm.bind_role(stmt.role, stmt.group)
+        except WlmConfigError as e:
+            raise self._wlm_config_sqlerror(e) from None
+        self._log_wlm_state()
+        return Result("ALTER ROLE")
 
     def _rewrite(self, stmt: A.Statement, explain: bool = False):
         """The rewrite passes before a statement runs, in the
@@ -1723,6 +2319,9 @@ class Session:
             p = c.persistence
             pos = p.wal.position if p is not None else 0
             return Result("SELECT", [(int(pos),)], ["lsn"], 1)
+        if e.name in ("pg_publication_tables", "pg_logical_slot_changes",
+                      "pg_logical_sync"):
+            return self._logical_function(e)
         if e.name == "pg_unlock_execute":
             gxids = c.locks.execute_unlock()
             return Result("SELECT", [(g,) for g in gxids],
@@ -1733,6 +2332,90 @@ class Session:
         rows = c.locks.check_dependency()  # pg_unlock_check_dependency
         return Result("SELECT", rows, ["waiter_gxid", "holder_gxid",
                                        "node_index", "relation"], len(rows))
+
+    def _published_tables(self, pub: dict) -> list[str]:
+        if pub["tables"] is not None:
+            return list(pub["tables"])
+        return [nm for nm in self.cluster.catalog.table_names()
+                if nm not in _SYSTEM_VIEWS and not nm.startswith("otb_")]
+
+    def _logical_function(self, e: A.FuncCall) -> Result:
+        """The publisher's side of logical replication, called by the
+        subscriber over the wire: a publication's tables; its decoded
+        commit frames from a slot offset (pgoutput's role), with a
+        trailing fast-forward row past activity on other tables; and
+        the initial sync, every published live row with the WAL offset
+        the copy is consistent with, in one statement."""
+        import json
+
+        from opentenbase_tpu_torch.storage.logical import decode_changes
+
+        c = self.cluster
+        sig = {"pg_publication_tables": "pg_publication_tables(publication)",
+               "pg_logical_slot_changes":
+                   "pg_logical_slot_changes(publication, lsn)",
+               "pg_logical_sync": "pg_logical_sync(publication)"}[e.name]
+        nargs = 2 if e.name == "pg_logical_slot_changes" else 1
+        if len(e.args) != nargs:
+            raise SQLError(sig)
+        pubname = str(self._const_arg(e.args[0]))
+        pub = c.publications.get(pubname)
+        if pub is None:
+            raise SQLError(f'publication "{pubname}" does not exist')
+
+        def _default(o):
+            item = getattr(o, "item", None)
+            return item() if item is not None else str(o)
+
+        if e.name == "pg_publication_tables":
+            tables = self._published_tables(pub)
+            return Result("SELECT", [(tb,) for tb in tables],
+                          ["tablename"], len(tables))
+        if e.name == "pg_logical_slot_changes":
+            lsn = int(self._const_arg(e.args[1]))
+            try:
+                next_off, frames = decode_changes(c, pub, lsn)
+            except ValueError as ve:
+                raise SQLError(str(ve)) from None
+            # the poll's lsn is the consumer's confirmed position; the
+            # first frame past it is the oldest dead row decode may
+            # still need (the vacuum horizon)
+            c._slot_horizon_ts[pubname] = (
+                frames[0]["commit_ts"] if frames else None)
+            rows = [(int(fr["next_off"]), json.dumps(
+                {"commit_ts": fr["commit_ts"], "changes": fr["changes"]},
+                default=_default)) for fr in frames]
+            if next_off > lsn and (not rows or rows[-1][0] < next_off):
+                rows.append((int(next_off), ""))
+            return Result("SELECT", rows, ["next_lsn", "frame"], len(rows))
+        p = c.persistence
+        out = [("", str(int(p.wal.position if p else 0)))]
+        snap = self._snapshot()
+        for tb in self._published_tables(pub):
+            if not c.catalog.has(tb):
+                continue
+            meta = c.catalog.get(tb)
+            # the publication's scope, as streaming decode keeps it
+            if meta.dist.is_replicated:
+                src_nodes = [min(meta.node_indices)]
+            elif pub["nodes"] is not None:
+                src_nodes = [n for n in meta.node_indices
+                             if n in pub["nodes"]]
+            else:
+                src_nodes = meta.node_indices
+            for node in src_nodes:
+                store = c.stores.get(node, {}).get(tb)
+                if store is None or store.nrows == 0:
+                    continue
+                idx = store.live_index(snap)
+                if not len(idx):
+                    continue
+                data = store.take_batch(idx).to_pydict()
+                for r in range(len(idx)):
+                    out.append((tb, json.dumps(
+                        {col: data[col][r] for col in data},
+                        default=_default)))
+        return Result("SELECT", out, ["tablename", "payload"], len(out))
 
     def _pg_sleep(self, e: A.FuncCall) -> Result:
         """pg_sleep(seconds), in short slices so the statement's
@@ -2214,6 +2897,9 @@ class Session:
                 if tw.del_idx:
                     store.stamp_xmax(
                         np.asarray(tw.del_idx, dtype=np.int64), commit_ts)
+        # the committed-write counters (the matview rewrite's staleness)
+        self.cluster.bump_table_versions(
+            {tb for tabs in txn.writes.values() for tb in tabs})
         p = self.cluster.persistence if wal_log else None
         if p is not None:
             with self.cluster._commit_active_mu:
@@ -2433,13 +3119,19 @@ class Session:
             if name in self.cluster.views:
                 raise SQLError(f'"{name}" is a view (use DROP VIEW)')
             deps = self._dependent_views(name)
-            if deps and stmt.cascade:
-                self._drop_dependent_views(name)
+            mv_deps = self._dependent_matviews(name)
+            if (deps or mv_deps) and stmt.cascade:
+                self._drop_dependents(name)
                 deps = self._dependent_views(name)
+                mv_deps = self._dependent_matviews(name)
             if deps:
                 raise SQLError(
                     f'cannot drop table "{name}": view(s) '
                     f"{', '.join(sorted(deps))} depend on it", "2BP01")
+            if mv_deps:
+                raise SQLError(
+                    f'cannot drop table "{name}": materialized '
+                    f"view(s) {', '.join(mv_deps)} depend on it", "2BP01")
             if not cat.has(name):
                 if stmt.if_exists:
                     continue
@@ -2472,6 +3164,10 @@ class Session:
             raise SQLError(f'role "{stmt.name}" does not exist')
         del self.cluster.users[stmt.name]
         self._log_ddl({"op": "drop_user", "name": stmt.name})
+        # a dangling binding would block DROP RESOURCE GROUP for ever
+        if stmt.name in self.cluster.wlm.role_bindings:
+            self.cluster.wlm.bind_role(stmt.name, None)
+            self._log_wlm_state()
         return Result("DROP ROLE")
 
     def _x_createindex(self, stmt: A.CreateIndex) -> Result:
@@ -2602,17 +3298,30 @@ class Session:
         that transaction's identifiers). Row positions are rewritten, so
         the device cache rebuilds the table on its next read, and a
         checkpoint is taken (redo starts from the renumbered rows)."""
-        oldest = self.cluster.gts.snapshot_ts()
-        cat = self.cluster.catalog
+        c = self.cluster
+        oldest = c.gts.snapshot_ts()
+        # a logical slot's horizon: dead rows newer than its oldest
+        # unconfirmed frame are still decode's old tuples
+        for ts in c._slot_horizon_ts.values():
+            if ts is not None:
+                oldest = min(oldest, ts - 1)
+        cat = c.catalog
         names = [stmt.table] if stmt.table else cat.table_names()
         removed = 0
         for name in names:
             if not cat.has(name):
                 raise SQLError(f'relation "{name}" does not exist')
+            # an incremental matview resolves deleted rows against their
+            # dead versions: those newer than its last refresh stay
+            t_oldest = oldest
+            for d in c.matviews.values():
+                if (d.wants_incremental() and name in d.base_tables
+                        and d.last_refresh_ts):
+                    t_oldest = min(t_oldest, d.last_refresh_ts)
             for n in cat.get(name).node_indices:
-                store = self.cluster.stores[n].get(name)
+                store = c.stores[n].get(name)
                 if store is not None and hasattr(store, "vacuum"):
-                    removed += store.vacuum(oldest)
+                    removed += store.vacuum(t_oldest)
         if removed and self.cluster.persistence is not None:
             self.cluster.persistence.checkpoint()
         return Result("VACUUM", rowcount=removed)
@@ -2972,7 +3681,7 @@ class Session:
 
         if isinstance(stmt, A.Select):
             return rewrite_select(stmt, parts)
-        if isinstance(stmt, A.CreateTableAs) or (
+        if isinstance(stmt, (A.CreateTableAs, A.CreateMatview)) or (
                 isinstance(stmt, A.Insert) and stmt.query is not None):
             rewrite_select(stmt.query, parts)
             return stmt
@@ -3087,7 +3796,7 @@ class Session:
         try:
             if isinstance(stmt, A.Select):
                 expand_ctes(stmt)
-            elif isinstance(stmt, A.CreateTableAs):
+            elif isinstance(stmt, (A.CreateTableAs, A.CreateMatview)):
                 expand_ctes(stmt.query)
             elif isinstance(stmt, (A.Update, A.Delete, A.Insert)):
                 if isinstance(stmt, A.Insert) and stmt.query is not None:
@@ -3134,7 +3843,7 @@ class Session:
                     raise SQLError(f'cannot {verb} view "{stmt.table}"')
                 if stmt.where is not None:
                     _expr_subqueries(stmt.where, views, 0)
-            elif isinstance(stmt, A.CreateTableAs):
+            elif isinstance(stmt, (A.CreateTableAs, A.CreateMatview)):
                 rewrite_views(stmt.query, views)
         except ViewRecursionError as e:
             raise SQLError(str(e)) from None
@@ -4465,7 +5174,10 @@ class Session:
             node_generation=self.cluster.node_generation,
             delta_scan=self._delta_scan(),
             instrument_ops=instrument,
-            local_only_tables=self._sysviews | self._foreign_tables(),
+            local_only_tables=(self._sysviews | self._foreign_tables()
+                               | self.cluster.local_tables),
+            parallel_workers=self.gucs.get("dn_parallel_workers", 4),
+            wlm_ticket=self._wlm_ticket,
         )
         self.last_executor = ex
         from opentenbase_tpu_torch.net.pool import ChannelFenced

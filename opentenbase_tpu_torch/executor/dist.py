@@ -41,10 +41,15 @@ output comes back to the host in one transfer per node
 (``LocalExecutor.to_host``), the motions work on host ``ColumnBatch``es,
 as the reference's do, and the consumer uploads its input. Scalar
 subqueries (InitPlans) run first, in registration order, sharing one
-value list. Not ported: within-fragment parallel workers
-(``parallel > 1``), WLM tickets, tracing, the failpoints, and the
-replica coordinator's guard on a failover (the port has no peer
-coordinators: its local stores are always the primary's).
+value list. ``parallel_workers`` (the ``dn_parallel_workers`` setting)
+rides every remote fragment as ``parallel``: a datanode process splits
+a qualifying partial aggregate's base scan over that many row-block
+workers (executor/local.py ``run_fragment_parallel``). ``wlm_ticket``
+is the statement's admission ticket (wlm/): the bytes of the result's
+live rows are noted on it (``pg_stat_wlm.peak_result_bytes``). Not
+ported: tracing, the failpoints, and the replica coordinator's guard on
+a failover (the port has no peer coordinators: its local stores are
+always the primary's).
 """
 
 from __future__ import annotations
@@ -236,6 +241,8 @@ class DistExecutor:
         delta_scan: bool = True,  # enable_delta_scan (off: fold on read)
         instrument_ops: bool = False,  # per-operator EXPLAIN ANALYZE
         local_only_tables=(),  # coordinator-only tables (system views)
+        parallel_workers: int = 1,  # row-block workers a remote fragment
+        wlm_ticket=None,  # wlm.AdmissionTicket held for this statement
     ):
         self.catalog = catalog
         self.node_stores = node_stores
@@ -265,6 +272,8 @@ class DistExecutor:
         # tables the coordinator materializes (the system views): no
         # datanode process holds them, so their fragments run here
         self.local_only_tables = frozenset(local_only_tables)
+        self.parallel_workers = max(int(parallel_workers or 1), 1)
+        self.wlm_ticket = wlm_ticket
 
     def _stores(self, node: int) -> dict:
         if node == COORDINATOR:
@@ -299,7 +308,15 @@ class DistExecutor:
                 subquery_values[i] = (None, ty)
             else:
                 subquery_values[i] = (col.data[0], ty)
-        return self._run_one(dplan, subquery_values)
+        out = self._run_one(dplan, subquery_values)
+        if self.wlm_ticket is not None:
+            try:
+                # the host columns of the live rows: no device padding
+                self.wlm_ticket.note_bytes(
+                    sum(c.data.nbytes for c in out.columns.values()))
+            except Exception as e:  # statistics never fail a query
+                log.warning("wlm result-bytes accounting failed: %r", e)
+        return out
 
     def _check_deadline(self) -> None:
         if self.deadline is not None and time.monotonic() >= self.deadline:
@@ -579,6 +596,8 @@ class DistExecutor:
         if not self.delta_scan:
             # fold on read on the datanode processes too (absent = on)
             msg["delta_scan"] = False
+        if self.parallel_workers > 1:
+            msg["parallel"] = self.parallel_workers
         if exchanges:
             msg["exchanges"] = exchanges
         if peer_xid is not None:

@@ -32,9 +32,16 @@ differences, min and max through order-independent reductions.
 
 Every ``int(...)`` of a device value is a round trip: the operators
 read one count each where they size an output, and ``to_host`` brings a
-batch back in one transfer. Foreign tables and the reference's
-within-fragment parallel workers (``run_fragment_parallel``) are not
-ported.
+batch back in one transfer.
+
+Within-fragment parallel workers (``run_fragment_parallel``, a datanode
+process's ``parallel`` > 1): a partial aggregate over a filter/project
+chain to one base scan is split over K host threads, each a
+LocalExecutor whose scan reads and uploads one contiguous row block
+(``scan_block``), and the block partials are merged by a second
+aggregate on the same device. The threads share the device's default
+stream, so no tensor crosses streams (the caching allocator needs no
+``record_stream``); the GIL covers the Python between their kernels.
 
 The write path's row location lives here too (``predicate_rows``, the
 reference's ``LocalExecutor.predicate_rows``): simple predicates in
@@ -143,6 +150,10 @@ class LocalExecutor:
         self._fold_on_read = fold_on_read
         # the delta-resident rows the last scan served
         self.last_scan_delta_rows = 0
+        # a within-fragment parallel worker's base scan: this contiguous
+        # row block only (execParallel.c's parallel seq scan chunking;
+        # ``run_fragment_parallel`` merges the blocks' partials)
+        self.scan_block: Optional[tuple[int, int]] = None
 
     # -- expression binding ---------------------------------------------
     def _bind(self, exprs, schema, want_dids=None):
@@ -359,19 +370,27 @@ class LocalExecutor:
         # the same fully written prefix, base rows and delta tail alike
         view = store.scan_view(fold=self._fold_on_read)
         n0 = view.nrows
-        nrows = n0 if row_idx is None else len(row_idx)
+        # a block worker reads (and uploads) its rows [s0, e0) only
+        s0, e0 = 0, n0
+        blk = self.scan_block
+        if blk is not None:
+            assert row_idx is None and not self.own_writes
+            s0 = max(0, blk[0])
+            e0 = max(min(blk[1], n0), s0)
+        nrows = (e0 - s0) if row_idx is None else len(row_idx)
         padded = bucket_size(max(nrows, 1))
         # the base rows read the store's own arrays (no copy on the
         # host), the delta tail its assembled rows; both upload into the
         # padded device column
         b0 = min(view.base_rows, n0)
-        segs = [(0, b0), (b0, n0)] if n0 > b0 else [(0, n0)]
+        segs = [(max(s, s0), min(e, e0)) for s, e in ((0, b0), (b0, n0))]
+        segs = [(s, e) for s, e in segs if e > s] or [(s0, s0)]
         cols = []
         for name in plan.columns:
             if row_idx is None:
                 d = self._upload([view.col(name, s, e) for s, e in segs],
                                  padded)
-                v = view.validity(name, 0, n0)
+                v = view.validity(name, s0, e0)
             else:
                 d = self._upload([view.col_at(name, row_idx)], padded)
                 v = view.validity_at(name, row_idx)
@@ -383,13 +402,13 @@ class LocalExecutor:
             snap = np.int64(self.snapshot_ts)
             if row_idx is None:
                 for s, e in segs:
-                    live[s:e] &= ((view.xmin(s, e) <= snap)
-                                  & (snap < view.xmax(s, e)))
+                    live[s - s0:e - s0] &= ((view.xmin(s, e) <= snap)
+                                            & (snap < view.xmax(s, e)))
             else:
                 live[:nrows] &= ((view.xmin_at(row_idx) <= snap)
                                  & (snap < view.xmax_at(row_idx)))
         self.last_scan_delta_rows = (
-            view.delta_rows(0, n0) if row_idx is None
+            view.delta_rows(s0, e0) if row_idx is None
             else int((np.asarray(row_idx) >= view.base_rows).sum()))
         store.note_delta_read(self.last_scan_delta_rows)
         own = self.own_writes.get(plan.table)
@@ -463,6 +482,8 @@ class LocalExecutor:
         store = self.stores.get(plan.table)
         if store is None or store.nrows == 0:
             return None
+        if self.scan_block is not None:
+            return None  # block workers scan plain contiguous ranges
         if plan.table in self.own_writes:
             return None  # insert ranges and deletes are positional
         if not self.catalog.has(plan.table):
@@ -1307,6 +1328,112 @@ def _predicate_bounds(pred, scan: L.Scan) -> dict:
             if vals:
                 narrow(c.operand.index, min(vals), max(vals))
     return out
+
+
+# -- within-fragment parallelism (execParallel.c, nodeGather.c) -------------
+
+# how the block partials of each aggregate merge; avg and DISTINCT decline
+_BLOCK_MERGE_FUNC = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
+
+
+def _parallel_min_rows() -> int:
+    """``OTB_DN_PARALLEL_MIN_ROWS`` (default 100 000), read per call so a
+    datanode process and the tests can lower it through the
+    environment."""
+    import os
+
+    return int(os.environ.get("OTB_DN_PARALLEL_MIN_ROWS", 100_000))
+
+
+def _parallel_shape(plan):
+    """(aggregate, scan) when the fragment is a mergeable partial
+    aggregate over a Filter/Project chain to one base scan, else None."""
+    if not isinstance(plan, L.Aggregate):
+        return None
+    for a in plan.aggs:
+        if a.distinct or a.func not in _BLOCK_MERGE_FUNC:
+            return None
+    node = plan.child
+    while isinstance(node, (L.Filter, L.Project)):
+        node = node.child
+    if not isinstance(node, L.Scan):
+        return None
+    return plan, node
+
+
+def run_fragment_parallel(catalog, stores, snapshot_ts, plan, remote_inputs,
+                          subquery_values, nworkers: int, device=None,
+                          fold_on_read: bool = False):
+    """``plan`` split over at most ``nworkers`` row-block threads and the
+    blocks' partials merged, or None where the shape or the size does
+    not qualify (the caller runs the serial path): fewer rows than
+    ``_parallel_min_rows()``, or a predicate the zone maps could prune
+    (the serial path's block skipping beats scanning every block)."""
+    import threading
+
+    from opentenbase_tpu_torch.plan.distribute import RemoteSource
+
+    shape = _parallel_shape(plan)
+    if shape is None or nworkers <= 1:
+        return None
+    agg, scan = shape
+    store = stores.get(scan.table)
+    min_rows = _parallel_min_rows()
+    if store is None or store.nrows < min_rows:
+        return None
+    node = agg.child
+    pred = None
+    while isinstance(node, (L.Filter, L.Project)):
+        if isinstance(node, L.Filter) and isinstance(node.child, L.Scan):
+            pred = node.predicate
+        node = node.child
+    if pred is not None and catalog.has(scan.table):
+        meta = catalog.get(scan.table)
+        if meta.zone_cols and zone_usable_bounds(
+                _predicate_bounds(pred, scan), meta, scan):
+            return None
+    n0 = store.nrows  # one capture: the blocks cover a consistent prefix
+    k = min(nworkers, max(n0 // max(min_rows // 2, 1), 1))
+    if k <= 1:
+        return None
+    bounds = [(n0 * i // k, n0 * (i + 1) // k) for i in range(k)]
+    parts: list = [None] * k
+    errors: list = []
+
+    def worker(i):
+        try:
+            ex = LocalExecutor(catalog, remote_inputs, stores=stores,
+                               snapshot_ts=snapshot_ts,
+                               subquery_values=subquery_values,
+                               device=device, fold_on_read=fold_on_read)
+            ex.scan_block = bounds[i]
+            parts[i] = ex.run_plan(plan)
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,),
+                                name=f"dn-block-{i}") for i in range(k)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    from opentenbase_tpu_torch.executor.dist import concat_batches
+
+    ngroups = len(agg.group_exprs)
+    merge_groups = tuple(E.Col(i, agg.schema[i].type)
+                         for i in range(ngroups))
+    merge_aggs = tuple(
+        E.AggCall(_BLOCK_MERGE_FUNC[a.func],
+                  E.Col(ngroups + i, agg.schema[ngroups + i].type), False,
+                  agg.schema[ngroups + i].type)
+        for i, a in enumerate(agg.aggs))
+    src = RemoteSource(fragment=-1, schema=tuple(agg.schema))
+    merge_plan = L.Aggregate(src, merge_groups, merge_aggs, tuple(agg.schema))
+    ex = LocalExecutor(catalog, {-1: concat_batches(parts)},
+                       subquery_values=subquery_values, device=device)
+    return ex.run_plan(merge_plan)
 
 
 # -- DML row location (the reference's LocalExecutor.predicate_rows) --------

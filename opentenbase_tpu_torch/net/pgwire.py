@@ -329,6 +329,10 @@ class PgWireServer:
             if self.cluster.users:
                 if not self._sasl_auth(conn, user):
                     return
+            if user:
+                # the startup user (trust mode) or the proven identity:
+                # its role's resource group admits its statements
+                session.user = user
             conn.auth(0)  # AuthenticationOk
             conn.parameter_status("server_version", "10.0 (opentenbase_tpu)")
             conn.parameter_status("client_encoding", "UTF8")
@@ -351,6 +355,7 @@ class PgWireServer:
 
     def _conn_cleanup(self, session) -> None:
         rollback_on_disconnect(self.cluster, session)
+        session.close()  # a WLM slot still held goes back now
 
     @staticmethod
     def _sqlstate_of(e: Exception) -> str:

@@ -259,6 +259,10 @@ class ClusterServer:
                     continue
                 if msg.get("op") == "auth":
                     authed = self._scram_exchange(conn, msg)
+                    if authed:
+                        # the proven identity: its role's resource
+                        # group admits its statements
+                        session.user = str(msg.get("user", session.user))
                     continue
                 if not authed:
                     send_frame(
@@ -295,6 +299,7 @@ class ClusterServer:
         finally:
             self._conns.discard(conn)
             rollback_on_disconnect(self.cluster, session)
+            session.close()  # a WLM slot still held goes back now
             try:
                 conn.close()
             except OSError:

@@ -41,13 +41,18 @@ The GTM's sequence events are 'D' records (``seq_event``). A CREATE
 TABLE record and a checkpoint carry the table's constraints; TRUNCATE,
 ALTER TABLE ADD / DROP COLUMN and DISTRIBUTE BY are 'D' records
 (``truncate``, ``add_column``, ``drop_column``, ``redistribute``),
-replayed through the cluster's own verbs.
+replayed through the cluster's own verbs. Materialized views
+(``create_matview``, ``drop_matview``; the checkpoint's "matviews"),
+resource groups (``wlm_state``, the whole configuration; the
+checkpoint's "wlm") and logical replication (``create_publication``,
+``drop_publication``, ``create_subscription``, ``drop_subscription``,
+``subscription_state``) are 'D' records too. Redo of a commit advances
+its tables' committed-write counters (``Cluster.bump_table_versions``).
 
 Not ported, each refused by name: point-in-time recovery to a barrier
 (``recover(until_barrier=...)``), and every DDL record of a statement
-the port does not take (materialized views, partitions, nodes, ...).
-Left out: base backups, rebalance journals, logical decoding and the
-fault failpoints.
+the port does not take (node groups, nodes, ...). Left out: base
+backups, rebalance journals and the fault failpoints.
 """
 
 from __future__ import annotations
@@ -618,17 +623,24 @@ class ClusterPersistence:
                 for gid, txn in c._prepared.items()
             },
             # what the reference's checkpoint also carries, empty: the
-            # port has no node groups, rebalance or materialized views.
-            # (SQL and PL/pgSQL functions ride the WAL only, as in the
-            # reference's checkpoint.)
+            # port has no node groups or rebalance. (SQL and PL/pgSQL
+            # functions ride the WAL only, as in the reference's
+            # checkpoint.)
             "groups": [],
             "rebalance": [],
             "partitions": {
                 name: ps.spec for name, ps in c.partitions.items()
             },
             "views": {name: text for name, (_q, text) in c.views.items()},
-            "matviews": {},
+            # matview definitions (their backing and aux tables are in
+            # "tables", their refresh state in otb_matview_state)
+            "matviews": {
+                name: {"text": d.text, "options": dict(d.options),
+                       "aux_schema": d.aux_schema}
+                for name, d in c.matviews.items()
+            },
             "users": dict(c.users),
+            "wlm": c.wlm.dump_state(),
             # a checkpoint past an ha_generation record must carry the
             # generation the replayed tail no longer holds
             "node_generation": int(c.node_generation),
@@ -815,9 +827,10 @@ class ClusterPersistence:
         g = int(meta.get("node_generation", 0))
         if g > c.node_generation:
             c.node_generation = g
-        for key in ("matviews", "rebalance"):
-            if meta.get(key):
-                raise NotPorted(f"checkpoint with {key}")
+        if meta.get("rebalance"):
+            raise NotPorted("checkpoint with rebalance")
+        if meta.get("wlm"):
+            c.wlm.load_state(meta["wlm"])
         for g in meta.get("groups", []):
             if not c.nodes.has_group(g["name"]):
                 raise NotPorted("node groups")
@@ -885,6 +898,12 @@ class ClusterPersistence:
 
         for name, text in meta.get("views", {}).items():
             c.views[name] = (Parser(text).parse_select(), text)
+        if meta.get("matviews"):
+            from opentenbase_tpu_torch.matview.defs import register
+
+            for name, mrec in meta["matviews"].items():
+                register(c, name, mrec["text"], mrec.get("options") or {},
+                         aux_schema=mrec.get("aux_schema"))
         from opentenbase_tpu_torch.plan.partition import PartitionSpec
 
         for name, pclause in meta.get("partitions", {}).items():
@@ -1048,6 +1067,14 @@ class ClusterPersistence:
                     c.redistribute_table(header["name"], DistributionSpec(
                         DistStrategy(header["strategy"]),
                         tuple(header["key_columns"])))
+            elif op in ("create_matview", "drop_matview"):
+                self._apply_matview(op, header)
+            elif op == "wlm_state":
+                c.wlm.load_state(header["payload"])
+            elif op in ("create_publication", "drop_publication",
+                        "create_subscription", "drop_subscription",
+                        "subscription_state"):
+                self._apply_logical(op, header)
             else:
                 raise NotPorted(f"WAL DDL record {op!r}")
             return
@@ -1063,6 +1090,7 @@ class ClusterPersistence:
                         np.isin(store.scan_view().row_id(), wm["rowids"])
                     )[0]
                     store.stamp_xmax(pos, cts)
+            c.bump_table_versions({wm["table"] for wm in writes})
             c.gts_advance_to(cts)
             return
         if tag == "T":
@@ -1099,9 +1127,75 @@ class ClusterPersistence:
                         if len(res):
                             store.unstamp_xmax(res)
             if tag == "C":
+                c.bump_table_versions({wm["table"] for wm in pend["writes"]})
                 c.gts_advance_to(int(cts))
             return
         raise NotPorted(f"WAL record {tag!r}")
+
+    def _apply_matview(self, op: str, header: dict) -> None:
+        """Redo of CREATE / DROP MATERIALIZED VIEW: the backing and aux
+        tables, and the definition (its refresh state comes back with
+        the otb_matview_state rows, folded in after redo)."""
+        c = self.cluster
+        name = header["name"]
+        aux_name = f"{name}$aux"
+        if op == "drop_matview":
+            c.matviews.pop(name, None)
+            for tb in (name, aux_name):
+                if c.catalog.has(tb):
+                    c.catalog.drop_table(tb)
+                    c.drop_table_stores(tb)
+            return
+        if name in c.matviews:
+            return
+        if not c.catalog.has(name):
+            m = c.catalog.create_table(
+                name,
+                {k: _type_from_str(v) for k, v in header["schema"].items()},
+                DistributionSpec(DistStrategy(header["strategy"]),
+                                 tuple(header["key_columns"])))
+            c.create_table_stores(m)
+        aux = header.get("aux_schema")
+        if aux and not c.catalog.has(aux_name):
+            am = c.catalog.create_table(
+                aux_name, {k: _type_from_str(v) for k, v in aux.items()},
+                DistributionSpec(DistStrategy.ROUNDROBIN))
+            c.create_table_stores(am)
+        from opentenbase_tpu_torch.matview.defs import register
+
+        register(c, name, header["text"], header.get("options") or {},
+                 aux_schema=aux)
+
+    def _apply_logical(self, op: str, header: dict) -> None:
+        """Redo of publication and subscription DDL. A subscription's
+        apply worker is built here and started by ``Cluster.recover``
+        once redo is done."""
+        c = self.cluster
+        name = header["name"]
+        if op == "create_publication":
+            c.publications[name] = {"tables": header["tables"],
+                                    "nodes": header["nodes"]}
+        elif op == "drop_publication":
+            c.publications.pop(name, None)
+        elif op == "create_subscription":
+            from opentenbase_tpu_torch.storage.logical import (
+                SubscriptionWorker,
+            )
+
+            w = SubscriptionWorker(c, name, header["conninfo"],
+                                   header["publication"])
+            if not header.get("copy_data", True):
+                w.synced = True
+            c.subscriptions[name] = w
+        elif op == "drop_subscription":
+            w = c.subscriptions.pop(name, None)
+            if w is not None:
+                w.stop()
+        else:  # subscription_state
+            w = c.subscriptions.get(name)
+            if w is not None:
+                w.lsn = max(w.lsn, header["lsn"])
+                w.synced = w.synced or header.get("synced", False)
 
     def _apply_seq_event(self, event: str, pl: dict) -> None:
         """Replay one of the GTM's sequence events into the cluster's GTM.

@@ -22,6 +22,13 @@ subsystem.
     pg_stat_dml                write sets shipped inside 2PC prepares
     pg_stat_wal                the WAL, group commit and ingest counters
     pg_stat_2pc                the in-doubt resolver's counters
+    pg_stat_wlm                each resource group's settings and counters
+    pg_stat_wlm_queue          the statements waiting in admission queues
+    pg_resgroup_role           role -> resource group bindings
+    pg_matviews                each materialized view and its freshness
+    pg_stat_matview            refresh counters, modes and rewrite hits
+    pg_publication             publications, their tables and node filters
+    pg_subscription            subscriptions and their apply positions
 """
 
 from __future__ import annotations
@@ -246,6 +253,55 @@ def _2pc(c):
     return rows
 
 
+def _matviews(c):
+    from opentenbase_tpu_torch.matview.defs import is_fresh
+
+    rows = []
+    for name, d in c.matviews.items():
+        strategy = (c.catalog.get(name).dist.strategy.value
+                    if c.catalog.has(name) else "")
+        rows.append((name, d.text, bool(d.wants_incremental()), strategy,
+                     bool(is_fresh(c, d)), int(d.last_refresh_lsn)))
+    return rows
+
+
+def _matview_stats(c):
+    rows = []
+    snap = c.gts.snapshot_ts()
+    for name, d in c.matviews.items():
+        live = 0
+        if c.catalog.has(name):
+            meta = c.catalog.get(name)
+            for n in meta.node_indices:
+                store = c.stores.get(n, {}).get(name)
+                if store is None:
+                    continue
+                live += len(store.live_index(snap))
+                if meta.dist.is_replicated:
+                    break
+        st = d.stats
+        rows.append((name, live, int(st.get("incremental_refreshes", 0)),
+                     int(st.get("full_refreshes", 0)),
+                     int(st.get("deltas_applied", 0)),
+                     int(st.get("rewrites", 0)),
+                     float(st.get("last_refresh_ms", 0.0)),
+                     int(d.last_refresh_lsn), st.get("last_mode", "") or ""))
+    return rows
+
+
+def _publication(c):
+    return [(name,
+             ",".join(pub["tables"]) if pub["tables"] is not None else "*",
+             ",".join(str(n) for n in pub["nodes"])
+             if pub["nodes"] is not None else "")
+            for name, pub in c.publications.items()]
+
+
+def _subscription(c):
+    return [(w.name, w.publication, w.conninfo, int(w.lsn), bool(w.synced),
+             w.last_error) for w in c.subscriptions.values()]
+
+
 # name -> (schema, provider(cluster) -> rows), the reference's schemas
 SYSTEM_VIEWS: dict[str, tuple] = {
     "pg_proc": ({"proname": t.TEXT, "proargs": t.TEXT, "prorettype": t.TEXT,
@@ -283,6 +339,38 @@ SYSTEM_VIEWS: dict[str, tuple] = {
                        "index": t.INT4, "range_lo": t.INT8,
                        "range_hi": t.INT8, "n_live_tup": t.INT8},
                       _partitions),
+    "pg_stat_wlm": ({"group_name": t.TEXT, "concurrency": t.INT4,
+                     "memory_limit": t.INT8, "queue_depth": t.INT4,
+                     "priority": t.INT4, "running": t.INT4,
+                     "waiting": t.INT4, "admitted": t.INT8,
+                     "queued": t.INT8, "shed": t.INT8,
+                     "timed_out": t.INT8, "peak_memory": t.INT8,
+                     "peak_running": t.INT4, "peak_result_bytes": t.INT8,
+                     "queue_wait_ms": t.FLOAT8},
+                    lambda c: c.wlm.stat_rows()),
+    "pg_stat_wlm_queue": ({"group_name": t.TEXT, "session_id": t.INT4,
+                           "query": t.TEXT, "wait_ms": t.FLOAT8,
+                           "memory_est": t.INT8},
+                          lambda c: c.wlm.queue_rows()),
+    "pg_resgroup_role": ({"rolname": t.TEXT, "group_name": t.TEXT},
+                         lambda c: c.wlm.binding_rows()),
+    "pg_matviews": ({"matviewname": t.TEXT, "definition": t.TEXT,
+                     "incremental": t.BOOL, "strategy": t.TEXT,
+                     "is_fresh": t.BOOL, "last_refresh_lsn": t.INT8},
+                    _matviews),
+    "pg_stat_matview": ({"matviewname": t.TEXT, "n_rows": t.INT8,
+                         "incremental_refreshes": t.INT8,
+                         "full_refreshes": t.INT8,
+                         "deltas_applied": t.INT8, "rewrites": t.INT8,
+                         "last_refresh_ms": t.FLOAT8,
+                         "last_refresh_lsn": t.INT8, "last_mode": t.TEXT},
+                        _matview_stats),
+    "pg_publication": ({"pubname": t.TEXT, "tables": t.TEXT,
+                        "nodes": t.TEXT}, _publication),
+    "pg_subscription": ({"subname": t.TEXT, "publication": t.TEXT,
+                         "conninfo": t.TEXT, "lsn": t.INT8,
+                         "synced": t.BOOL, "last_error": t.TEXT},
+                        _subscription),
 }
 
 # the reference's other views, each with the ROADMAP item that brings
@@ -290,10 +378,6 @@ SYSTEM_VIEWS: dict[str, tuple] = {
 NOT_PORTED: dict[str, str] = {
     "pg_audit_actions": "A.10", "pg_audit_log": "A.10",
     "pg_cluster_health": "A.7", "pgxc_node_health": "A.7",
-    "pg_matviews": "A.5", "pg_stat_matview": "A.5",
-    "pg_publication": "A.5", "pg_subscription": "A.5",
-    "pg_resgroup_role": "A.4", "pg_stat_wlm": "A.4",
-    "pg_stat_wlm_queue": "A.4",
     "pg_stat_cluster_activity": "A.7",
     "pg_stat_statements": "A.7", "pg_stat_wait_events": "A.7",
     "pg_stat_query_phases": "A.7", "pg_stat_pallas": "A.7",

@@ -18,6 +18,20 @@ import threading
 from contextlib import contextmanager
 
 
+@contextmanager
+def parked(lock):
+    """Release the statement-lock slot the current thread holds (and a
+    writer's table mutexes) for the duration of the block: a statement
+    waiting in an admission queue, or a CONCURRENTLY refresh's compute
+    phase, holds nothing another session needs."""
+    tok = lock.park_release() if hasattr(lock, "park_release") else None
+    try:
+        yield
+    finally:
+        if tok is not None:
+            lock.park_reacquire(tok)
+
+
 class RWStatementLock:
     def __init__(self):
         self._w = threading.RLock()

@@ -304,9 +304,22 @@ def test_refused_ops_name_what_is_not_ported(shared):
                      ("log_fetch", "log ring")):
         with pytest.raises(ChannelError, match=f"NotPorted: {op}.*{what}"):
             c.dn_channels[0].rpc({"op": op})
-    with pytest.raises(ChannelError, match="NotPorted.*parallel"):
-        c.dn_channels[0].rpc({"op": "exec_fragment", "plan": "{}",
-                              "node": 0, "parallel": 4})
+    # within-fragment parallel workers are no longer refused: under the
+    # row threshold a fragment asking for 4 runs the serial path
+    from opentenbase_tpu_torch.executor.dist import DistExecutor
+    from opentenbase_tpu_torch.plan import analyze_statement
+    from opentenbase_tpu_torch.plan.distribute import distribute_statement
+    from opentenbase_tpu_torch.plan.optimize import optimize_statement
+    from opentenbase_tpu_torch.sql import parse
+
+    q = "select tag, count(*), sum(v) from t group by tag"
+    dp = distribute_statement(optimize_statement(
+        analyze_statement(parse(q)[0], c.catalog), c.catalog), c.catalog)
+    got = [sorted(DistExecutor(
+        c.catalog, c.stores, c.gts.snapshot_ts(), device="cpu",
+        dn_channels=c.dn_channels, min_lsn=c.persistence.wal.position,
+        parallel_workers=k).run(dp).to_rows()) for k in (1, 4)]
+    assert got[0] == got[1] and len(got[0]) == 3
 
 
 def test_peer_exchange_data_plane(topology, monkeypatch):

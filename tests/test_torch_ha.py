@@ -828,9 +828,9 @@ def test_conf_file_refusals_and_session_defaults(tmp_path):
     assert got[1][0] == [False, "on", 8000, 1, 5, 9]
     ignored = tmp_path / "ignored"
     ignored.mkdir()
-    (ignored / "opentenbase.conf").write_text("work_mem = 1024\n")
+    (ignored / "opentenbase.conf").write_text("trace_queries = on\n")
     ref_engine.Cluster(2, 16, data_dir=str(ignored)).close()
-    with pytest.raises(NotPorted, match="work_mem"):
+    with pytest.raises(NotPorted, match="trace_queries"):
         PORT.Cluster(2, 16, data_dir=str(ignored), device="cpu")
 
 

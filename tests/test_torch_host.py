@@ -360,5 +360,5 @@ def test_set_takes_only_enable_fused_execution():
     assert ps.gucs["enable_fused_execution"] is False
     ps.execute("reset enable_fused_execution")
     assert ps.gucs["enable_fused_execution"] is True  # back to its default
-    with pytest.raises(NotPorted, match="SET work_mem"):
-        ps.execute("set work_mem = 1024")
+    with pytest.raises(NotPorted, match="SET trace_queries"):
+        ps.execute("set trace_queries = on")

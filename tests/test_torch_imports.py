@@ -54,7 +54,11 @@ def test_package_imports_with_jax_blocked():
         "from opentenbase_tpu_torch.plan import batchplan, partition, plpgsql\n"
         "from opentenbase_tpu_torch.sql import deparse\n"
         "from opentenbase_tpu_torch.executor import fused, fused_dag, local\n"
-        "from opentenbase_tpu_torch.storage import compaction, persist\n"
+        "from opentenbase_tpu_torch.storage import (\n"
+        "    compaction, logical, persist)\n"
+        "from opentenbase_tpu_torch import wlm\n"
+        "from opentenbase_tpu_torch.wlm import estimate, manager\n"
+        "from opentenbase_tpu_torch.matview import defs, refresh, rewrite\n"
         "from opentenbase_tpu_torch.net import client, pgwire, server\n"
         "from opentenbase_tpu_torch.cli import (\n"
         "    otb_bench, otb_psql, otb_server, otb_standby)\n"

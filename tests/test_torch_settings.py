@@ -40,12 +40,18 @@ TAKEN = [
     ("lock_timeout", "'150ms'"),
     ("synchronous_commit", "off"),
     ("fragment_retries", "4"),
+    # workload management and the parallel workers (wlm/, dn/server.py)
+    # and the matview rewrite, taken since their subsystems were ported
+    ("work_mem", "16777216"),
+    ("dn_parallel_workers", "2"),
+    ("resource_group", "'batch'"),
+    ("wlm_queue_timeout", "'100ms'"),
+    ("enable_matview_rewrite", "off"),
 ]
-REFUSED = ["work_mem", "dn_parallel_workers", "resource_group",
-           "trace_queries", "enable_plan_cache", "enable_result_cache",
+REFUSED = ["trace_queries", "enable_plan_cache", "enable_result_cache",
            "expected_device_platform", "fault_injection", "read_routing",
            "gtm_standby_addr", "autovacuum", "log_min_messages",
-           "enable_matview_rewrite", "rebalance_rate_limit"]
+           "rebalance_rate_limit"]
 
 
 @pytest.fixture(scope="module")

@@ -169,6 +169,44 @@ def test_views_still_to_come_refused_by_name(p, name):
         p.ps.query(f"select * from {name}")
 
 
+# the views the port took with workload management, materialized views
+# and logical replication: their columns that do not hold a time
+PORTED_19 = {
+    "pg_stat_wlm": "select group_name, concurrency, memory_limit, "
+                   "queue_depth, priority, running, waiting, admitted, "
+                   "queued, shed, timed_out, peak_memory, peak_running, "
+                   "peak_result_bytes from pg_stat_wlm order by group_name",
+    "pg_stat_wlm_queue": "select group_name, session_id, memory_est "
+                         "from pg_stat_wlm_queue",
+    "pg_resgroup_role": "select * from pg_resgroup_role order by rolname",
+    "pg_matviews": "select matviewname, definition, incremental, strategy, "
+                   "is_fresh from pg_matviews order by matviewname",
+    "pg_stat_matview": "select matviewname, n_rows, incremental_refreshes, "
+                       "full_refreshes, deltas_applied, rewrites, last_mode "
+                       "from pg_stat_matview order by matviewname",
+    "pg_publication": "select * from pg_publication order by pubname",
+    "pg_subscription": "select subname, publication from pg_subscription",
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_19))
+def test_views_ported_with_wlm_matviews_and_replication(p, name):
+    assert name not in sysviews.NOT_PORTED
+    p.both("create resource group rg with (concurrency = 2, "
+           "memory_limit = '64MB', queue_depth = 3)")
+    p.both("alter role alice resource group rg")
+    p.both("create materialized view mv as select k, count(*) as n "
+           "from t group by k")
+    p.both("insert into t values (5, 'e')")
+    p.both("create publication pub for table t")
+    p.both("set resource_group = rg")
+    p.both("select count(*) from t")
+    p.both("set resource_group = ''")
+    rows = p.both(PORTED_19[name]).rows
+    assert name not in ("pg_stat_wlm", "pg_matviews", "pg_publication",
+                        "pg_resgroup_role") or rows
+
+
 def test_admin_functions(p):
     for fn in ("pg_stat_reset()", "pg_sleep(0.01)", "pg_current_wal_lsn()",
                "pg_unlock_check_deadlock()", "pg_unlock_check_dependency()",
