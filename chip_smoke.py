@@ -84,7 +84,7 @@ Phases, one line each; any failure raises and exits non-zero:
    compact planes): RF1 inserts 15 000 orders and their lineitems
    through INSERT ... VALUES of at most 5 000 rows in one transaction,
    RF2 deletes 15 000 orders and their lineitems through DELETE ...
-   IN (1 000 keys) in one transaction, and Q6, Q1 and Q3 run after
+   IN (5 000 keys) in one transaction, and Q6, Q1 and Q3 run after
    each, exact against numpy, with the device cache's refresh counters
    of each first run and K1 held against its plain version at Q6's
    full-plane inputs; (b) bench.py's HTAP loop at its own parameters
@@ -220,7 +220,8 @@ neither jax nor the reference package.
    coordinator crashes as HATopology.crash_primary makes it (walsender
    stopped, datanode pools closed), then commits 64 rows under
    synchronous_commit = local: a frame that never streams; (b) the
-   failover by HATopology.failover's RPCs: both datanodes pinged, the
+   failover by ha.failover_endpoints, the RPC half HATopology.failover
+   drives: both datanodes pinged, the
    one with the higher applied offset promoted to generation 1 (a SQL
    front end and a walsender inside its process, on its device), the
    other fenced (a ping carrying generation 1) and re-pointed at the
@@ -376,6 +377,26 @@ neither jax nor the reference package.
    (the apply lag and rows/s printed), its count(*) and Q6 on K1 equal
    numpy's over (c)'s batch less its deleted lines; DROP SUBSCRIPTION,
    the cluster closed.
+20. fault injection, every answer exact against numpy and no fault
+   caught to let a part pass: (a) in phase 5c's SF10 cluster after phase
+   19 (a), ``set fault_injection = on`` and
+   pg_fault_inject('fused/delta_tail_upload', 'error', 'once'), TPC-H
+   RF1's lineitem volume (SF x 6 000 rows) COPYed in; Q6 raises the
+   injected error with no K1 launch, no tail written and no host-route
+   answer; Q6 again exact on K1 (one launch) with a delta tail of the
+   batch; then with the fused route off, storage/delta_scan armed error
+   once: Q6 fails, the rerun is exact; pg_stat_faults' rows. (b) In
+   phase 12 after 19 (b): each datanode pool holds five channels open,
+   pg_fault_inject('dn/exec_fragment', 'crash_node', 'node=1, once')
+   reaches both processes; Q6 and Q1 (spec) through the datanodes exact
+   through one retry and one failover to the coordinator's stores each;
+   pg_stat_faults shows datanode 1's firing; pg_fault_clear() revives it
+   and Q6 runs in both processes again. (c) Phase 13 (b) above. (d)
+   After phase 13 (g), tests/test_ha.py's chaos schedule (seed 4242, 4
+   s, two datanodes, detect 900 ms over 3 beats) on an HATopology on the
+   card: its verdict ``ok``, one promotion, the revived ex-primary's
+   probe refused (72000); acknowledged, lost and indeterminate writes
+   and the detection ms printed.
 
 The numpy answers over 60 M rows and more (Q6, Q1 as the spec writes
 it, SF100's Q6 and Q3) are sums over row slices taken in threads, and
@@ -3177,7 +3198,10 @@ def run_sf100(args, device, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 RF_STMT_ROWS = 5000  # rows an RF1 INSERT carries
-RF_STMT_KEYS = 1000  # keys an RF2 DELETE names
+# keys an RF2 DELETE names: a statement's cost is mostly fixed (each
+# node uploads the key column and reads its visibility planes), so
+# RF2 takes six statements as RF1 takes its 5 000-row INSERTs
+RF_STMT_KEYS = 5000
 REFRESH_STATS = ("full_uploads", "delta_tail_rows", "mvcc_replays",
                  "h2d_bytes")
 
@@ -7644,7 +7668,9 @@ def run_topology(tables: dict, args, device, card: str,
                                        TOPOLOGY_FRAME_ROWS)
         ports = datanode_ports(procs)
         for node, port in zip((0, 1), ports):
-            cluster.attach_datanode(node, "127.0.0.1", port, pool_size=2,
+            # room for phase 20 (b)'s channels held open across a crash
+            cluster.attach_datanode(node, "127.0.0.1", port,
+                                    pool_size=P20_WARM_CHANNELS + 1,
                                     rpc_timeout=900)
         print(f"topology: walsender on {sender.port}, 2 datanode processes "
               f"(ports {ports}, device {device}) and the standby started "
@@ -7686,6 +7712,8 @@ def run_topology(tables: dict, args, device, card: str,
         out["memory"]["after (a)"] = memory_report("after (a)", cluster, card)
         # phase 19 (b): the datanodes' row-block workers, 4 and 1
         out["parallel"] = run_phase19_parallel(cluster, s, ans, args, card)
+        # phase 20 (b): a datanode crash injected through pg_fault_inject
+        out["phase20"] = run_phase20_crash(cluster, s, ans, args, card)
 
         # (b) the fused route answers on the coordinator's own stores
         s.execute("set enable_fused_execution = on")
@@ -8231,13 +8259,9 @@ HA_ROWS = 4000  # (g)'s table: (a)-(f) carry SF10
 
 def dn_rpc(port: int, msg: dict, timeout_s: float = 600.0) -> dict:
     """One RPC to a datanode process on a channel of its own."""
-    from opentenbase_tpu_torch.net.pool import Channel
+    from opentenbase_tpu_torch.ha import _endpoint_rpc
 
-    ch = Channel("127.0.0.1", port, timeout=timeout_s, connect_retries=1)
-    try:
-        return ch.rpc(msg, timeout_s=timeout_s)
-    finally:
-        ch.close()
+    return _endpoint_rpc("127.0.0.1", port, msg, timeout_s)
 
 
 def wait_applied(label: str, applied, target: int) -> float:
@@ -8278,13 +8302,10 @@ def run_failover(live: dict, standby, ports: list, d: str, wants: dict,
     happens."""
     import torch
 
-    from opentenbase_tpu_torch.ha import _probe_ping
+    from opentenbase_tpu_torch.ha import _probe_ping, failover_endpoints
     from opentenbase_tpu_torch.net.client import WireError, connect_tcp
     from opentenbase_tpu_torch.net.server import ClusterServer
-    from opentenbase_tpu_torch.storage.replication import (
-        probe_timeline,
-        rejoin_standby,
-    )
+    from opentenbase_tpu_torch.storage.replication import rejoin_standby
 
     cluster, s, sender = live["cluster"], live["session"], live["sender"]
     out: dict = {"queries": {}}
@@ -8311,16 +8332,17 @@ def run_failover(live: dict, standby, ports: list, d: str, wants: dict,
               f"{ex_end} ({ex_end - pos0} bytes that never stream) "
               f"[{card}]", flush=True)
 
-        # (b) failover by HATopology.failover's RPCs
-        pings = [dn_rpc(p, {"op": "ping"}, 30.0) for p in ports]
-        cands = sorted(((int(pg["applied"]), i) for i, pg in
-                        enumerate(pings)), reverse=True)
-        new = cands[0][1]
+        # (b) failover by the port's own failover_endpoints, the RPC half
+        # HATopology.failover drives
+        res = failover_endpoints([("127.0.0.1", p) for p in ports], 1,
+                                 standbys=[standby], ping_timeout_s=30.0,
+                                 rpc_timeout_s=600.0)
+        if not res["ok"] or sorted(res["candidates"]) != [0, 1]:
+            raise AssertionError(f"failover_endpoints: {res}")
+        new, resp = res["promoted"], res["resp"]
         other = 1 - new
-        t0 = time.perf_counter()
-        resp = dn_rpc(ports[new], {"op": "promote", "generation": 1,
-                                   "hgen": 1})
-        promote_ms = (time.perf_counter() - t0) * 1000
+        promote_ms, restart_ms = res["ms"]["promote"], res["ms"]["restart"]
+        repoint_ms = res["ms"]["repoint"]
         if resp.get("generation") != 1 or not resp.get("wal_port") or (
                 resp.get("gtm_nodes") != ["cn0", "dn0", "dn1", "gtm0"]):
             raise AssertionError(f"promote: {resp}")
@@ -8329,21 +8351,12 @@ def run_failover(live: dict, standby, ports: list, d: str, wants: dict,
         if promote_lsn != pos0:
             raise AssertionError(f"promote_lsn {promote_lsn}: the replicas "
                                  f"had applied {pos0}")
-        t0 = time.perf_counter()
-        dn_rpc(ports[other], {"op": "ping", "hgen": 1}, 30.0)
-        rp = dn_rpc(ports[other], {"op": "repl_repoint",
-                                   "wal_host": "127.0.0.1",
-                                   "wal_port": wal_port, "hgen": 1})
-        repoint_ms = (time.perf_counter() - t0) * 1000
+        rp = res["repointed"].get(other) or {}
         if not rp.get("ok") or rp.get("rewound"):
             raise AssertionError(f"repl_repoint: {rp}")
-        gen, base = probe_timeline("127.0.0.1", wal_port)
-        if (gen, base) != (1, promote_lsn) or standby.applied > base:
-            raise AssertionError(f"timeline ({gen}, {base}), standby at "
-                                 f"{standby.applied}")
-        t0 = time.perf_counter()
-        standby.restart_replication("127.0.0.1", wal_port)
-        restart_ms = (time.perf_counter() - t0) * 1000
+        if res["timeline"] != (1, promote_lsn):
+            raise AssertionError(f"timeline {res['timeline']}, promote_lsn "
+                                 f"{promote_lsn}")
         new_end = int(_probe_ping("127.0.0.1", sql_port, 30.0)["applied"])
         catch = {
             f"dn{other}": wait_applied(f"dn{other}", lambda: int(dn_rpc(
@@ -8353,8 +8366,8 @@ def run_failover(live: dict, standby, ports: list, d: str, wants: dict,
         if standby.cluster.node_generation != 1:
             raise AssertionError("the standby did not replay the "
                                  "ha_generation record")
-        print(f"topology: failover (b): datanodes applied "
-              f"{[c[0] for c in sorted(cands, key=lambda c: c[1])]}; "
+        print(f"topology: failover (b) by ha.failover_endpoints: "
+              f"datanodes applied {res['applied']}; "
               f"dn{new} promoted to generation 1 in {promote_ms:.3f} ms "
               f"(promote_lsn {promote_lsn}, torn tail "
               f"{resp.get('torn_bytes')} bytes, SQL port {sql_port}, "
@@ -8513,6 +8526,9 @@ def run_failover(live: dict, standby, ports: list, d: str, wants: dict,
         # (g) the failure detector on the card
         out["detector"] = run_ha_detector(os.path.join(d, "ha"), device,
                                           card)
+        # phase 20 (d): a seeded chaos schedule on the card
+        out["chaos"] = run_phase20_chaos(os.path.join(d, "chaos"), device,
+                                         card)
         return out
     finally:
         if srv is not None:
@@ -8603,6 +8619,261 @@ def run_ha_detector(d: str, device, card: str) -> dict:
             mon.stop()
         topo.stop()
         shutil.rmtree(d, ignore_errors=True)
+
+
+# -- phase 20: fault injection ---------------------------------------------
+
+# the channels each datanode pool holds open before phase 20 (b) arms its
+# crash: the crashed attempt and its retry burn one each, for Q6 and for
+# Q1 (spec), and a crashed process answers the fault-control ops only on
+# a channel opened before the crash (its listener is closed)
+P20_WARM_CHANNELS = 5
+P20_FAULT_COLS = ("node, site, action, trigger_spec, arms, hits, fired, "
+                  "armed")
+
+
+def _expect_fault(name: str, fn) -> tuple:
+    """(the FaultError ``fn`` raised, ms); an answer fails the phase."""
+    from opentenbase_tpu_torch.fault import FaultError
+
+    t0 = time.perf_counter()
+    try:
+        got = fn()
+    except FaultError as e:
+        return e, (time.perf_counter() - t0) * 1000
+    raise AssertionError(f"{name}: answered {got[:2]} under an armed fault")
+
+
+def run_phase20_fused(q3: dict, li: dict, args, card: str) -> dict:
+    """Phase 20 (a), in phase 5c's SF10 cluster after phase 19 (a): with
+    ``fault_injection`` on, ``fused/delta_tail_upload`` armed error once
+    through pg_fault_inject, TPC-H RF1's lineitem volume COPYed in; Q6
+    raises the injected error with no K1 launch and no host-route
+    answer, Q6 again is exact on K1 (one launch) with the device cache's
+    delta tail equal to the batch; then on the host route
+    ``storage/delta_scan`` armed error once: the read fails, the rerun is
+    exact. pg_stat_faults' rows printed."""
+    import shutil
+    import tempfile
+
+    from opentenbase_tpu_torch import fault
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    t_phase = time.perf_counter()
+    cluster = q3["cluster"]
+    s = cluster.session()
+    out: dict = {"reads": {}}
+    os.makedirs(args.data_dir, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="p20_", dir=args.data_dir)
+    try:
+        rf1 = make_rf1({"orders": q3["tables"]["orders"],
+                        "customer": q3["tables"]["customer"]},
+                       args.q3_sf, args.seed + 20)
+        # the 25th-32nd slots of a block: keys no earlier batch took
+        rf1["lineitem"]["l_orderkey"] = rf1["lineitem"]["l_orderkey"] + 16
+        _orders, ltbl = rf1_tbl(
+            rf1, q3["tables"]["orders"]["o_comment"].vocab, args.seed + 21)
+        path = os.path.join(d, "lineitem.tbl")
+        n = write_tbl(path, ltbl)
+        s.execute("set fault_injection = on")
+        armed = s.query("select pg_fault_inject('fused/delta_tail_upload', "
+                        "'error', 'once')")
+        t0 = time.perf_counter()
+        if s.execute(f"copy lineitem from '{path}' delimiter '|'"
+                     ).rowcount != n:
+            raise AssertionError("phase 20 (a): COPY lineitem row count")
+        copy_ms = (time.perf_counter() - t0) * 1000
+        li = _concat(li, {k: rf1["lineitem"][k] for k in li})
+        want = expected_q6(li)
+        fx = cluster.fused_executor()
+        c0 = dict(fx.cache.stats)
+        sa.scan_agg.launches = 0
+        err, fail_ms = _expect_fault("phase 20 (a): Q6 under "
+                                     "fused/delta_tail_upload",
+                                     lambda: s.query(Q6))
+        faulted_k1 = sa.scan_agg.launches
+        faulted = {k: fx.cache.stats[k] - c0[k] for k in REFRESH_STATS}
+        if faulted_k1 or s.last_route == "host" or any(faulted.values()):
+            raise AssertionError(
+                f"phase 20 (a): the faulted Q6 launched K1 {faulted_k1} "
+                f"times on route {s.last_route}, refresh {faulted}")
+        c1 = dict(fx.cache.stats)
+        q6 = "TPC-H Q6 (spec) after the faulted refresh"
+        out["reads"][q6] = r = p17_query(q6, s, Q6, want, card, scan_agg=1)
+        refresh = {k: fx.cache.stats[k] - c1[k] for k in REFRESH_STATS}
+        if refresh["full_uploads"] or refresh["delta_tail_rows"] != n:
+            raise AssertionError(f"{q6}: refresh {refresh}, want a delta "
+                                 f"tail of the batch's {n} rows")
+        r["refresh"] = refresh
+        print(f"fault: fused/delta_tail_upload armed error once "
+              f"({armed}); RF1's lineitem volume, {n} rows, COPYed in "
+              f"{copy_ms:.3f} ms; Q6 raised the injected error in "
+              f"{fail_ms:.3f} ms ({err}), 0 K1 launches, no tail written; "
+              f"Q6 again exact on K1 (1 launch) in {r['ms']:.3f} ms, the "
+              f"refresh " + ", ".join(f"{k} {v}" for k, v in refresh.items())
+              + f" [{card}]", flush=True)
+
+        s.execute("set enable_fused_execution = off")
+        s.query("select pg_fault_inject('storage/delta_scan', 'error', "
+                "'once')")
+        err, fail_ms = _expect_fault("phase 20 (a): Q6 under "
+                                     "storage/delta_scan",
+                                     lambda: s.query(Q6))
+        q6h = "TPC-H Q6 (spec, host route) after the faulted delta scan"
+        out["reads"][q6h] = rh = p17_query(q6h, s, Q6, want, card,
+                                           scan_agg=0)
+        s.execute("reset enable_fused_execution")
+        rows = s.query(f"select {P20_FAULT_COLS} from pg_stat_faults "
+                       "order by site")
+        fired = {row[1]: row[6] for row in rows}
+        if (fired.get("fused/delta_tail_upload") != 1
+                or fired.get("storage/delta_scan") != 1
+                or any(row[7] for row in rows)):
+            raise AssertionError(f"pg_stat_faults: {rows}")
+        cleared = s.query("select pg_fault_clear()")[0][0]
+        print(f"fault: storage/delta_scan armed error once: the host "
+              f"route's Q6 failed in {fail_ms:.3f} ms ({err}), the rerun "
+              f"exact in {rh['ms']:.3f} ms (0 K1 launches); pg_stat_faults "
+              f"{rows}; pg_fault_clear() cleared {cleared} [{card}]",
+              flush=True)
+        out.update(copy_ms=copy_ms, refresh=refresh, faults=rows,
+                   refresh_ms=r["ms"], faulted_k1=faulted_k1)
+    finally:
+        fault.clear()
+        s.execute("set fault_injection = off")
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"time: phase 20 (a) {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return out
+
+
+def run_phase20_crash(cluster, s, ans: dict, args, card: str) -> dict:
+    """Phase 20 (b), in phase 12 after phase 19 (b), fused route off:
+    each datanode pool holds P20_WARM_CHANNELS channels open, then
+    pg_fault_inject('dn/exec_fragment', 'crash_node', 'node=1, once')
+    reaches both processes; Q6 and Q1 (spec) answer exactly through the
+    retry and the failover to the coordinator's stores; pg_stat_faults
+    shows datanode 1's fired count; pg_fault_clear() revives it and Q6
+    runs in both processes again."""
+    from opentenbase_tpu_torch import fault
+    from opentenbase_tpu_torch.ops import radix_probe as rp
+    from opentenbase_tpu_torch.ops import scan_agg as sa
+
+    t_phase = time.perf_counter()
+    out: dict = {"queries": {}}
+    for pool in cluster.dn_channels.values():
+        chans = [pool.acquire() for _ in range(P20_WARM_CHANNELS)]
+        for ch in chans:
+            pool.release(ch)
+    s.execute("set fault_injection = on")
+    s.execute("set fragment_retries = 1")
+    s.execute("set fragment_retry_backoff_ms = 5")
+    heal0 = dict(cluster.frag_heal_stats)
+    try:
+        _site, reached = s.query(
+            "select pg_fault_inject('dn/exec_fragment', 'crash_node', "
+            "'node=1, once')")[0]
+        if reached != 2:
+            raise AssertionError(f"pg_fault_inject reached {reached} "
+                                 "datanode processes, want 2")
+        for name, sql in (("Q6", Q6), ("Q1 (spec)", Q1_SPEC)):
+            h0 = dict(cluster.frag_heal_stats)
+            sa.scan_agg.launches = rp.radix_probe.launches = 0
+            t0 = time.perf_counter()
+            got = s.query(sql)
+            ms = (time.perf_counter() - t0) * 1000
+            launches = {"scan_agg": sa.scan_agg.launches,
+                        "radix_probe": rp.radix_probe.launches}
+            equal_to(name, ans[name])(got)
+            heal = {k: cluster.frag_heal_stats[k] - h0[k] for k in h0}
+            moved = [(i["node"], i.get("remote", False), i.get("failover"))
+                     for i in s.last_executor.instrumentation]
+            if heal != {"retries": 1, "failovers": 1} or (
+                    1, False, "local") not in moved:
+                raise AssertionError(f"{name} under the crash: {heal}, "
+                                     f"fragments {moved}")
+            # the failed-over fragment runs the host route on the
+            # coordinator's stores: no kernel of this process launches
+            if any(launches.values()):
+                raise AssertionError(f"{name} under the crash: a kernel "
+                                     f"launched in the coordinator: "
+                                     f"{launches}")
+            out["queries"][f"topology {name} through a datanode crash"] = {
+                "route": "dn", "e2e": ms, "heal": heal,
+                "launches": launches}
+            print(f"fault: TPC-H {name} through the datanodes with dn1 "
+                  f"crashed exact in {ms:.3f} ms: {heal['retries']} retry, "
+                  f"{heal['failovers']} failover to the coordinator's "
+                  f"stores (fragments (node, remote, failover) {moved}) "
+                  f"[{card}]", flush=True)
+        rows = s.query(f"select {P20_FAULT_COLS} from pg_stat_faults "
+                       "where site = 'dn/exec_fragment' order by node")
+        fired = {row[0]: row[6] for row in rows}
+        if fired.get("dn1") != 1 or fired.get("dn0", 0) != 0:
+            raise AssertionError(f"pg_stat_faults: {rows}")
+        cleared = s.query("select pg_fault_clear()")[0][0]
+        r = dn_query("TPC-H Q6 through the datanodes after pg_fault_clear",
+                     s, Q6, equal_to("Q6", ans["Q6"]), args, card)
+        out["queries"]["topology Q6 after pg_fault_clear (datanodes)"] = r
+        heal = {k: cluster.frag_heal_stats[k] - heal0[k] for k in heal0}
+        print(f"fault: dn/exec_fragment crash_node node=1 once reached "
+              f"both processes; pg_stat_faults {rows}; pg_fault_clear() "
+              f"cleared {cleared} and revived dn1: Q6 in both processes "
+              f"again, first {r['first_ms']:.3f} ms; retries / failovers "
+              f"in all {heal['retries']} / {heal['failovers']} [{card}]",
+              flush=True)
+        out.update(faults=rows, heal=heal, cleared=cleared)
+    finally:
+        fault.clear()
+        for sql in ("reset fragment_retries",
+                    "reset fragment_retry_backoff_ms",
+                    "set fault_injection = off"):
+            s.execute(sql)
+    print(f"time: phase 20 (b) {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return out
+
+
+def run_phase20_chaos(d: str, device, card: str) -> dict:
+    """Phase 20 (d): the seeded chaos schedule of tests/test_ha.py (seed
+    4242, 4 s, two datanodes, detect 900 ms over 3 beats) on an
+    HATopology on the card: its verdict ``ok``, one promotion, the
+    revived ex-primary's probe refused."""
+    import shutil
+
+    from opentenbase_tpu_torch import fault
+    from opentenbase_tpu_torch.fault.schedule import (
+        ChaosSchedule,
+        run_schedule,
+    )
+
+    t0 = time.perf_counter()
+    sched = ChaosSchedule.generate(4242, duration_s=4.0, num_datanodes=2)
+    try:
+        v = run_schedule(sched, d, detect_ms=900, beats=3, device=device)
+    finally:
+        fault.clear()
+        fault.install_matrix(None)
+        shutil.rmtree(d, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    if (v["chaos_gate"] != "ok" or v["promotions"] != 1
+            or v.get("fenced_probe") != "refused"):
+        raise AssertionError(f"chaos schedule 4242: {v}")
+    print(f"fault: chaos schedule 4242 (4 s, {len(sched.events)} events: "
+          + "; ".join(v["events"]) + f") on an HATopology on {device}: "
+          f"chaos_gate {v['chaos_gate']}, {v['promotions']} promotion, "
+          f"acked writes {v['acked_writes']}, lost {v['lost_acked_writes']}"
+          f", indeterminate {v['indeterminate_writes']}, reads "
+          f"{v['reads_ok']}, detected {v.get('detect_latency_ms')} ms after "
+          f"the crash (budget {v.get('detect_budget_ms')} ms), fenced probe "
+          f"{v['fenced_probe']}, the ex-primary resynced "
+          f"{v['resync']['rows']} rows; {secs:.1f} s [{card}]", flush=True)
+    out = {k: v.get(k) for k in (
+        "chaos_gate", "promotions", "acked_writes", "lost_acked_writes",
+        "indeterminate_writes", "reads_ok", "detect_latency_ms",
+        "detect_budget_ms", "fenced_probe")}
+    out["s"] = secs
+    return out
 
 
 def main(argv=None) -> int:
@@ -8742,8 +9013,11 @@ def main(argv=None) -> int:
     done("phase 18")
     # phase 19 (a): workload management in the same cluster, after 18
     phase19 = run_phase19_wlm(q3_state, phase17["lineitem"], card)
-    del state16, phase17["rf1_orders"], phase17["lineitem"]
     done("phase 19 (a)")
+    # phase 20 (a): faults on the fused and host routes, after 19 (a)
+    phase20 = run_phase20_fused(q3_state, phase17["lineitem"], args, card)
+    del state16, phase17["rf1_orders"], phase17["lineitem"]
+    done("phase 20 (a)")
     # phase 12 reuses phase 5c's arrays and numpy's answers at the end
     q3_tables, q3_answers = q3_state.pop("tables"), q3_state.pop("answers")
     del q3_state
@@ -8810,13 +9084,16 @@ def main(argv=None) -> int:
     for q, r in {**durable["queries"], **topology["queries"],
                  **phase15, **phase16["reads"], **phase17["reads"],
                  **phase18["reads"], **phase19["reads"], **p19d["reads"],
-                 **topology["parallel"]["queries"],
+                 **topology["parallel"]["queries"], **phase20["reads"],
+                 **topology["phase20"]["queries"],
                  **p17_ssb, "topology EXPLAIN ANALYZE Q1 (spec)":
                  topology["explain"]}.items():
         for k, n in r["launches"].items():
             path_launches[k][q] = n
     path_launches["scan_agg"]["phase 19 (a): the two queued Q6s"] = (
         phase19["queue"]["k1"])
+    path_launches["scan_agg"]["phase 20 (a): Q6 under the armed fault"] = (
+        phase20["faulted_k1"])
     path_launches["scan_agg"]["phase 19 (c): matview populate"] = (
         p19d["populate"]["launches"])
     for mode, r in p19d["refresh"].items():
@@ -8951,6 +9228,11 @@ def main(argv=None) -> int:
                           "fs": topology["fs"]},
                       "gtm": topology["gtm"],
                       "failover": topology["failover"],
+                      "faults": {
+                          "fused": {k: phase20[k] for k in (
+                              "copy_ms", "refresh_ms", "refresh")},
+                          "crash": {k: topology["phase20"][k] for k in (
+                              "heal", "cleared")}},
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

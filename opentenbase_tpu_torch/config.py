@@ -169,6 +169,9 @@ GUCS: dict = {
     # answer a SELECT equal to a fresh materialized view's defining
     # query from the view (matview/rewrite.py)
     "enable_matview_rewrite": (_bool, True),
+    # pg_fault_inject() arms failpoints only on a session that turned
+    # this on (fault/): a stray statement cannot arm a fault
+    "fault_injection": (_bool, False),
 }
 
 # the reference's settings the port does not act on yet, each with the
@@ -186,7 +189,6 @@ NOT_ACTED_ON: dict = {
     "gtm_standby_addr": "A.9", "read_routing": "A.9",
     "max_staleness": "A.9", "replica_read_fallback": "A.9",
     "replica_read_wait_ms": "A.9",
-    "fault_injection": "A.6",
     "rebalance_rate_limit": "A.8",
     "autovacuum": "A.7", "autovacuum_naptime_s": "A.7",
     "autovacuum_scale_factor_pct": "A.7",

@@ -27,12 +27,22 @@ A datanode process is
 
 Ops: ping, query (a replica read), exec_fragment, cancel_fragment,
 exch_put, exch_take, 2pc_prepare, 2pc_commit, 2pc_abort, 2pc_list,
-lease_grant, promote, repl_repoint. A fragment with ``parallel`` > 1
+lease_grant, promote, repl_repoint, fault_arm, fault_clear, fault_stats.
+A fragment with ``parallel`` > 1
 splits a qualifying partial aggregate's base scan over that many
 row-block workers (executor/local.py ``run_fragment_parallel``;
-``parallel_fragments`` counts them). Refused by name: the failpoints
-(fault_*), the log and trace rings (log_fetch, trace_fetch) and
-rebalance (rebalance_*).
+``parallel_fragments`` counts them); its block workers poll the
+fragment's cancel token at every operator boundary, as the serial
+executor does.
+
+Failpoints (fault/): ``dn/accept``, ``dn/serve``, ``dn/dispatch``,
+``dn/query``, ``dn/exec_fragment``, the 2PC verbs' before and
+``:after_journal`` sites, ``dn/batch_apply``, ``dn/promote`` and
+``dn/repoint``. A ``crash_node`` action at any of them takes the node
+down (``_simulate_crash``: the listener closed, every request but the
+fault-control ops dropped unanswered); ``fault_clear`` on a surviving
+channel revives it (``_revive``). Refused by name: the log and trace
+rings (log_fetch, trace_fetch) and rebalance (rebalance_*).
 
 Run as a module (on cuda:0 unless ``--device`` says otherwise; with no
 CUDA and no ``--device cpu`` it refuses to start):
@@ -55,6 +65,8 @@ import threading
 import time
 from typing import Optional
 
+from opentenbase_tpu_torch import fault as _fault
+from opentenbase_tpu_torch.fault import FAULT, FaultDropConnection
 from opentenbase_tpu_torch.net.protocol import (
     encode_frame,
     recv_frame,
@@ -65,11 +77,14 @@ log = logging.getLogger(__name__)
 
 # ops of the reference's datanode that the port refuses, by name
 _REFUSED = {
-    "fault_arm": "failpoints", "fault_clear": "failpoints",
-    "fault_stats": "failpoints", "log_fetch": "the datanode log ring",
+    "log_fetch": "the datanode log ring",
     "trace_fetch": "the datanode trace ring",
     "rebalance_apply": "rebalance", "rebalance_finalize": "rebalance",
 }
+
+
+# answered even on a node with an injected crash
+_FAULT_OPS = ("fault_arm", "fault_clear", "fault_stats")
 
 
 class FragmentCancelled(RuntimeError):
@@ -138,6 +153,9 @@ class DNServer:
         self._cancelled: dict = {}
         self._cancel_mu = threading.Lock()
         self._inflight = 0
+        # an injected crash_node: the listener is closed and only the
+        # fault-control ops are answered, until ``_revive``
+        self._crashed = False
         self._lsock = socket.socket()
         self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._lsock.bind((host, port))
@@ -186,6 +204,19 @@ class DNServer:
                 conn, _ = self._lsock.accept()
             except OSError:
                 return
+            try:
+                # failpoint: a just-accepted coordinator connection
+                # refused or dropped. A try of its own: drop_conn is an
+                # OSError, which the accept's handler would read as a
+                # closed listener
+                FAULT("dn/accept")
+            except Exception as e:
+                log.warning("connection refused at accept: %r", e)
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+                continue
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             with self._conns_mu:
                 if self._stop.is_set():
@@ -199,12 +230,21 @@ class DNServer:
     def _serve(self, conn: socket.socket) -> None:
         try:
             while not self._stop.is_set():
+                # failpoint at the datanode's own frame boundary
+                FAULT("dn/serve")
                 msg = recv_frame(conn)
                 if msg is None:
+                    break
+                if self._crashed and msg.get("op") not in _FAULT_OPS:
+                    # an injected crash: no reply (the fault-control
+                    # ops stay answerable on a surviving channel, so a
+                    # harness can always disarm and revive)
                     break
                 try:
                     reply = self._dispatch(msg)
                     frame = encode_frame(reply)
+                except FaultDropConnection:
+                    break  # dropped without a reply, as a dying process
                 except Exception as e:
                     # the error travels as the reply (an oversized
                     # reply fails in encode_frame, before any byte)
@@ -229,8 +269,55 @@ class DNServer:
         with self._stats_mu:
             self.stats[key] = self.stats.get(key, 0) + by
 
+    # -- injected crashes -------------------------------------------------
+    def _simulate_crash(self) -> None:
+        """The crash_node action: stop accepting and stop answering. The
+        object survives; to every peer the node is gone mid-request."""
+        self._crashed = True
+        shutdown_and_close(self._lsock)
+        self._bump("injected_crashes")
+        log.warning("injected crash_node: datanode down (listener closed, "
+                    "connections dropping)")
+
+    def _revive(self) -> None:
+        """Undo an injected crash: listen again on the same port (a
+        harness's process respawn)."""
+        if not self._crashed:
+            return
+        lsock = socket.socket()
+        lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        lsock.bind((self.host, self.port))
+        lsock.listen(32)
+        self._lsock = lsock
+        self._crashed = False
+        threading.Thread(target=self._accept_loop, daemon=True).start()
+        self._bump("revives")
+        log.warning("datanode revived: listening again on %d", self.port)
+
+    def _failpoint(self, site: str, **ctx):
+        """One FAULT site with the datanode's crash_node semantics (the
+        node taken down, this request severed with no reply); returns
+        the action for any other site-handled reaction."""
+        act = FAULT(site, **ctx)
+        if act == "crash_node":
+            self._simulate_crash()
+            raise FaultDropConnection("injected datanode crash")
+        return act
+
     def _dispatch(self, msg: dict) -> dict:
         op = msg.get("op")
+        # the fault-control ops answer even on a crashed node
+        if op == "fault_arm":
+            _fault.inject(str(msg["site"]), str(msg["action"]),
+                          str(msg.get("spec") or ""))
+            return {"ok": True}
+        if op == "fault_clear":
+            n = _fault.clear(msg.get("site"))
+            if self._crashed:
+                self._revive()  # disarm and respawn in one message
+            return {"ok": True, "cleared": n}
+        if op == "fault_stats":
+            return {"ok": True, "rows": [list(r) for r in _fault.stats()]}
         if op in _REFUSED:
             return {"error": f"NotPorted: {op} ({_REFUSED[op]})"}
         # the fencing gate: a caller behind this node's generation is a
@@ -253,6 +340,7 @@ class DNServer:
             with self._promote_mu:  # never regress under a race
                 if hg > self._hgen:
                     self._hgen = hg
+        self._failpoint("dn/dispatch", op=op)
         if op == "lease_grant":
             # below the gate: a stale generation's renewal is refused
             # fenced, which is how a partitioned ex-primary learns it
@@ -365,6 +453,8 @@ class DNServer:
         gid = str(msg["gid"])
         if not gid or "/" in gid or gid.startswith("."):
             return {"error": f"bad gid {gid!r}"}
+        # before the vote reaches the disk: a node that never voted
+        self._failpoint("dn/2pc_prepare", gid=gid)
         d = self._twophase_dir()
         tmp = os.path.join(d, f".{gid}.tmp")
         path = os.path.join(d, gid)
@@ -387,10 +477,17 @@ class DNServer:
         finally:
             os.close(dfd)
         self._bump("2pc_prepared")
+        # after the journal is durable: the vote exists, its ack is lost
+        # (the in-doubt shape pg_resolve_indoubt drives to a decision)
+        self._failpoint("dn/2pc_prepare:after_journal", gid=gid)
         return {"ok": True}
 
     def _twophase_finish(self, msg: dict, committed: bool) -> dict:
         gid = str(msg["gid"])
+        verb = "2pc_commit" if committed else "2pc_abort"
+        # the decision arrived, nothing applied or retired yet: a lost
+        # phase-2 delivery
+        self._failpoint(f"dn/{verb}", gid=gid)
         path = os.path.join(self._twophase_dir(), gid)
         try:
             with open(path) as f:
@@ -408,6 +505,8 @@ class DNServer:
             os.unlink(path)
         except FileNotFoundError:
             pass
+        # applied and the journal retired, the ack lost
+        self._failpoint(f"dn/{verb}:after_journal", gid=gid)
         return {"ok": True, "known": True, "applied": applied}
 
     def _apply_journal(self, gid: str, entry: dict, msg: dict) -> bool:
@@ -436,6 +535,9 @@ class DNServer:
             if commit_ts is None:
                 return False
             sub, arrays = serde.frame_from_wire(entry["writes"])
+            # the batch-apply boundary: an error leaves direct_applied
+            # unset, so the stream's gid-tagged frame applies it once
+            self._failpoint("dn/batch_apply", gid=gid, frames=len(sub))
             if c.persistence.frame_apply_gap(sub):
                 self._bump("dml_deferred_gap")
                 return False
@@ -636,6 +738,9 @@ class DNServer:
 
         with self._promote_mu:
             if self._promoted_srv is None:
+                # inside the promotion window: a schedule killing the
+                # candidate mid-promote moves the failover to the next
+                self._failpoint("dn/promote")
                 gen = msg.get("generation")
                 c = self.standby.promote(
                     generation=int(gen) if gen is not None else None)
@@ -665,6 +770,7 @@ class DNServer:
         first); a survivor past the new timeline's base is rewound."""
         from opentenbase_tpu_torch.storage.replication import probe_timeline
 
+        self._failpoint("dn/repoint")
         with self._promote_mu:
             promoted = self._promoted_srv
         if promoted is not None:
@@ -743,6 +849,7 @@ class DNServer:
                              f"{min_lsn} not reached (applied "
                              f"{self.standby.applied})",
                     "sqlstate": "72001"}
+        self._failpoint("dn/query")
         t0 = time.perf_counter()
         try:
             res = self.standby.session().execute(str(msg.get("sql", "")))
@@ -774,6 +881,7 @@ class DNServer:
         )
         from opentenbase_tpu_torch.plan import serde
 
+        self._failpoint("dn/exec_fragment", node=node)
         t_start = time.perf_counter()
         token = msg.get("cancel_token")
 
@@ -820,6 +928,9 @@ class DNServer:
             with c._exec_lock:
                 cancel_check()
                 fold = not msg.get("delta_scan", True)
+                # polled at every operator boundary, in each block
+                # worker too: an abandoned fragment stops at the next
+                check = cancel_check if token is not None else None
                 out, counts, ex = None, None, None
                 k = int(msg.get("parallel", 1))
                 if k > 1:
@@ -829,7 +940,7 @@ class DNServer:
                         c.catalog, c.stores.get(node, {}),
                         msg.get("snapshot_ts"), plan, inputs,
                         subquery_values, k, device=self.device,
-                        fold_on_read=fold)
+                        fold_on_read=fold, cancel_check=check)
                     if out is not None:
                         self._bump("parallel_fragments")
                 if out is None:
@@ -837,7 +948,7 @@ class DNServer:
                         c.catalog, inputs, stores=c.stores.get(node, {}),
                         snapshot_ts=msg.get("snapshot_ts"),
                         subquery_values=subquery_values, device=self.device,
-                        fold_on_read=fold)
+                        fold_on_read=fold, cancel_check=check)
                     part = None
                     if mo is not None and mo["kind"] == "redistribute":
                         # slots on the device, as the in-process loop does

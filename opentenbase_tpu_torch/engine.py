@@ -133,6 +133,7 @@ import numpy as np
 import torch
 
 from opentenbase_tpu_torch import config as _config
+from opentenbase_tpu_torch import fault as _fault
 from opentenbase_tpu_torch import sysviews
 from opentenbase_tpu_torch import types as t
 from opentenbase_tpu_torch.catalog.catalog import Catalog, TableMeta
@@ -159,6 +160,7 @@ from opentenbase_tpu_torch.executor.local import (
     np_expr_eval,
     predicate_rows,
 )
+from opentenbase_tpu_torch.fault import FAULT, FaultError
 from opentenbase_tpu_torch.gtm.gts import (
     GTSAdvanceError,
     GTSServer,
@@ -1431,13 +1433,13 @@ class Session:
         "pg_resolve_indoubt", "pg_unlock_execute", "pg_unlock_check_deadlock",
         "pg_unlock_check_dependency", "pg_current_wal_lsn", "pg_stat_reset",
         "pg_publication_tables", "pg_logical_slot_changes", "pg_logical_sync",
+        "pg_fault_inject", "pg_fault_clear",
     })
     # those that change nothing: the wire servers run them as reads
     _READONLY_ADMIN_FUNCS = frozenset({"pg_sleep"})
     _ADMIN_REFUSED = {
         "pg_clean_execute": "A.9", "pg_audit_add_fga_policy": "A.10",
         "pg_audit_drop_fga_policy": "A.10", "pg_basebackup": "A.8",
-        "pg_fault_inject": "A.6", "pg_fault_clear": "A.6",
         "pg_rebalance_wait": "A.8", "pg_add_coordinator": "A.9",
         "pg_remove_coordinator": "A.9", "pg_coordinators": "A.9",
         "pg_replica_status": "A.9", "pg_stat_statements_reset": "A.7",
@@ -2155,6 +2157,13 @@ class Session:
             self._commit_txn(txn)
         except SQLError:
             raise  # serialization failure: _commit_txn already aborted
+        except FaultError:
+            # an injected fault is the coordinator dying at its site: no
+            # cleanup runs, so the in-doubt state (the votes, the GTM's
+            # prepared entry, maybe a durable commit record) is left for
+            # pg_resolve_indoubt as a crash would leave it. Aborting
+            # after the commit record would drop committed rows
+            raise
         except Exception:
             self._abort_txn(txn)
             raise
@@ -2308,6 +2317,8 @@ class Session:
             age = float(self._const_arg(e.args[0])) if e.args else 0.0
             rows = c.resolve_indoubt(min_age_s=age)
             return Result("SELECT", rows, ["gid", "outcome"], len(rows))
+        if e.name in ("pg_fault_inject", "pg_fault_clear"):
+            return self._fault_function(e)
         if e.name == "pg_stat_reset":
             # the counters the port keeps (pg_stat_dml's)
             with c._dml_stats_mu:
@@ -2332,6 +2343,47 @@ class Session:
         rows = c.locks.check_dependency()  # pg_unlock_check_dependency
         return Result("SELECT", rows, ["waiter_gxid", "holder_gxid",
                                        "node_index", "relation"], len(rows))
+
+    def _fault_function(self, e: A.FuncCall) -> Result:
+        """pg_fault_inject(site, action[, spec]) arms a failpoint
+        (fault/) on a session with fault_injection = on; pg_fault_clear
+        ([site]) disarms, gated by nothing (an operator can always
+        disarm). The registry is per process, so both are forwarded to
+        every attached datanode process (best effort: an unreachable
+        datanode is often the point)."""
+        chans = list(self.cluster.dn_channels.values())
+        if e.name == "pg_fault_clear":
+            site = str(self._const_arg(e.args[0])) if e.args else None
+            n = _fault.clear(site)
+            for ch in chans:
+                try:
+                    n += int(ch.rpc({"op": "fault_clear",
+                                     "site": site}).get("cleared", 0))
+                except Exception:
+                    pass
+            return Result("SELECT", [(n,)], ["cleared"], 1)
+        if not self.gucs.get("fault_injection"):
+            raise SQLError("pg_fault_inject() requires fault_injection = on",
+                           "55000")
+        if len(e.args) not in (2, 3):
+            raise SQLError("pg_fault_inject(site, action[, spec])")
+        site = str(self._const_arg(e.args[0]))
+        action = str(self._const_arg(e.args[1]))
+        spec = str(self._const_arg(e.args[2])) if len(e.args) == 3 else ""
+        try:
+            _fault.inject(site, action, spec)
+        except ValueError as ve:
+            raise SQLError(str(ve)) from None
+        forwarded = 0
+        for ch in chans:
+            try:
+                ch.rpc({"op": "fault_arm", "site": site, "action": action,
+                        "spec": spec})
+                forwarded += 1
+            except Exception:
+                pass
+        return Result("SELECT", [(site, forwarded)],
+                      ["site", "datanodes_armed"], 1)
 
     def _published_tables(self, pub: dict) -> list[str]:
         if pub["tables"] is not None:
@@ -2750,6 +2802,12 @@ class Session:
                         except Exception:
                             pass  # clean_2pc sweeps the vote
                     raise
+                # failpoint: the coordinator dying between the prepare
+                # and the commit record. Outside every abort handler:
+                # the state it leaves (the votes, the GTM's prepared
+                # entry, no commit record) is a crash at this instant,
+                # which pg_resolve_indoubt drives to abort
+                FAULT("coord/2pc_after_prepare", gid=implicit_gid)
             if nodes:
                 cts = c.commit_ts_begin_stamping(
                     txn.gxid, batched=bool(self.gucs["enable_group_commit"]))
@@ -2767,6 +2825,11 @@ class Session:
                         raise
                 finally:
                     c.stamping_done(cts)
+            if implicit_gid is not None:
+                # failpoint: the coordinator dying after the durable
+                # commit record, before phase 2 (the resolver drives it
+                # to commit: the decision is in the WAL)
+                FAULT("coord/2pc_before_phase2", gid=implicit_gid)
             try:
                 c.gts.forget(txn.gxid)
             except Exception as e:

@@ -46,9 +46,9 @@ rides every remote fragment as ``parallel``: a datanode process splits
 a qualifying partial aggregate's base scan over that many row-block
 workers (executor/local.py ``run_fragment_parallel``). ``wlm_ticket``
 is the statement's admission ticket (wlm/): the bytes of the result's
-live rows are noted on it (``pg_stat_wlm.peak_result_bytes``). Not
-ported: tracing, the failpoints, and the replica coordinator's guard on
-a failover (the port has no peer coordinators: its local stores are
+live rows are noted on it (``pg_stat_wlm.peak_result_bytes``). Each
+remote attempt passes the ``exec/fragment`` failpoint first. Not
+ported: tracing, and the replica coordinator's guard on a failover (the port has no peer coordinators: its local stores are
 always the primary's).
 """
 
@@ -66,6 +66,7 @@ from opentenbase_tpu_torch import types as t
 from opentenbase_tpu_torch.catalog.catalog import Catalog
 from opentenbase_tpu_torch.device import resolve_device
 from opentenbase_tpu_torch.executor.local import LocalExecutor
+from opentenbase_tpu_torch.fault import FAULT
 from opentenbase_tpu_torch.plan.distribute import (
     COORDINATOR,
     DistributedPlan,
@@ -373,6 +374,15 @@ class DistExecutor:
                 try:
                     while True:
                         try:
+                            # coordinator-side failpoint: fails this
+                            # attempt as a dead channel would, with no
+                            # datanode process in the loop
+                            act = FAULT("exec/fragment", node=node,
+                                        fragment=frag.index)
+                            if act == "crash_node":
+                                raise ChannelError(
+                                    "injected coordinator-side channel "
+                                    "failure")
                             rows, batch, resp = self._exec_remote(
                                 frag, node, motioned, subquery_values,
                                 frag_schemas, sources, peer_xid)

@@ -50,6 +50,7 @@ from opentenbase_tpu_torch.executor.local import (
     _predicate_bounds,
     to_host_arrays,
 )
+from opentenbase_tpu_torch.fault import FAULT
 from opentenbase_tpu_torch.ops import agg as agg_ops
 from opentenbase_tpu_torch.ops import scan_agg as sa
 from opentenbase_tpu_torch.ops.expr import ExprCompiler, resolve_param
@@ -312,6 +313,11 @@ class DeviceCache:
             S = dt.xmin.shape[0]
             dt.xmin = dt.xmin.expand(S, dt.rmax).contiguous()
             dt.xmax = dt.xmax.expand(S, dt.rmax).contiguous()
+        if any(v.nrows > sy["nrows"] for v, sy in zip(views, dt.sync)):
+            # failpoint: the tail-upload boundary. An injected error
+            # leaves ``dt`` as it was but for the plane expansion, so
+            # the next statement repeats the same refresh
+            FAULT("fused/delta_tail_upload")
         delta_rows = tail_delta_rows = replays = 0
         for i, (v, sy) in enumerate(zip(views, dt.sync)):
             old_n, new_n = sy["nrows"], v.nrows

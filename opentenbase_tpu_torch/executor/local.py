@@ -120,6 +120,7 @@ class LocalExecutor:
         device=None,
         instrument: bool = False,
         fold_on_read: bool = False,
+        cancel_check=None,
     ):
         self.catalog = catalog
         self.stores = stores or {}
@@ -154,6 +155,9 @@ class LocalExecutor:
         # row block only (execParallel.c's parallel seq scan chunking;
         # ``run_fragment_parallel`` merges the blocks' partials)
         self.scan_block: Optional[tuple[int, int]] = None
+        # polled before every operator: raises when the coordinator
+        # abandoned the fragment (dn/server.py ``cancel_fragment``)
+        self._cancel_check = cancel_check
 
     # -- expression binding ---------------------------------------------
     def _bind(self, exprs, schema, want_dids=None):
@@ -305,6 +309,9 @@ class LocalExecutor:
 
     # -- plan dispatch ----------------------------------------------------
     def eval(self, plan: L.LogicalPlan) -> DevBatch:
+        if self._cancel_check is not None:
+            # an abandoned fragment stops at the next operator boundary
+            self._cancel_check()
         m = getattr(self, f"_eval_{type(plan).__name__.lower()}", None)
         if m is None:
             raise NotPorted(f"host operator {type(plan).__name__}")
@@ -1363,12 +1370,15 @@ def _parallel_shape(plan):
 
 def run_fragment_parallel(catalog, stores, snapshot_ts, plan, remote_inputs,
                           subquery_values, nworkers: int, device=None,
-                          fold_on_read: bool = False):
+                          fold_on_read: bool = False, cancel_check=None):
     """``plan`` split over at most ``nworkers`` row-block threads and the
     blocks' partials merged, or None where the shape or the size does
     not qualify (the caller runs the serial path): fewer rows than
     ``_parallel_min_rows()``, or a predicate the zone maps could prune
-    (the serial path's block skipping beats scanning every block)."""
+    (the serial path's block skipping beats scanning every block).
+    ``cancel_check`` rides into every block worker, so an abandoned
+    fragment stops at its next operator boundary as the serial path
+    does."""
     import threading
 
     from opentenbase_tpu_torch.plan.distribute import RemoteSource
@@ -1405,7 +1415,8 @@ def run_fragment_parallel(catalog, stores, snapshot_ts, plan, remote_inputs,
             ex = LocalExecutor(catalog, remote_inputs, stores=stores,
                                snapshot_ts=snapshot_ts,
                                subquery_values=subquery_values,
-                               device=device, fold_on_read=fold_on_read)
+                               device=device, fold_on_read=fold_on_read,
+                               cancel_check=cancel_check)
             ex.scan_block = bounds[i]
             parts[i] = ex.run_plan(plan)
         except Exception as e:

@@ -15,11 +15,15 @@ gtm/`` (git-ignored; the binary is named by the source's digest and
 written under a temporary name, then renamed, so concurrent builds
 never see half a file), and runs it as its own process.
 
-Left out of the reference's client: the trace envelope (OP_TRACED,
-OP_TRACE_FETCH), the failpoints, the wait-event and per-statement
-accounting, and the failover to a standby (``standby=``,
-``connect_retries=``, ``failovers``): a lost connection is retried once
-on the same endpoint.
+Failpoints (fault/): ``gtm/client/rpc`` (with the connectivity
+matrix's check) at every request, ``gtm/client/recv`` mid-reply and
+``gtm/client/failover`` at the reconnect. Left out of the reference's
+client: the trace envelope (OP_TRACED, OP_TRACE_FETCH) with its
+capability probe and that probe's ``gtm/client/probe`` failpoint, the
+wait-event and per-statement accounting, ``NativeGTS(standby=,
+connect_retries=)`` and ``repoint``. A lost connection is retried on the
+same endpoint, then on the standby ``set_standby`` named (``failovers``
+counts the switches).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import threading
 import weakref
 from typing import Optional
 
+from opentenbase_tpu_torch.fault import FAULT, NET_CHECK
 from opentenbase_tpu_torch.gtm.gts import GlobalTimestamp, TxnInfo, TxnState
 from opentenbase_tpu_torch.net.protocol import shutdown_and_close
 
@@ -74,6 +79,8 @@ def _lp(s: str) -> bytes:
 
 
 def _recv_exact_from(sock: socket.socket, n: int) -> bytes:
+    # failpoint: the GTM's reply stream stalling or vanishing mid-frame
+    FAULT("gtm/client/recv")
     out = b""
     while len(out) < n:
         chunk = sock.recv(n - len(out))
@@ -137,6 +144,12 @@ class NativeGTS:
         self._finalizer = None
         # a local mirror of transaction state, for TxnInfo
         self._txns: dict[int, TxnInfo] = {}
+        # the GTM standby (gtm_standby.c's client side): where a lost
+        # connection fails over once the primary refuses; the first
+        # primary is kept, so a later loss tries it first again
+        self._primary: tuple = (host, port)
+        self._standby: Optional[tuple] = None
+        self.failovers = 0
 
     @property
     def pid(self) -> Optional[int]:
@@ -198,6 +211,11 @@ class NativeGTS:
         msg = struct.pack("<IB", 1 + len(payload), op) + payload
         with self._lock:
             try:
+                # failpoint: the request boundary every grant crosses
+                FAULT("gtm/client/rpc", op=op)
+                # the matrix: a cut coordinator -> GTM leg fails the
+                # grant like a peer reset
+                NET_CHECK(self.host, self.port, timeout_s=10)
                 self._sock.sendall(msg)
                 hdr = self._recv_exact(4)
                 (length,) = struct.unpack("<I", hdr)
@@ -216,39 +234,59 @@ class NativeGTS:
             raise err
         return body[1:]
 
+    def set_standby(self, host: str, port: int) -> None:
+        """The standby's address, the failover target of a lost
+        connection."""
+        self._standby = (str(host), int(port))
+
     def _reconnect_rpc(self, msg: bytes, err: Exception) -> bytes:
-        """Reconnect to the server and retry the one request in flight (a
-        fast restart on the same endpoint). Caller holds the lock. The
-        retried ops are safe to repeat: grants are fresh values, commit,
-        abort, forget and prepare are idempotent per gxid, and a begin
-        twice burns a number."""
+        """Reconnect, to the current endpoint first (a fast restart),
+        then the first primary and the standby, and retry the one
+        request in flight. Caller holds the lock. The retried ops are
+        safe to repeat: grants are fresh values, commit, abort, forget
+        and prepare are idempotent per gxid, and a begin twice burns a
+        number."""
         from opentenbase_tpu_torch.net.client import connect_with_retry
 
-        try:
-            sock = connect_with_retry(self.host, self.port, timeout=10,
-                                      retries=1)
-        except Exception as e:
-            log.error("GTM unreachable: %s (%r)", err, e)
-            raise GTSProtocolError(f"GTM unreachable: {err}") from err
-        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        try:
-            sock.sendall(msg)
-            hdr = _recv_exact_from(sock, 4)
-            (length,) = struct.unpack("<I", hdr)
-            body = _recv_exact_from(sock, length)
-        except (OSError, GTSProtocolError) as e:
+        # failpoint: the reconnect-and-retry ladder itself
+        FAULT("gtm/client/failover")
+        candidates = [(self.host, self.port)]
+        for cand in (self._primary, self._standby):
+            if cand is not None and cand not in candidates:
+                candidates.append(cand)
+        for host, port in candidates:
             try:
-                sock.close()
+                sock = connect_with_retry(host, port, timeout=10, retries=1)
+            except Exception as e:
+                log.debug("GTM candidate %s:%s unreachable: %r", host, port,
+                          e)
+                continue
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            try:
+                sock.sendall(msg)
+                hdr = _recv_exact_from(sock, 4)
+                (length,) = struct.unpack("<I", hdr)
+                body = _recv_exact_from(sock, length)
+            except (OSError, GTSProtocolError):
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                continue
+            try:
+                self._sock.close()
             except OSError:
                 pass
-            log.error("GTM unreachable: %s (%r)", err, e)
-            raise GTSProtocolError(f"GTM unreachable: {err}") from err
-        try:
-            self._sock.close()
-        except OSError:
-            pass
-        self._sock = sock
-        return body
+            self._sock = sock
+            if (host, port) != (self.host, self.port):
+                log.warning("GTM connection failed over from %s:%s to "
+                            "%s:%s (%s)", self.host, self.port, host, port,
+                            err)
+                self.host, self.port = host, port
+                self.failovers += 1
+            return body
+        log.error("GTM unreachable: %s", err)
+        raise GTSProtocolError(f"GTM unreachable: {err}") from err
 
     def _recv_exact(self, n: int) -> bytes:
         return _recv_exact_from(self._sock, n)

@@ -20,8 +20,10 @@ core:
 
 A cluster talks to this object in process, or through gtm/server.py's
 TCP front end, or to the C++ server (gtm/native) through gtm/client.py.
-Left out of the reference's module: its failpoints and its log and
-trace rings.
+Failpoints (fault/): ``gtm/watermark`` at the clock's reserve-ahead
+write, ``gtm/persist_nodes`` and ``gtm/persist_seqs`` at the node
+registry's and the sequences' durability writes. Left out of the
+reference's module: its log and trace rings.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import time
 from dataclasses import dataclass
 from enum import Enum
 from typing import Callable, Optional
+
+from opentenbase_tpu_torch.fault import FAULT
 
 GlobalTimestamp = int
 
@@ -69,6 +73,9 @@ class GTSClock:
 
     def _advance_watermark(self) -> None:
         """Caller holds ``_lock`` (or is ``__init__``)."""
+        # failpoint: the reserve-ahead durability write (a promoted
+        # standby's clock must still resume above the watermark)
+        FAULT("gtm/watermark")
         self._watermark = self._last + self.RESERVE
         if self._store_path:
             tmp = self._store_path + ".tmp"
@@ -236,6 +243,9 @@ class GTSServer:
     # -- node registration ------------------------------------------------
     def _persist_nodes(self) -> None:
         """Caller holds ``_lock``."""
+        # failpoint: the node registry's durability (a promotion's
+        # re-registration crosses it)
+        FAULT("gtm/persist_nodes")
         if self._nodes_path is None:
             return
         tmp = self._nodes_path + ".tmp"
@@ -272,6 +282,9 @@ class GTSServer:
 
     def _persist_seqs(self) -> None:
         """Caller holds ``_lock``."""
+        # failpoint: an error is a GTM whose sequence store fsync
+        # failed (nextval must not over-promise ranges)
+        FAULT("gtm/persist_seqs")
         if self._seq_path is None:
             return
         state = {}

@@ -6,20 +6,25 @@ the reference's proxy exists for: backends connect to a local proxy,
 which funnels every request over one upstream connection. This proxy
 speaks the native GTS wire protocol on both sides (``NativeGTS`` clients
 and the C++ or Python GTM servers are oblivious to it) and keeps per-op
-counters (gtm_stat.c). Left out of the reference's module: the
-failpoints.
+counters (gtm_stat.c). Failpoints (fault/): ``gtm/proxy/accept``,
+``gtm/proxy/serve`` per request, ``gtm/proxy/recv`` per frame read and
+``gtm/proxy_upstream`` at the shared upstream exchange.
 """
 
 from __future__ import annotations
 
+import logging
 import socket
 import struct
 import threading
 from collections import Counter
 from typing import Optional
 
+from opentenbase_tpu_torch.fault import FAULT
 from opentenbase_tpu_torch.gtm.client import NativeGTS
 from opentenbase_tpu_torch.net.protocol import shutdown_and_close
+
+log = logging.getLogger(__name__)
 
 
 class GTSProxy:
@@ -58,6 +63,14 @@ class GTSProxy:
                 conn, _ = self._lsock.accept()
             except OSError:
                 return
+            try:
+                # a try of its own: drop_conn is an OSError the accept's
+                # handler would read as a closed listener
+                FAULT("gtm/proxy/accept")
+            except Exception as e:
+                log.warning("proxy frontend attach refused: %r", e)
+                shutdown_and_close(conn)
+                continue
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             threading.Thread(
                 target=self._serve, args=(conn,), daemon=True
@@ -68,6 +81,9 @@ class GTSProxy:
             self.frontends += 1
         try:
             while not self._stop.is_set():
+                # failpoint: one frontend's request loop (error and
+                # drop_conn sever this frontend; delay a slow hop)
+                FAULT("gtm/proxy/serve")
                 head = _recv_exact(conn, 4)
                 if head is None:
                     return
@@ -101,6 +117,9 @@ class GTSProxy:
         is not idempotent)."""
         with self.upstream._lock:
             try:
+                # failpoint: the one upstream socket (drop_conn drives
+                # the connection's replacement below)
+                FAULT("gtm/proxy_upstream")
                 self.upstream._sock.sendall(frame)
                 rhead = self.upstream._recv_exact(4)
                 (rlen,) = struct.unpack("<I", rhead)
@@ -127,6 +146,8 @@ def _recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:
     out = b""
     while len(out) < n:
         try:
+            # failpoint: a torn frontend frame (drop_conn is an OSError)
+            FAULT("gtm/proxy/recv")
             chunk = sock.recv(n - len(out))
         except OSError:
             return None

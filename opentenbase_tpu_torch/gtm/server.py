@@ -6,8 +6,10 @@ gtm/client.py), so ``NativeGTS`` connects to either implementation: the
 C++ server for a standalone GTM, this wrapper to serve an in-process
 GTSServer (a just-promoted standby, say) to remote backends, as the
 reference's one gtm binary serves as primary, standby or proxy.
-Left out of the reference's module: the trace envelope and the
-failpoints.
+Failpoints (fault/): ``gtm/frontend/accept``, ``gtm/server/serve``
+between frames, ``gtm/server/recv`` mid-frame and ``gtm/grant`` in
+every verb's dispatch. Left out of the reference's module: the trace
+envelope.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import socket
 import struct
 import threading
 from typing import Optional
+
+from opentenbase_tpu_torch.fault import FAULT
 
 from opentenbase_tpu_torch.gtm import client as C
 from opentenbase_tpu_torch.gtm.gts import GTSServer
@@ -67,6 +71,14 @@ class GTSFrontend:
                 conn, _ = self._lsock.accept()
             except OSError:
                 return
+            try:
+                # a try of its own: an injected drop severs one backend,
+                # never the front end's accept thread
+                FAULT("gtm/frontend/accept")
+            except Exception as e:
+                log.warning("backend attach refused: %r", e)
+                shutdown_and_close(conn)
+                continue
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             with self._conns_mu:
                 self._conns.add(conn)
@@ -82,6 +94,8 @@ class GTSFrontend:
     def _serve(self, conn: socket.socket) -> None:
         try:
             while True:
+                # failpoint: a backend severed between frames
+                FAULT("gtm/server/serve")
                 head = self._recv_exact(conn, 4)
                 if head is None:
                     return
@@ -110,6 +124,10 @@ class GTSFrontend:
                 pass
 
     def _dispatch(self, op: int, p: bytes) -> bytes:
+        # failpoint: every GTM verb. error is a failed grant (the
+        # backend sees a protocol error and may fail over); delay a slow
+        # GTM; drop_conn tears this backend's connection
+        FAULT("gtm/grant", op=op)
         g = self.gts
         if op in (C.OP_GET_GTS, C.OP_SNAPSHOT):
             fn = g.get_gts if op == C.OP_GET_GTS else g.snapshot_ts
@@ -210,6 +228,8 @@ class GTSFrontend:
 
     @staticmethod
     def _recv_exact(conn: socket.socket, n: int) -> Optional[bytes]:
+        # failpoint: a backend vanishing mid-frame
+        FAULT("gtm/server/recv")
         out = b""
         while len(out) < n:
             chunk = conn.recv(n - len(out))

@@ -15,7 +15,8 @@ promotes it with ``gtm_ctl promote``. Here:
   ``serve_feed`` / ``connect_feed`` carry the feed over TCP to a standby
   in another process, framed like the GTS native protocol.
 
-Left out of the reference's module: the failpoints.
+Failpoints (fault/): ``gtm/feed`` per event, ``gtm/standby/accept``,
+``gtm/standby/send`` and ``gtm/standby/recv`` per frame.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import struct
 import threading
 from typing import Optional
 
+from opentenbase_tpu_torch.fault import FAULT
 from opentenbase_tpu_torch.gtm.gts import (
     GTSClock,
     GTSServer,
@@ -229,6 +231,9 @@ def serve_feed(link: ReplicationLink, host: str = "127.0.0.1",
             _send(conn, {"snapshot": snap, "lsn": lsn})
             while True:
                 event, payload = q.get()
+                # failpoint: the feed (drop_conn severs the standby,
+                # which resyncs on reconnect; delay a lagging standby)
+                FAULT("gtm/feed", event=event)
                 _send(conn, {"event": event, "payload": payload})
         except OSError:
             pass
@@ -242,6 +247,14 @@ def serve_feed(link: ReplicationLink, host: str = "127.0.0.1",
                 conn, _ = lsock.accept()
             except OSError:
                 return
+            try:
+                # a try of its own: an injected drop refuses one
+                # standby's attach, never the feed's listener
+                FAULT("gtm/standby/accept")
+            except Exception as e:
+                log.warning("standby feed attach refused: %r", e)
+                shutdown_and_close(conn)
+                continue
             threading.Thread(target=pump, args=(conn,), daemon=True).start()
 
     t = threading.Thread(target=accept_loop, daemon=True)
@@ -279,11 +292,15 @@ def connect_feed(host: str, port: int) -> tuple["GTSStandby", threading.Thread]:
 
 
 def _send(sock: socket.socket, obj: dict) -> None:
+    # failpoint: the primary dying mid-frame (a torn feed)
+    FAULT("gtm/standby/send")
     data = json.dumps(obj).encode()
     sock.sendall(struct.pack("<I", len(data)) + data)
 
 
 def _recv(sock: socket.socket):
+    # failpoint: the standby's frame read
+    FAULT("gtm/standby/recv")
     head = b""
     while len(head) < 4:
         chunk = sock.recv(4 - len(head))

@@ -37,8 +37,18 @@ datanode applied its frame, so whichever the monitor promotes (the
 reachable one with the highest ``applied``) holds every acknowledged
 write.
 
-Not ported: the failpoints (``FAULT`` / ``NET_CHECK`` sites) and the
-chaos schedule that drives them.
+The RPC half of a failover (ping and pick, promote, the fencing ping,
+``repl_repoint``, the timeline probe, restarting in-process standbys)
+is one function over (host, port) endpoints, ``failover_endpoints``:
+``HATopology.failover`` drives it for its datanodes, and anything else
+holding datanode processes can call it directly.
+
+Failpoints (fault/): ``ha/probe`` (with the connectivity matrix's check
+on the probe leg), ``ha/lease_renew``, ``ha/lease_check`` and
+``ha/failover``. The monitor's probes travel as actor ``monitor`` and a
+lease's renewals under the coordinator's name, and a failed failover's
+backoff jitter comes from ``chaos_rng("ha/failover_backoff")`` under a
+chaos schedule (fault/schedule.py).
 """
 
 from __future__ import annotations
@@ -51,6 +61,12 @@ import threading
 import time
 from typing import Optional
 
+from opentenbase_tpu_torch.fault import (
+    FAULT,
+    NET_CHECK,
+    chaos_rng,
+    set_thread_actor,
+)
 from opentenbase_tpu_torch.net.protocol import (
     recv_frame,
     send_frame,
@@ -64,6 +80,12 @@ def _probe_ping(host: str, port: int, timeout_s: float = 0.5):
     """One liveness probe against a ClusterServer: a fresh socket, no
     retry (a dead primary answers 'down' in one refused connect), a
     short deadline."""
+    # failpoint: the failure detector's own probe (delay: a slow
+    # network making a live primary look dead; drop_conn: a probe eaten
+    # by a partition)
+    FAULT("ha/probe", host=host, port=port)
+    # the matrix: the probe leg is the one an asymmetric partition cuts
+    NET_CHECK(host, port, timeout_s=timeout_s)
     sock = socket.create_connection((host, port), timeout=timeout_s)
     try:
         sock.settimeout(timeout_s)
@@ -74,6 +96,125 @@ def _probe_ping(host: str, port: int, timeout_s: float = 0.5):
         return resp
     finally:
         shutdown_and_close(sock)
+
+
+def _endpoint_rpc(host: str, port: int, msg: dict, timeout_s: float,
+                  retries: int = 1) -> dict:
+    """One RPC to a datanode process on a channel of its own."""
+    from opentenbase_tpu_torch.net.pool import Channel
+
+    ch = Channel(host, port, timeout=timeout_s, connect_retries=retries)
+    try:
+        return ch.rpc(msg, timeout_s=timeout_s)
+    finally:
+        ch.close()
+
+
+def failover_endpoints(endpoints: list, generation: int, *, note=None,
+                       standbys=(), ping_timeout_s: float = 2.0,
+                       rpc_timeout_s: float = 15.0) -> dict:
+    """The RPC half of a failover over datanode processes at
+    ``endpoints`` ([(host, port), ...], index = datanode):
+
+    1. ping each and pick the reachable ones, highest applied LSN first;
+    2. ``promote`` the best with ``generation`` (a failed candidate
+       moves the loop to the next best);
+    3. fence every survivor at once (a ping carrying the promoted
+       generation), so a still live deposed primary cannot land a
+       phase 2 in a survivor while the heavier repoints run, then
+       ``repl_repoint`` each at the promoted walsender;
+    4. with ``standbys`` given, probe the promoted walsender's timeline
+       (``probe_timeline``) and restart each in-process entry (a
+       ``StandbyCluster``) on it; one past the timeline's base would
+       fork, and raises (it needs ``rejoin_standby``'s rewind).
+
+    ``note(kind, **fields)`` records each step (``HATopology._note``).
+    Returns {"ok", "candidates", "applied" (each endpoint's applied LSN,
+    None where its ping failed), "promoted", "resp" (the promote reply),
+    "repointed" {node: reply}, "timeline" (generation, base) or None,
+    "ms" {step: milliseconds}}; "ok" is False when no candidate
+    promoted."""
+    from opentenbase_tpu_torch.storage.replication import probe_timeline
+
+    _note = note or (lambda kind, **fields: None)
+    ms: dict = {}
+    cands = []
+    applied: list = [None] * len(endpoints)
+    for i, (host, port) in enumerate(endpoints):
+        try:
+            p = _endpoint_rpc(host, port, {"op": "ping"}, ping_timeout_s,
+                              retries=0)
+        except Exception:
+            continue
+        if p.get("ok"):
+            applied[i] = int(p.get("applied") or 0)
+            cands.append((applied[i], i))
+    cands.sort(reverse=True)
+    out = {"ok": False, "candidates": [i for _a, i in cands],
+           "applied": applied, "promoted": None, "resp": None,
+           "repointed": {}, "timeline": None, "ms": ms}
+    promoted = None
+    t0 = time.perf_counter()
+    for _applied, i in cands:
+        host, port = endpoints[i]
+        try:
+            resp = _endpoint_rpc(host, port, {
+                "op": "promote", "generation": generation,
+                "hgen": generation}, rpc_timeout_s)
+            if resp.get("ok"):
+                promoted = (i, resp)
+                break
+        except Exception as e:
+            _note("promote_failed", candidate=i, error=str(e)[:200])
+    ms["promote"] = (time.perf_counter() - t0) * 1000.0
+    if promoted is None:
+        return out
+    i, resp = promoted
+    out.update(ok=True, promoted=i, resp=resp)
+    wal_host = endpoints[i][0]
+    wal_port = int(resp.get("wal_port") or 0)
+    new_gen = int(resp["generation"])
+    _note("promoted", node=i, generation=new_gen,
+          promote_lsn=int(resp.get("promote_lsn") or 0),
+          sql_port=int(resp["port"]), wal_port=wal_port)
+    survivors = [j for j in range(len(endpoints)) if j != i]
+    t0 = time.perf_counter()
+    for j in survivors:
+        try:
+            _endpoint_rpc(*endpoints[j], {"op": "ping", "hgen": new_gen},
+                          ping_timeout_s)
+        except Exception as e:
+            _note("fence_failed", node=j, error=str(e)[:200])
+    for j in survivors:
+        try:
+            rp = _endpoint_rpc(*endpoints[j], {
+                "op": "repl_repoint", "wal_host": wal_host,
+                "wal_port": wal_port, "hgen": new_gen}, rpc_timeout_s)
+            out["repointed"][j] = rp
+            if rp.get("ok"):
+                _note("repointed", node=j,
+                      applied=int(rp.get("applied") or 0))
+            else:
+                _note("repoint_failed", node=j,
+                      error=str(rp.get("error"))[:200])
+        except Exception as e:
+            _note("repoint_failed", node=j, error=str(e)[:200])
+    ms["repoint"] = (time.perf_counter() - t0) * 1000.0
+    if wal_port and standbys:
+        try:
+            out["timeline"] = tuple(probe_timeline(wal_host, wal_port))
+        except Exception as e:
+            _note("timeline_probe_failed", error=str(e)[:200])
+        t0 = time.perf_counter()
+        for sb in standbys:
+            base = out["timeline"][1] if out["timeline"] else None
+            if base is None or sb.applied > base:
+                raise RuntimeError(
+                    f"standby at {sb.applied} cannot follow the promoted "
+                    f"timeline (base {base}) without a rewind")
+            sb.restart_replication(wal_host, wal_port)
+        ms["restart"] = (time.perf_counter() - t0) * 1000.0
+    return out
 
 
 class ServingLease:
@@ -145,6 +286,7 @@ class ServingLease:
 
     def renew(self) -> bool:
         """One renewal round; True when a datanode majority granted."""
+        FAULT("ha/lease_renew", holder=self.name)
         with self._mu:
             if self._fenced:
                 return False
@@ -162,6 +304,7 @@ class ServingLease:
 
     def valid(self) -> bool:
         """The statement gate, checked before every statement."""
+        FAULT("ha/lease_check", holder=self.name)
         with self._mu:
             if self._fenced:
                 return False
@@ -191,6 +334,10 @@ class ServingLease:
         return self
 
     def _loop(self) -> None:
+        # the renewal leg carries the coordinator's own name, so a
+        # partition can cut coordinator -> datanodes while clients
+        # still reach the coordinator
+        set_thread_actor(self.name)
         interval = max(self.ttl_ms / 3000.0, 0.02)
         while not self._stop.wait(interval):
             try:
@@ -319,27 +466,14 @@ class HATopology:
             return None
 
     def dn_ping(self, i: int, timeout_s: float = 2.0):
-        from opentenbase_tpu_torch.net.pool import Channel
-
         try:
-            ch = Channel("127.0.0.1", self.dns[i].port, timeout=timeout_s,
-                         connect_retries=0)
-            try:
-                return ch.rpc({"op": "ping"}, timeout_s=timeout_s)
-            finally:
-                ch.close()
+            return _endpoint_rpc("127.0.0.1", self.dns[i].port,
+                                 {"op": "ping"}, timeout_s, retries=0)
         except Exception:
             return None
 
     def _dn_rpc(self, i: int, msg: dict, timeout_s: float = 15.0):
-        from opentenbase_tpu_torch.net.pool import Channel
-
-        ch = Channel("127.0.0.1", self.dns[i].port, timeout=timeout_s,
-                     connect_retries=1)
-        try:
-            return ch.rpc(msg, timeout_s=timeout_s)
-        finally:
-            ch.close()
+        return _endpoint_rpc("127.0.0.1", self.dns[i].port, msg, timeout_s)
 
     # -- the primary's death ----------------------------------------------
     def crash_primary(self) -> None:
@@ -378,7 +512,12 @@ class HATopology:
         4. attach the survivors to the promoted cluster as its datanode
            channels and resolve in-doubt 2PC votes against the promoted
            WAL;
-        5. flip client routing to the promoted SQL port."""
+        5. flip client routing to the promoted SQL port.
+
+        Steps 1-3 are ``failover_endpoints``."""
+        # failpoint: the controller's own failover (error: a controller
+        # dying mid-failover; the monitor's next beat retries)
+        FAULT("ha/failover")
         with self._mu:
             if self.promoted_index is not None:
                 return {"ok": True, "already": True,
@@ -390,60 +529,21 @@ class HATopology:
                         "error": "failover suppressed by heal cooldown"}
             gen = self.generation + 1
         rec = self._note("failover_start", reason=reason, generation=gen)
-        cands = []
-        for i in range(len(self.dns)):
-            p = self.dn_ping(i)
-            if p and p.get("ok"):
-                cands.append((int(p.get("applied") or 0), i))
-        cands.sort(reverse=True)
-        rec["candidates"] = [i for _a, i in cands]
-        promoted = None
-        for _applied, i in cands:
-            try:
-                resp = self._dn_rpc(
-                    i, {"op": "promote", "generation": gen, "hgen": gen})
-                if resp.get("ok"):
-                    promoted = (i, resp)
-                    break
-            except Exception as e:
-                self._note("promote_failed", candidate=i, error=str(e)[:200])
-        if promoted is None:
+        res = failover_endpoints(
+            [("127.0.0.1", dn.port) for dn in self.dns], gen,
+            note=self._note)
+        rec["candidates"] = res["candidates"]
+        if not res["ok"]:
             self._note("failover_failed", reason="no candidate promoted")
             return {"ok": False, "error": "no candidate promoted"}
-        i, resp = promoted
+        i, resp = res["promoted"], res["resp"]
         dn = self.dns[i]
         newc = dn.standby.cluster
         wal_port = int(resp.get("wal_port") or 0)
         new_gen = int(resp["generation"])
-        self._note("promoted", node=i, generation=new_gen,
-                   promote_lsn=int(resp.get("promote_lsn") or 0),
-                   sql_port=int(resp["port"]), wal_port=wal_port)
-        # fence every survivor first, in one round trip each: a still
-        # live deposed primary must not land a phase 2 in a survivor's
-        # stores while the heavier repoints run
         for j in range(len(self.dns)):
             if j == i:
                 continue
-            try:
-                self._dn_rpc(j, {"op": "ping", "hgen": new_gen},
-                             timeout_s=2.0)
-            except Exception as e:
-                self._note("fence_failed", node=j, error=str(e)[:200])
-        for j in range(len(self.dns)):
-            if j == i:
-                continue
-            try:
-                rp = self._dn_rpc(j, {
-                    "op": "repl_repoint", "wal_host": "127.0.0.1",
-                    "wal_port": wal_port, "hgen": new_gen})
-                if rp.get("ok"):
-                    self._note("repointed", node=j,
-                               applied=int(rp.get("applied") or 0))
-                else:
-                    self._note("repoint_failed", node=j,
-                               error=str(rp.get("error"))[:200])
-            except Exception as e:
-                self._note("repoint_failed", node=j, error=str(e)[:200])
             try:
                 newc.attach_datanode(j, "127.0.0.1", self.dns[j].port,
                                      pool_size=2)
@@ -622,13 +722,20 @@ class HAMonitor:
     coordinator every ``failover_detect_ms / failover_beats`` ms; after
     ``failover_beats`` consecutive missed beats it declares the primary
     dead and drives ``HATopology.failover``. A single missed beat never
-    promotes; a failed failover backs off exponentially with jitter."""
+    promotes; a failed failover backs off exponentially with jitter.
+    ``detect_ms`` and ``beats`` override the topology's conf (a chaos
+    schedule sets them)."""
 
-    def __init__(self, topology: HATopology):
+    def __init__(self, topology: HATopology, detect_ms: Optional[int] = None,
+                 beats: Optional[int] = None):
         conf = topology.conf_gucs
+        if detect_ms is None:
+            detect_ms = int(conf.get("failover_detect_ms") or 3000)
+        if beats is None:
+            beats = int(conf.get("failover_beats") or 3)
         self.topology = topology
-        self.detect_ms = int(conf.get("failover_detect_ms") or 3000)
-        self.beats = max(int(conf.get("failover_beats") or 3), 1)
+        self.detect_ms = int(detect_ms)
+        self.beats = max(int(beats), 1)
         self.interval_s = self.detect_ms / self.beats / 1000.0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -654,6 +761,9 @@ class HAMonitor:
             self._thread.join(timeout=5)
 
     def _loop(self) -> None:
+        # the monitor's probes travel as "monitor" in the matrix: the leg
+        # an asymmetric partition severs while clients still connect
+        set_thread_actor("monitor")
         while not self._stop.wait(self.interval_s):
             try:
                 self._beat()
@@ -701,8 +811,11 @@ class HAMonitor:
                 self.failover_retries += 1
                 delay = min(self.interval_s * (2 ** self._fo_attempts),
                             self.failover_retry_max_ms / 1000.0)
+                # full jitter, replayable from a chaos schedule's seed
+                rng = chaos_rng("ha/failover_backoff")
+                draw = rng.random() if rng is not None else random.random()
                 self._next_fo_at = (time.monotonic()
-                                    + delay * (0.5 + random.random() * 0.5))
+                                    + delay * (0.5 + draw * 0.5))
         if not res.get("ok"):
             st = topo.active_cluster.ha_stats
             st["failover_retries"] = st.get("failover_retries", 0) + 1

@@ -31,6 +31,8 @@ Incremental maintenance (the delta path):
 Filter/project matviews skip the aux machinery: Q(Δins) rows append,
 Q(Δdel) rows retract one-for-one (multiset semantics, the same
 old-tuple matching the logical-replication apply worker uses).
+
+The compute phase passes the ``matview/refresh`` failpoint (fault/).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import uuid
 from typing import Optional
 
 from opentenbase_tpu_torch.catalog.distribution import DistributionSpec, DistStrategy
+from opentenbase_tpu_torch.fault import FAULT
 from opentenbase_tpu_torch.matview.defs import (
     STATE_TABLE,
     MatviewDef,
@@ -308,6 +311,8 @@ def refresh_matview(session, d: MatviewDef, concurrently: bool = False) -> dict:
     try:
         try:
             with gate:
+                # failpoint: a stalled or failed compute phase
+                FAULT("matview/refresh", matview=d.name)
                 if (
                     durable
                     and d.wants_incremental()

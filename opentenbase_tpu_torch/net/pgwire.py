@@ -36,6 +36,7 @@ import struct
 import threading
 from typing import Optional
 
+from opentenbase_tpu_torch.fault import FAULT
 from opentenbase_tpu_torch.net import auth as sa
 from opentenbase_tpu_torch.net.protocol import shutdown_and_close
 from opentenbase_tpu_torch.net.server import (
@@ -191,6 +192,8 @@ class _Conn:
 
     # -- receive ---------------------------------------------------------
     def _read_exact(self, n: int) -> bytes:
+        # failpoint: a v3 client vanishing or stalling mid-message
+        FAULT("net/pgwire/recv")
         buf = b""
         while len(buf) < n:
             chunk = self.sock.recv(n - len(buf))
@@ -221,11 +224,15 @@ class _Conn:
         self._out += tag + struct.pack("!I", len(body) + 4) + body
 
     def flush(self) -> None:
+        # failpoint: the response path (drop_conn: the client's socket
+        # dying under a half-written result)
+        FAULT("net/pgwire/send")
         if self._out:
             self.sock.sendall(bytes(self._out))
             self._out.clear()
 
     def send_raw(self, data: bytes) -> None:
+        FAULT("net/pgwire/send_raw")
         self.sock.sendall(data)
 
     # -- message builders ------------------------------------------------
@@ -303,6 +310,16 @@ class PgWireServer:
                 sock, _ = self._lsock.accept()
             except OSError:
                 return
+            try:
+                # failpoint: a refused or dropped v3 client at accept;
+                # the accept loop survives any injected action
+                FAULT("net/pgwire/accept")
+            except Exception:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                continue
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             threading.Thread(
                 target=self._serve, args=(sock,), daemon=True

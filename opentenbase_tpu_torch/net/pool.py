@@ -8,7 +8,6 @@ warm framed-RPC channel to a datanode (opening lazily up to ``size``),
 release it back, discard broken ones, and answer pooler-stat queries.
 A peer that refuses a caller's stale fencing generation raises
 ``ChannelFenced`` (SQLSTATE 72000), never a retryable ``ChannelError``.
-Not ported: the failpoints.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import socket
 import threading
 from typing import Optional
 
+from opentenbase_tpu_torch.fault import FAULT, NET_CHECK
 from opentenbase_tpu_torch.net.protocol import (
     encode_frame,
     recv_frame_sized,
@@ -74,7 +74,14 @@ class Channel:
         try:
             if timeout_s is not None:
                 self.sock.settimeout(timeout_s)
+            FAULT("net/pool/rpc_send", op=msg.get("op"))
+            # the matrix: an established channel on a cut link fails
+            # here like a peer reset (broken, so the pool discards it)
+            NET_CHECK(self.host, self.port,
+                      timeout_s=(timeout_s if timeout_s is not None
+                                 else self._timeout))
             self.sock.sendall(frame)
+            FAULT("net/pool/rpc_recv", op=msg.get("op"))
             resp, nrecv = recv_frame_sized(self.sock)
         except OSError as e:
             self.broken = True

@@ -33,6 +33,7 @@ import socket
 import struct
 
 from opentenbase_tpu_torch.errors import FrameTooLarge
+from opentenbase_tpu_torch.fault import FAULT
 
 MAX_FRAME_PAYLOAD = 2**32 - 1
 
@@ -130,6 +131,9 @@ def encode_frame(obj: dict) -> bytes:
 
 
 def send_frame(sock: socket.socket, obj: dict) -> None:
+    # failpoint at the shared frame-send boundary: every JSON-wire peer
+    # (sessions, datanode replies, the GTM) crosses it
+    FAULT("net/protocol/send")
     sock.sendall(encode_frame(obj))
 
 
@@ -152,6 +156,8 @@ def recv_frame_sized(sock: socket.socket) -> tuple[dict | None, int]:
 def _recv_exact(sock: socket.socket, n: int) -> bytearray | None:
     """``n`` bytes into one preallocated buffer (a large frame arrives
     in many reads: appending them would copy quadratically)."""
+    # failpoint: a peer stalling or vanishing mid-frame (torn reads)
+    FAULT("net/protocol/recv")
     buf = bytearray(n)
     view = memoryview(buf)
     got = 0

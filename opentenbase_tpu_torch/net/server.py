@@ -29,6 +29,11 @@ import threading
 from typing import Optional
 
 from opentenbase_tpu_torch.errors import NotPorted
+from opentenbase_tpu_torch.fault import (
+    FAULT,
+    FaultDropConnection,
+    set_thread_actor,
+)
 from opentenbase_tpu_torch.net import auth as sa
 from opentenbase_tpu_torch.net.protocol import (
     recv_frame,
@@ -227,6 +232,16 @@ class ClusterServer:
                 conn, _addr = self._lsock.accept()
             except OSError:
                 return  # listener closed
+            try:
+                # failpoint: a coordinator refusing or dropping a new
+                # backend; the accept loop survives any injected action
+                FAULT("net/server/accept")
+            except Exception:
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+                continue
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             self._conns.add(conn)
             t = threading.Thread(
@@ -239,6 +254,11 @@ class ClusterServer:
             self._conn_threads.append(t)
 
     def _serve_conn(self, conn: socket.socket) -> None:
+        # every wire op this backend makes for its client travels under
+        # the coordinator's name in the connectivity matrix: a cut of
+        # the coordinator's egress severs work done for a client too
+        set_thread_actor(
+            getattr(self.cluster, "coordinator_name", "cn0") or "cn0")
         session = self.cluster.session()
         # trust while no role exists; once one does, the SCRAM exchange
         # comes before the first statement
@@ -275,6 +295,10 @@ class ClusterServer:
                     send_frame(conn, {"error": "malformed request"})
                     continue
                 try:
+                    # failpoint: statement dispatch. drop_conn tears the
+                    # backend down mid-protocol; error reaches the
+                    # client as an error frame
+                    FAULT("net/server/dispatch")
                     res = run_classified(
                         self.cluster, session, sql,
                         lambda: session.execute(sql))
@@ -287,6 +311,8 @@ class ClusterServer:
                         # the WAL end after the statement
                         "wal_pos": int(p.wal.position) if p else 0,
                     })
+                except FaultDropConnection:
+                    raise  # sever this backend like a peer reset
                 except Exception as e:
                     frame = {"error": f"{type(e).__name__}: {e}"}
                     sqlstate = getattr(e, "sqlstate", None)
@@ -323,6 +349,9 @@ class ClusterServer:
         proved the password. Unknown users get a fake salt, stable per
         user and keyed by a per-cluster secret, so the flow does not
         tell which roles exist."""
+        # failpoint: a client vanishing mid-handshake leaves no half
+        # authenticated backend
+        FAULT("net/server/scram")
         user = str(msg.get("user", ""))
         client_nonce = str(msg.get("client_nonce", ""))
         verifier = self.cluster.users.get(user)

@@ -9,6 +9,7 @@ unreserved-keyword classes.
 from __future__ import annotations
 
 import enum
+import re
 from dataclasses import dataclass
 
 
@@ -36,6 +37,17 @@ _OPERATORS = [
     "<>", "!=", ">=", "<=", "||", "::",
     "+", "-", "*", "/", "%", "^", "(", ")", ",", ".", ";", "=", "<", ">", "[", "]",
 ]
+# the same operators by length: a two-character match wins, as the
+# longest-first scan above gives, in one set lookup each
+_OPS2 = frozenset(op for op in _OPERATORS if len(op) == 2)
+_OPS1 = frozenset(op for op in _OPERATORS if len(op) == 1)
+# a run of whitespace; an identifier's continuation: \w is exactly
+# str.isalnum() or '_' (re's documented definition), '$' added
+_WS = re.compile(r"[ \t\r\n]+")
+_IDENT_CONT = re.compile(r"[\w$]*")
+# a run of ASCII digits (str.isdigit() takes more: the scan steps over
+# any other digit one at a time)
+_DIGITS = re.compile(r"[0-9]+")
 
 
 class LexError(ValueError):
@@ -51,8 +63,12 @@ def tokenize(sql: str) -> list[Token]:
     i, n = 0, len(sql)
     while i < n:
         c = sql[i]
-        if c in " \t\r\n":
+        if c in "(),":  # the commonest tokens; none starts anything longer
+            out.append(Token(Tok.OP, c, i))
             i += 1
+            continue
+        if c in " \t\r\n":
+            i = _WS.match(sql, i).end()
             continue
         if c == "-" and sql.startswith("--", i):
             j = sql.find("\n", i)
@@ -72,21 +88,21 @@ def tokenize(sql: str) -> list[Token]:
             i = j
             continue
         if c == "'":
+            # the literal's runs between quotes, a doubled '' one quote
             j = i + 1
             buf = []
             while True:
-                if j >= n:
+                k = sql.find("'", j)
+                if k < 0:
                     raise LexError("unterminated string literal", sql, i)
-                if sql[j] == "'":
-                    if j + 1 < n and sql[j + 1] == "'":  # escaped ''
-                        buf.append("'")
-                        j += 2
-                        continue
-                    break
-                buf.append(sql[j])
-                j += 1
+                buf.append(sql[j:k])
+                if k + 1 < n and sql[k + 1] == "'":  # escaped ''
+                    buf.append("'")
+                    j = k + 2
+                    continue
+                break
             out.append(Token(Tok.STRING, "".join(buf), i))
-            i = j + 1
+            i = k + 1
             continue
         if c == '"':
             j = sql.find('"', i + 1)
@@ -108,7 +124,8 @@ def tokenize(sql: str) -> list[Token]:
             while j < n:
                 ch = sql[j]
                 if ch.isdigit():
-                    j += 1
+                    m = _DIGITS.match(sql, j)
+                    j = m.end() if m else j + 1
                 elif ch == "." and not seen_dot and not seen_exp:
                     seen_dot = True
                     j += 1
@@ -123,21 +140,19 @@ def tokenize(sql: str) -> list[Token]:
             i = j
             continue
         if c.isalpha() or c == "_":
-            j = i
             # '$' is a valid identifier char after the first (PG scan.l's
             # ident_cont); partition children are named parent$pK
-            while j < n and (sql[j].isalnum() or sql[j] in "_$"):
-                j += 1
+            j = _IDENT_CONT.match(sql, i + 1).end()
             # Unquoted identifiers fold to lowercase (PG downcase_identifier).
             out.append(Token(Tok.IDENT, sql[i:j].lower(), i))
             i = j
             continue
-        for op in _OPERATORS:
-            if sql.startswith(op, i):
-                out.append(Token(Tok.OP, op, i))
-                i += len(op)
-                break
-        else:
-            raise LexError(f"unexpected character {c!r}", sql, i)
+        op = sql[i:i + 2]
+        if op not in _OPS2:
+            if c not in _OPS1:
+                raise LexError(f"unexpected character {c!r}", sql, i)
+            op = c
+        out.append(Token(Tok.OP, op, i))
+        i += len(op)
     out.append(Token(Tok.EOF, "", n))
     return out

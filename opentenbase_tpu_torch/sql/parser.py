@@ -995,11 +995,21 @@ class Parser:
 
     def _values_row(self) -> list[A.Expr]:
         self.expect_op("(")
-        row = [self.parse_expr()]
+        row = [self._values_item()]
         while self.eat_op(","):
-            row.append(self.parse_expr())
+            row.append(self._values_item())
         self.expect_op(")")
         return row
+
+    def _values_item(self) -> A.Expr:
+        """One VALUES item: a bare literal ahead of ',' or ')' is its own
+        primary (no operator or postfix continues it), the rest a full
+        expression. A bulk INSERT's items are nearly all bare literals."""
+        t, nxt = self.cur, self.peek(1)
+        if (t.kind in (Tok.NUMBER, Tok.STRING) and nxt.kind == Tok.OP
+                and nxt.value in (",", ")")):
+            return self._primary()
+        return self.parse_expr()
 
     def parse_update(self) -> A.Update:
         self.expect_kw("update")

@@ -52,7 +52,13 @@ its tables' committed-write counters (``Cluster.bump_table_versions``).
 Not ported, each refused by name: point-in-time recovery to a barrier
 (``recover(until_barrier=...)``), and every DDL record of a statement
 the port does not take (node groups, nodes, ...). Left out: base
-backups, rebalance journals and the fault failpoints.
+backups and rebalance journals.
+
+Failpoints (fault/): ``storage/wal_write`` before a record's first
+byte, ``storage/group_flush`` at the group-commit flush,
+``storage/wal_close`` at the shutdown flush, ``storage/checkpoint`` at
+a checkpoint's entry and ``storage/checkpoint_write`` where its files
+are written.
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ from opentenbase_tpu_torch.catalog.distribution import (
     DistStrategy,
 )
 from opentenbase_tpu_torch.errors import FrameTooLarge, NotPorted
+from opentenbase_tpu_torch.fault import FAULT
 from opentenbase_tpu_torch.storage.column import Column, Dictionary
 from opentenbase_tpu_torch.storage.table import (
     PENDING_TS,
@@ -248,6 +255,9 @@ class WAL:
         self, tag: bytes, header: dict,
         arrays: Optional[dict] = None, sync: bool = True,
     ) -> int:
+        # failpoint: a disk failure before any byte lands (the commit
+        # path rolls back); delay is a saturated log device
+        FAULT("storage/wal_write", tag=tag.decode("latin1"))
         hdr = json.dumps(header).encode()
         parts = [struct.pack("<I", len(hdr)), hdr]
         if arrays is not None:
@@ -281,6 +291,9 @@ class WAL:
         fsyncs for everyone waiting; ``delay_us`` with ``siblings_ok``
         (commit_delay / commit_siblings) naps the leader first so
         concurrent committers' frames join its batch."""
+        # failpoint: the group flush (error: the batch's fsync failing,
+        # every waiter sees it; delay stretches the whole batch)
+        FAULT("storage/group_flush")
         with self._flush_cv:
             self.commit_flushes += 1
         while True:
@@ -319,6 +332,8 @@ class WAL:
     def close(self) -> None:
         """Fsync the tail (synchronous_commit = off's unsynced frames
         become durable at a clean shutdown) and close."""
+        # failpoint: the disk dying under the final fsync
+        FAULT("storage/wal_close")
         try:
             with self._mu:
                 self._f.flush()
@@ -595,8 +610,14 @@ class ClusterPersistence:
         previous json naming the previous generation's files. Rows of
         transactions still in flight (xmin PENDING) are left out: if
         they commit, their 'G' frame replays them."""
+        # failpoint: a failure at the checkpoint's start; recovery
+        # works from the previous generation and the WAL tail
+        FAULT("storage/checkpoint")
         c = self.cluster
         gen = self._next_ckpt_gen()
+        # failpoint where the snapshot files are written: a failure here
+        # leaves the previous generation's json untouched
+        FAULT("storage/checkpoint_write", gen=gen)
         # a prepared transaction's rows (xmin PENDING) are decidable:
         # they stay in the snapshot, named by gid under "prepared"
         prep_ranges: dict[tuple[int, str], list[tuple[int, int]]] = {}

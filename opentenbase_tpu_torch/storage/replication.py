@@ -29,8 +29,14 @@ Self-healing HA (ha.py drives these):
   timeline base (``probe_timeline``), truncate the diverged local WAL
   past it, rebuild on the caller's device, and stream again.
 
-Not ported: the failpoints, and the reference's re-registration with
-the GTM after a promotion (the port has no GTM).
+Failpoints (fault/): ``repl/accept``, ``repl/ack_recv``,
+``repl/wal_stream`` (its ``wal_torn`` action tears each chunk at
+positions from ``site_rng``), ``repl/start_replication``,
+``repl/wal_recv`` and ``repl/probe``; the connectivity matrix is
+consulted at the attach, the stream and the probe.
+
+Not ported: the reference's re-registration with the GTM after a
+promotion (the port has no GTM).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import threading
 import time
 from typing import Optional
 
+from opentenbase_tpu_torch.fault import FAULT, NET_CHECK, site_rng
 from opentenbase_tpu_torch.net.protocol import (
     REPL_PROBE,
     pack_repl_ack,
@@ -182,6 +189,10 @@ class WalSender:
         try:
             while not self._stop.is_set():
                 try:
+                    # failpoint: a standby's ack stream (delay: the
+                    # slowest standby; drop_conn: a standby whose acks
+                    # a remote_write quorum may wait on)
+                    FAULT("repl/ack_recv")
                     off = recv_repl_ack(conn)
                 except (OSError, ConnectionError):
                     return
@@ -210,6 +221,15 @@ class WalSender:
                 conn, _ = self._lsock.accept()
             except OSError:
                 return
+            try:
+                # failpoint: a standby's attach refused. A try of its
+                # own: drop_conn is an OSError, which the accept's
+                # handler would read as a closed listener
+                FAULT("repl/accept")
+            except Exception as e:
+                log.warning("standby attach refused: %r", e)
+                shutdown_and_close(conn)
+                continue
             threading.Thread(target=self._stream, args=(conn,),
                              daemon=True).start()
 
@@ -267,7 +287,22 @@ class WalSender:
                             continue
                     chunk = f.read(self.CHUNK_BYTES)
                     if chunk:
-                        conn.sendall(chunk)
+                        # failpoint: wal_torn tears the chunk at byte
+                        # positions from the fault's seeded stream
+                        # (short writes the standby's reassembly must
+                        # survive); drop_conn is the sender dying
+                        act = FAULT("repl/wal_stream", bytes=len(chunk))
+                        if act == "wal_torn" and len(chunk) > 1:
+                            rng = site_rng("repl/wal_stream")
+                            pos = 0
+                            while pos < len(chunk):
+                                cut = pos + rng.randint(
+                                    1, max(len(chunk) - pos, 1))
+                                conn.sendall(chunk[pos:cut])
+                                pos = cut
+                                time.sleep(0.001)  # distinct recvs
+                        else:
+                            conn.sendall(chunk)
                         with self._peers_mu:
                             ent = self._peers.get(id(conn))
                             if ent is not None:
@@ -383,6 +418,10 @@ class StandbyCluster:
 
     # -- walreceiver ------------------------------------------------------
     def start_replication(self, host: str, port: int) -> "StandbyCluster":
+        # failpoint: the attach itself (a standby that cannot rejoin)
+        FAULT("repl/start_replication", host=host, port=port)
+        # the matrix: a standby on a cut link cannot attach
+        NET_CHECK(host, port, timeout_s=10)
         my_gen = self.cluster.node_generation
         self._sock = socket.create_connection((host, port), timeout=10)
         try:
@@ -428,6 +467,12 @@ class StandbyCluster:
         acked = -1
         while not self._stop.is_set():
             try:
+                # failpoint: the walreceiver stalling (delay) or dying
+                # (drop_conn) as under a network partition
+                FAULT("repl/wal_recv")
+                # the matrix: a cut mid-stream severs the receiver
+                peer = self._sock.getpeername()
+                NET_CHECK(peer[0], peer[1])
                 chunk = self._sock.recv(1 << 20)
             except OSError as e:
                 self._stream_end(f"walreceiver connection lost: {e}")
@@ -628,6 +673,9 @@ class StandbyCluster:
 def probe_timeline(host: str, port: int, timeout: float = 10.0):
     """(generation, promote_lsn) of the walsender at host:port: the
     probe handshake, header only, no stream."""
+    # failpoint: the rejoin's first contact with the new primary
+    FAULT("repl/probe", host=host, port=port)
+    NET_CHECK(host, port, timeout_s=timeout)
     sock = socket.create_connection((host, port), timeout=timeout)
     try:
         sock.sendall(pack_repl_hello(REPL_PROBE, 0))

@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from opentenbase_tpu_torch import types as t
+from opentenbase_tpu_torch.fault import FAULT
 from opentenbase_tpu_torch.storage.column import Column, Dictionary, column_from_python
 
 # Timestamp sentinels (int64). Real GTS values are positive and far below.
@@ -468,8 +469,12 @@ class ShardStore:
                 self._absorb_locked()
             n = self.nrows if nrows is None else nrows
             v = ScanView(self, n)
-        # the reference's fault-injection point "storage/delta_scan"
-        # sits here; this package has no fault injection
+            served = v.delta_rows()
+        if served:
+            # failpoint: the delta-scan assembly boundary; an error is a
+            # reader dying mid-assembly (the store untouched, its
+            # deltas intact, nothing half folded)
+            FAULT("storage/delta_scan", rows=served)
         return v
 
     def note_delta_read(self, rows: int) -> None:

@@ -29,6 +29,7 @@ subsystem.
     pg_stat_matview            refresh counters, modes and rewrite hits
     pg_publication             publications, their tables and node filters
     pg_subscription            subscriptions and their apply positions
+    pg_stat_faults             each failpoint seen armed, per process
 """
 
 from __future__ import annotations
@@ -253,6 +254,23 @@ def _2pc(c):
     return rows
 
 
+def _faults(c):
+    """The coordinator's failpoint counters (node "cn") and each attached
+    datanode process's (``fault_stats``); they survive pg_fault_clear,
+    so a chaos run stays auditable after the disarm."""
+    from opentenbase_tpu_torch import fault
+
+    rows = [("cn",) + tuple(r) for r in fault.stats()]
+    for n, ch in sorted(c.dn_channels.items()):
+        try:
+            resp = ch.rpc({"op": "fault_stats"})
+        except Exception:
+            continue  # an unreachable datanode is often the point
+        for r in resp.get("rows", []):
+            rows.append((f"dn{n}",) + tuple(r))
+    return rows
+
+
 def _matviews(c):
     from opentenbase_tpu_torch.matview.defs import is_fresh
 
@@ -335,6 +353,10 @@ SYSTEM_VIEWS: dict[str, tuple] = {
                        _gtm_nodes),
     "pg_stat_wal": ({"stat": t.TEXT, "value": t.INT8}, _stat_wal),
     "pg_stat_2pc": ({"stat": t.TEXT, "value": t.INT8}, _2pc),
+    "pg_stat_faults": ({"node": t.TEXT, "site": t.TEXT, "action": t.TEXT,
+                        "trigger_spec": t.TEXT, "arms": t.INT8,
+                        "hits": t.INT8, "fired": t.INT8, "armed": t.BOOL},
+                       _faults),
     "pg_partitions": ({"parent": t.TEXT, "partition": t.TEXT,
                        "index": t.INT4, "range_lo": t.INT8,
                        "range_hi": t.INT8, "n_live_tup": t.INT8},
@@ -386,7 +408,6 @@ NOT_PORTED: dict[str, str] = {
     "pg_stat_progress_refresh": "A.7",
     "pg_stat_plan_cache": "A.9", "pg_stat_result_cache": "A.9",
     "pg_stat_concentrator": "A.9",
-    "pg_stat_faults": "A.6",
     "pg_stat_rebalance": "A.8", "pgxc_group": "A.8",
 }
 

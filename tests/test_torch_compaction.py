@@ -5,8 +5,8 @@ reads serve them in place, one compaction pass folds them with the same
 answers, a crash image with deltas pending recovers in either package,
 and the background job (``delta_compaction_naptime_ms``) folds them on
 its own. The failpoint case (tests/test_write_path.py's
-``test_compaction_crash_mid_fold_recovers``) comes with the failpoint
-registry (ROADMAP A.6)."""
+``test_compaction_crash_mid_fold_recovers``) is held in
+tests/test_torch_fault.py."""
 
 import shutil
 import time

@@ -299,11 +299,18 @@ def test_refused_ops_name_what_is_not_ported(shared):
 
     c, _s, _rs, _p, _s2 = shared
     for op, what in (("trace_fetch", "trace ring"),
-                     ("fault_arm", "failpoints"),
                      ("rebalance_apply", "rebalance"),
                      ("log_fetch", "log ring")):
         with pytest.raises(ChannelError, match=f"NotPorted: {op}.*{what}"):
             c.dn_channels[0].rpc({"op": op})
+    # the fault-control ops are no longer refused (fault/): an arm, its
+    # counters and its clear, in the datanode process's own registry
+    ch = c.dn_channels[0]
+    assert ch.rpc({"op": "fault_arm", "site": "x/y", "action": "error",
+                   "spec": "once"})["ok"]
+    rows = ch.rpc({"op": "fault_stats"})["rows"]
+    assert ["x/y", "error", "once", 1, 0, 0, True] in rows
+    assert ch.rpc({"op": "fault_clear", "site": "x/y"})["cleared"] == 1
     # within-fragment parallel workers are no longer refused: under the
     # row threshold a fragment asking for 4 runs the serial path
     from opentenbase_tpu_torch.executor.dist import DistExecutor

@@ -4,9 +4,10 @@ on the reference (``opentenbase_tpu``) and on the port
 rows, generations, SQLSTATEs, ``events`` kinds and truncated byte counts
 are compared. The cases are tests/test_ha.py's and
 tests/test_replication.py's promotion, held without the fault harness
-(the port has no failpoints): a torn tail is half a record appended by
-hand, a dead datanode is a stopped server, lost phase-2 messages are a
-2PC fan-out that drops them. Every wait has a deadline; every socket
+(tests/test_torch_fault.py and tests/test_torch_chaos.py hold the
+failpoint cases): a torn tail is half a record appended by hand, a dead
+datanode is a stopped server, lost phase-2 messages are a 2PC fan-out
+that drops them. Every wait has a deadline; every socket
 binds port 0."""
 
 from __future__ import annotations

@@ -61,7 +61,9 @@ def test_package_imports_with_jax_blocked():
         "from opentenbase_tpu_torch.matview import defs, refresh, rewrite\n"
         "from opentenbase_tpu_torch.net import client, pgwire, server\n"
         "from opentenbase_tpu_torch.cli import (\n"
-        "    otb_bench, otb_psql, otb_server, otb_standby)\n"
+        "    otb_bench, otb_chaos, otb_psql, otb_server, otb_standby)\n"
+        "from opentenbase_tpu_torch.fault import partition as fpart\n"
+        "from opentenbase_tpu_torch.fault import schedule\n"
         "from opentenbase_tpu_torch.dn import server as dn_server\n"
         "from opentenbase_tpu_torch.storage import replication\n"
         "from opentenbase_tpu_torch.utils import rwlock\n"

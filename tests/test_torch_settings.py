@@ -47,9 +47,11 @@ TAKEN = [
     ("resource_group", "'batch'"),
     ("wlm_queue_timeout", "'100ms'"),
     ("enable_matview_rewrite", "off"),
+    # fault injection (fault/), taken since the failpoints were ported
+    ("fault_injection", "on"),
 ]
 REFUSED = ["trace_queries", "enable_plan_cache", "enable_result_cache",
-           "expected_device_platform", "fault_injection", "read_routing",
+           "expected_device_platform", "read_routing",
            "gtm_standby_addr", "autovacuum", "log_min_messages",
            "rebalance_rate_limit"]
 

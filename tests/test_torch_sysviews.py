@@ -161,6 +161,41 @@ def test_a_system_view_leaves_nothing_behind(p):
              "reserved")
 
 
+def test_pg_stat_faults_view(p):
+    """pg_stat_faults (taken with the failpoints): each package's
+    coordinator row of every site seen armed, its action and trigger,
+    counters that outlive pg_fault_clear."""
+    import opentenbase_tpu.fault as ref_fault
+    import opentenbase_tpu_torch.fault as port_fault
+
+    for f in (ref_fault, port_fault):
+        f.clear()
+        f.reset_stats()
+    try:
+        p.both("set fault_injection = on")
+        p.both("select pg_fault_inject('x/once', 'error', 'once')")
+        p.both("select pg_fault_inject('x/every', 'delay(1)', "
+               "'every(2), node=1')")
+        q = ("select node, site, action, trigger_spec, arms, hits, fired, "
+             "armed from pg_stat_faults order by site")
+        assert p.both(q).rows == [
+            ("cn", "x/every", "delay(1)", "every(2), node=1", 1, 0, 0, True),
+            ("cn", "x/once", "error", "once", 1, 0, 0, True)]
+        for f in (ref_fault, port_fault):
+            for _ in range(3):
+                f.FAULT("x/every", node=1)
+            with pytest.raises(f.FaultError):
+                f.FAULT("x/once")
+        assert p.both("select pg_fault_clear()").rows == [(1,)]
+        assert p.both(q).rows == [
+            ("cn", "x/every", "", "", 1, 3, 1, False),
+            ("cn", "x/once", "", "", 1, 1, 1, False)]
+    finally:
+        for f in (ref_fault, port_fault):
+            f.clear()
+            f.reset_stats()
+
+
 @pytest.mark.parametrize("name", sorted(sysviews.NOT_PORTED))
 def test_views_still_to_come_refused_by_name(p, name):
     item = sysviews.NOT_PORTED[name]

@@ -308,9 +308,10 @@ def test_resolve_indoubt_in_process_matches_the_reference(tmp_path):
 
 
 def test_admin_functions(tmp_path):
-    """pg_resolve_indoubt, pg_sleep and pg_stat_reset run and answer as
-    the reference's; the admin functions whose subsystem is not ported
-    are refused by name; a hot standby refuses pg_resolve_indoubt."""
+    """pg_resolve_indoubt, pg_sleep, pg_stat_reset and the failpoint
+    functions run and answer as the reference's; the admin functions
+    whose subsystem is not ported are refused by name; a hot standby
+    refuses pg_resolve_indoubt."""
     from opentenbase_tpu.engine import Cluster as RefCluster
 
     c = Cluster(num_datanodes=2, shard_groups=32, device="cpu")
@@ -321,9 +322,19 @@ def test_admin_functions(tmp_path):
     for fn in ("pg_sleep(0)", "pg_stat_reset()", "pg_resolve_indoubt()"):
         got, want = s.execute(f"select {fn}"), rs.execute(f"select {fn}")
         assert (got.columns, got.rows) == (want.columns, want.rows), fn
-    for fn in ("pg_clean_execute()", "pg_fault_inject('a', 'b')"):
-        with pytest.raises(NotPorted, match=fn.split("(")[0]):
-            s.execute(f"select {fn}")
+    with pytest.raises(NotPorted, match="pg_clean_execute"):
+        s.execute("select pg_clean_execute()")
+    # the failpoint functions (fault/) answer as the reference's: arming
+    # refused without fault_injection, clearing never gated
+    errs = []
+    for sess in (s, rs):
+        with pytest.raises(Exception) as ei:
+            sess.execute("select pg_fault_inject('a', 'b')")
+        errs.append((str(ei.value), ei.value.sqlstate))
+    assert errs[0] == errs[1] and errs[0][1] == "55000"
+    got, want = (x.execute("select pg_fault_clear('a')") for x in (s, rs))
+    assert (got.columns, got.rows) == (want.columns, want.rows) == (
+        ["cleared"], [(0,)])
     c.read_only = True
     with pytest.raises(SQLError, match="read-only") as ei:
         s.execute("select pg_resolve_indoubt()")
